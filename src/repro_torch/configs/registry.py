@@ -1,0 +1,34 @@
+"""Architecture registry: --arch <id> -> (config, smoke_config).
+
+Only the architectures the port serves so far are importable; every other
+id of the JAX package's registry raises `ConfigError("not ported yet")`.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.errors import ConfigError
+
+ARCHS: dict[str, str] = {"gemma3-4b": "gemma3_4b"}
+
+# ids the JAX package registers that this package does not cover yet
+NOT_PORTED = ("starcoder2-3b", "paligemma-3b", "whisper-base", "zamba2-1.2b",
+              "qwen1.5-110b", "mamba2-130m", "dbrx-132b", "phi3-medium-14b",
+              "kimi-k2-1t-a32b", "vit-b16")
+
+
+def _mod(arch: str):
+    if arch in NOT_PORTED:
+        raise ConfigError(f"arch {arch!r}: not ported yet")
+    if arch not in ARCHS:
+        raise ConfigError(f"unknown arch {arch!r}")
+    return importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _mod(arch).config()
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _mod(arch).smoke_config()
