@@ -3,12 +3,21 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
-each against its plain PyTorch version at the serving path's full-width
-shapes, serves gemma3-4b at full width (random weights drawn on the card
-from a seed) through the continuous-batching loop, compares the card with
-the CPU at full width and 2 layers, checks a hot weight swap, and prints one
-JSON line per phase.  Any mismatch or error raises, so the exit code is not
+Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/` and
+holds each against its plain PyTorch version at its path's full-width
+shapes.  Then it drives both of the port's paths on the card:
+
+* serving: gemma3-4b at full width (random weights drawn on the card from
+  a seed) through the continuous-batching loop, the card against the CPU
+  at 2 layers, and a hot weight swap;
+* training: ViT-B/16 at full width with Local AdamW under the QSR schedule
+  through `train()` (W = 4 workers, 32 images each, 10 rounds), the flat
+  layout with the quantized sync for 2 rounds, and the card against the
+  CPU at 2 layers.
+
+Each path runs with the kernels' launch counters set to 0 just before it
+and read just after, and fails unless every kernel of the path ran.  One
+JSON line per phase; any mismatch or error raises, so the exit code is not
 0.  The last line is `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX or of the JAX package.  Needs one CUDA card; without
@@ -33,17 +42,43 @@ PEAK_FP32_FLOP_PER_S = 67e12          # fp32 outside the tensor cores
 ARCH = "gemma3-4b"
 SLOTS, MAX_NEW = 2, 16
 PROMPT_LENS = (16, 48, 32, 24)        # 4 requests, 16-48 tokens: slots recycle
-TOL = {"rms_norm": 1e-5, "swiglu": 2e-5, "flash_decode": 2e-5}  # x max|plain|
+# tolerances x max(|plain|, 1): fp32 sums in another order (the attention
+# gradients go through two more contractions); AdamW's bias-correction pow
+# may differ by an ulp; the quantized sync is held bitwise (0)
+TOL = {"rms_norm": 1e-5, "swiglu": 2e-5, "flash_decode": 2e-5,
+       "flash_attention_fwd": 2e-5, "flash_attention_bwd": 5e-5,
+       "adamw_update": 1e-6, "sync_flat_update": 1e-6}
 REPLACES = {
     "rms_norm": "src/repro/kernels/rmsnorm.py:36",
     "swiglu": "src/repro/kernels/swiglu.py:44",
     "flash_decode": "src/repro/kernels/flash_attention.py:239",
+    "flash_attention_fwd": "src/repro/kernels/flash_attention.py:128",
+    "flash_attention_bwd": "src/repro/kernels/flash_attention.py:128",
+    "adamw_update": "src/repro/kernels/adamw_update.py:57",
+    "sync_flat_update": "src/repro/kernels/sync_update.py:87",
 }
+CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
-    "rms_norm": "src/repro_torch/kernels/csrc/rmsnorm.cu",
-    "swiglu": "src/repro_torch/kernels/csrc/swiglu.cu",
-    "flash_decode": "src/repro_torch/kernels/csrc/flash_decode.cu",
+    "rms_norm": CSRC + "rmsnorm.cu",
+    "swiglu": CSRC + "swiglu.cu",
+    "flash_decode": CSRC + "flash_decode.cu",
+    "flash_attention_fwd": CSRC + "flash_attention.cu",
+    "flash_attention_bwd": CSRC + "flash_attention.cu",
+    "adamw_update": CSRC + "adamw_update.cu",
+    "sync_flat_update": CSRC + "sync_update.cu",
 }
+SERVING_KERNELS = ("flash_decode", "rms_norm", "swiglu")
+TRAINING_KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
+                    "adamw_update", "sync_flat_update")
+
+# the training main path: examples/vit_local_adamw.py's recipe at full width
+TRAIN_ARCH = "vit-b16"
+W, B_LOC, IMAGE = 4, 32, 224
+TRAIN_RUN = dict(schedule="qsr", optimizer="adamw", total_steps=24,
+                 warmup_steps=2, peak_lr=6e-3, end_lr=1e-5, h_base=2,
+                 alpha=3.5e-3, weight_decay=0.01, remat=False)
+QSR_TRACE = [(t, 2) for t in range(0, 16, 2)] + [(16, 3), (19, 5)]
+VIT_PARAMS = 86_332_648
 
 
 class SmokeFailure(RuntimeError):
@@ -210,6 +245,25 @@ def work(torch, name, a) -> tuple[float, float]:
     return nbytes, flops
 
 
+def check_row(name, label, err, scale, main, **extra) -> dict:
+    tol = TOL[name] * max(scale, 1.0)
+    row = dict(kernel=name, shape=label, main_path_shape=main,
+               max_abs_err=err, max_rel_err=err / max(scale, 1e-30), tol=tol,
+               **extra)
+    check(err <= tol, f"{name} {label}: max abs err {err} > tol {tol}")
+    return row
+
+
+def timed_row(row, timer, kernel, plain, library, nbytes, flops) -> dict:
+    b_ms, b_by = bound_ms(nbytes, flops)
+    row.update(ms=timer(kernel), plain_ms=timer(plain),
+               library_ms=None if library is None else timer(library),
+               bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+    row["kernel_ms"] = row["ms"]
+    row["bound_share"] = b_ms / row["ms"]
+    return row
+
+
 def phase_kernels(torch, main_len):
     from repro_torch.kernels import ops, ref
     timer = Timer(torch)
@@ -220,28 +274,208 @@ def phase_kernels(torch, main_len):
         got = run_kernel(torch, ops.KERNELS, name, a)
         want = run_kernel(torch, {name: plain}, name, a)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        tol = TOL[name] * max(scale, 1.0)
-        row = dict(kernel=name, shape=label, main_path_shape=main,
-                   max_abs_err=err, max_rel_err=err / max(scale, 1e-30),
-                   tol=tol)
-        check(err <= tol, f"{name} {label}: max abs err {err} > tol {tol}")
+        row = check_row(name, label, float((got - want).abs().max()),
+                        float(want.abs().max()), main)
         if timed:
             lib = library_call(torch, name, a)
-            lib_err = float((lib() - want).abs().max())
-            nbytes, flops = work(torch, name, a)
-            b_ms, b_by = bound_ms(nbytes, flops)
-            row.update(
-                ms=timer(lambda: run_kernel(torch, ops.KERNELS, name, a)),
-                plain_ms=timer(lambda: run_kernel(torch, {name: plain},
-                                                  name, a)),
-                library_ms=timer(lib), library_max_abs_err=lib_err,
-                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
-            row["bound_share"] = b_ms / row["ms"]
+            row["library_max_abs_err"] = float((lib() - want).abs().max())
+            timed_row(row, timer,
+                      lambda: run_kernel(torch, ops.KERNELS, name, a),
+                      lambda: run_kernel(torch, {name: plain}, name, a),
+                      lib, *work(torch, name, a))
             if main:
                 summary[name] = row
         emit("kernel_check", **row)
+    return summary
+
+
+# ------------------------------------------------ training kernels ---------
+
+def attention_work(torch, a, backward: bool) -> tuple[float, float]:
+    """(bytes, operations) attention needs at these inputs: each row's
+    allowed (query, key) pairs, all Sk keys for a row with none.  Forward:
+    read q, k, v, write o and lse; 4 D operations per pair.  Backward: read
+    q, k, v, o, dout, lse, write dq, dk, dv; 10 D per pair (S, dP, dV, dK,
+    dQ)."""
+    from repro_torch.kernels import ref
+    b, sq, hq, d = a["q"].shape
+    sk, hkv = a["k"].shape[1], a["k"].shape[2]
+    m = ref._mask(sq, sk, causal=a["causal"], window=a["window"],
+                  prefix_len=a["prefix_len"], q_offset=a["q_offset"],
+                  device=a["q"].device)
+    need = m.sum(-1)
+    need = torch.where(need == 0, torch.full_like(need, sk), need)
+    pairs = float(need.sum()) * b * hq
+    qo, kv, lse = 4.0 * b * sq * hq * d, 4.0 * b * sk * hkv * d, 4.0 * b * hq * sq
+    if backward:
+        return 4 * qo + 4 * kv + lse, pairs * 10.0 * d
+    return 2 * qo + 2 * kv + lse, pairs * 4.0 * d
+
+
+def attention_cases(rnd):
+    """(label, inputs, main-path shape?).  The main path's: ViT-B/16,
+    [32,196,12,64] non-causal (196 tokens: no tile divides it)."""
+    def fa(label, b, sq, sk, hkv, g, d, causal, window=0, prefix_len=0,
+           q_offset=0, main=False):
+        return (label, dict(q=rnd(b, sq, hkv * g, d), k=rnd(b, sk, hkv, d),
+                            v=rnd(b, sk, hkv, d), dout=rnd(b, sq, hkv * g, d),
+                            causal=causal, window=window,
+                            prefix_len=prefix_len, q_offset=q_offset), main)
+    return [
+        fa("vit-b q[32,196,12,64] non-causal", 32, 196, 196, 12, 1, 64,
+           False, main=True),
+        fa("q[4,300,8,64] causal", 4, 300, 300, 8, 1, 64, True),
+        fa("q[4,300,8,64] causal window 64", 4, 300, 300, 8, 1, 64, True,
+           window=64),
+        fa("q[4,300,8,64] causal prefix 17", 4, 300, 300, 8, 1, 64, True,
+           prefix_len=17),
+        fa("q[2,300,8,64] kv 500 causal q_offset 200", 2, 300, 500, 8, 1, 64,
+           True, q_offset=200),
+        fa("q[2,256,8,128] kv[.,.,4,.] gqa 2 causal", 2, 256, 256, 4, 2, 128,
+           True),
+        fa("q[2,256,8,128] kv[.,.,2,.] gqa 4 causal", 2, 256, 256, 2, 4, 128,
+           True),
+        fa("q[1,130,4,256] gqa 2 window 32 prefix 5", 1, 130, 130, 2, 2, 256,
+           True, window=32, prefix_len=5),
+    ]
+
+
+def phase_training_kernels(torch):
+    """flash_attention forward and backward, adamw_update and
+    sync_flat_update against their plain versions at the training path's
+    shapes, with kernel / plain / library / bound times at the main path's."""
+    from repro_torch.kernels import adamw_update as _ad
+    from repro_torch.kernels import flash_attention as _fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sync_update as _su
+    F = torch.nn.functional
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(4321)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * std
+
+    summary = {}
+    for label, a, main in attention_cases(rnd):
+        q, k, v, do = a["q"], a["k"], a["v"], a["dout"]
+        mask = {key: a[key] for key in ("causal", "window", "prefix_len",
+                                        "q_offset")}
+        kw = dict(mask, scale=q.shape[-1] ** -0.5)
+        o, lse = _fa.flash_attention_fwd(q, k, v, **kw)
+        grads = _fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        want = ref.attention(*ins, **mask)
+        want_g = torch.autograd.grad(want, ins, do, retain_graph=True)
+        torch.cuda.synchronize()
+        err = float((o - want.detach()).abs().max())
+        fwd = check_row("flash_attention_fwd", label, err,
+                        float(want.detach().abs().max()), main)
+        gerr = max(float((x - y).abs().max()) for x, y in zip(grads, want_g))
+        bwd = check_row("flash_attention_bwd", label, gerr,
+                        max(float(y.abs().max()) for y in want_g), main)
+        if main:
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                          for x in (q, k, v))
+            lib = F.scaled_dot_product_attention(qt, kt, vt)
+            dot = do.transpose(1, 2)
+            with torch.no_grad():
+                timed_row(fwd, timer,
+                          lambda: _fa.flash_attention_fwd(q, k, v, **kw),
+                          lambda: ref.attention(q, k, v, **mask),
+                          lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                          *attention_work(torch, a, False))
+            timed_row(bwd, timer,
+                      lambda: _fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                      **kw),
+                      lambda: torch.autograd.grad(want, ins, do,
+                                                  retain_graph=True),
+                      lambda: torch.autograd.grad(lib, (qt, kt, vt), dot,
+                                                  retain_graph=True),
+                      *attention_work(torch, a, True))
+
+            def fwd_bwd(fn, xs, d_out):
+                out = fn(*xs)
+                return torch.autograd.grad(out, xs, d_out)
+            kq = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            bwd["kernel_fwd_bwd_ms"] = timer(lambda: fwd_bwd(
+                lambda *x: _fa.flash_attention(*x, **mask), kq, do))
+            bwd["library_fwd_bwd_ms"] = timer(lambda: fwd_bwd(
+                F.scaled_dot_product_attention, (qt, kt, vt), dot))
+            summary["flash_attention_fwd"], summary["flash_attention_bwd"] = \
+                fwd, bwd
+            del lib
+        emit("kernel_check", **fwd)
+        emit("kernel_check", **bwd)
+        del o, lse, grads, ins, want, want_g
+
+    hyper = dict(lr=3e-3, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
+                 step=torch.tensor(5.0))
+    for label, shape, main in (
+            ("largest tree leaf [4,12,768,3072]", (W, 12, 768, 3072), True),
+            (f"flat bucket [4,{VIT_PARAMS}]", (W, VIT_PARAMS), False)):
+        p, m, grad = rnd(*shape, std=0.02), rnd(*shape, std=1e-3), \
+            rnd(*shape, std=1e-2)
+        v = rnd(*shape, std=1e-3).abs_()
+        want = ref.adamw_update(p, m, v, grad, **hyper)
+        got = _ad.adamw_update(p.clone(), m.clone(), v.clone(), grad, **hyper)
+        torch.cuda.synchronize()
+        err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+        row = check_row("adamw_update", label, err,
+                        max(float(y.abs().max()) for y in want), main)
+        del want, got
+        lib_p = torch.nn.Parameter(p.clone())
+        lib_p.grad = grad
+        lib = torch.optim.AdamW([lib_p], lr=3e-3, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=0.01, fused=True)
+        n = p.numel()
+        timed_row(row, timer,
+                  lambda: _ad.adamw_update(p, m, v, grad, **hyper),
+                  lambda: ref.adamw_update(p, m, v, grad, **hyper),
+                  lib.step, 28.0 * n, 16.0 * n)
+        if main:
+            summary["adamw_update"] = row
+        emit("kernel_check", **row)
+        del p, m, v, grad, lib_p, lib
+
+    n = VIT_PARAMS
+    anchor = rnd(n, std=0.02)
+    p = anchor[None] + rnd(W, n, std=1e-3)
+    scale = (rnd(n).abs_() + 0.1) * 3e-3
+    mu0 = rnd(n, std=1e-4)
+    for quantize, momentum in ((True, 0.0), (False, 0.0), (True, 0.9),
+                               (False, 0.9)):
+        kw = dict(scale=scale if quantize else None,
+                  mu=mu0 if momentum else None, momentum=momentum)
+        label = (f"[{W},{n}] quantize {'on' if quantize else 'off'} "
+                 f"momentum {momentum}")
+        want = ref.sync_flat_update(p, anchor, **kw)
+        got = _su.sync_flat_update(
+            p.clone(), anchor.clone(), scale=kw["scale"],
+            mu=None if kw["mu"] is None else mu0.clone(), momentum=momentum)
+        torch.cuda.synchronize()
+        err = max(float((x - y).abs().max()) for x, y in zip(got, want)
+                  if y is not None)
+        if quantize:        # integer codes, no FMA: bitwise
+            check(err == 0.0, f"sync_flat_update {label}: not bitwise "
+                  f"({err})")
+        row = check_row("sync_flat_update", label, err,
+                        float(want[0].abs().max()), quantize and not momentum,
+                        bitwise=err == 0.0)
+        del want, got
+        pk, ak = p.clone(), anchor.clone()
+        muk = None if kw["mu"] is None else mu0.clone()
+        words = 2 * W + 2 + quantize + 2 * (momentum > 0)
+        timed_row(row, timer,
+                  lambda: _su.sync_flat_update(pk, ak, scale=kw["scale"],
+                                               mu=muk, momentum=momentum),
+                  lambda: ref.sync_flat_update(p, anchor, **kw), None,
+                  4.0 * n * words, n * (W * (5.0 if quantize else 2.0) + 6))
+        if quantize and not momentum:
+            summary["sync_flat_update"] = row
+        emit("kernel_check", **row)
+        del pk, ak, muk
+    del p, anchor, scale, mu0
+    torch.cuda.empty_cache()
     return summary
 
 
@@ -280,9 +514,10 @@ def phase_service(torch, np):
 
     check(all(r.done and len(r.out) == MAX_NEW for r in reqs),
           "not every request finished with its tokens")
-    want = {"rms_norm": (2 * cfg.n_layers + 1) * steps,
-            "swiglu": cfg.n_layers * steps,
-            "flash_decode": cfg.n_layers * steps}
+    want = {k: 0 for k in counts}
+    want.update(rms_norm=(2 * cfg.n_layers + 1) * steps,
+                swiglu=cfg.n_layers * steps,
+                flash_decode=cfg.n_layers * steps)
     check(counts == want, f"launch counts {counts} != expected {want}")
     per_step = {k: v / steps for k, v in counts.items()}
 
@@ -442,6 +677,252 @@ def phase_hot_swap(torch, np):
          restart_tokens=rref.out, match=True)
 
 
+# ---------------------------------------------------------- training -------
+
+def train_setup(torch, *, layout="tree", n_layers=None, workers=None,
+                b_loc=None, device="cuda", **run_overrides):
+    """(cfg, run config, stream, batch_fn, engine) of the ViT-B/16 recipe
+    (W workers x B_LOC images unless given)."""
+    from repro_torch.configs import registry as R
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.engine import RoundEngine
+    from repro_torch.data.synthetic import VisionStream, vision_batch_fn
+
+    cfg = R.get_config(TRAIN_ARCH)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    run = RunConfig(**{**TRAIN_RUN, **run_overrides})
+    workers, b_loc = workers or W, b_loc or B_LOC
+    stream = VisionStream(n_classes=cfg.n_classes, image=IMAGE, seed=42)
+    batch_fn = vision_batch_fn(stream, workers, b_loc)
+    eng = RoundEngine(cfg, run, workers=workers, b_loc=b_loc, seq=1,
+                      data="host", layout=layout, batch_fn=batch_fn,
+                      device=device)
+    return cfg, run, stream, batch_fn, eng
+
+
+def step_flops(cfg, images: int, tokens: int) -> float:
+    """Matmul + attention FLOPs of one local step (forward + backward = 3x
+    the forward) over `images` images, from the shapes."""
+    d, f, pd = cfg.d_model, cfg.d_ff, 16 * 16 * 3
+    per_image = (2 * tokens * pd * d
+                 + cfg.n_layers * (2 * tokens * d * 4 * d      # q, k, v, o
+                                   + 2 * tokens * d * 2 * f    # wi, wo
+                                   + 4 * tokens * tokens * d)  # QK^T, PV
+                 + 2 * d * cfg.n_classes)
+    return 3.0 * per_image * images
+
+
+def lanes_equal(torch, state, anchor=None) -> bool:
+    """Every worker lane of every params leaf bitwise equal (to the
+    anchor, when given)."""
+    from repro_torch import tree as T
+    if anchor is None:
+        return all(bool(torch.equal(x, x[:1].expand_as(x)))
+                   for x in T.leaves(state["params"]))
+    return all(bool(torch.equal(state["params"][b], anchor[b][None]
+                                .expand_as(state["params"][b])))
+               for b in anchor)
+
+
+def phase_train(torch, np):
+    """The training main path: ViT-B/16 at full width, Local AdamW under
+    QSR through `train()`, W = 4 x 32 images of 224^2, 10 rounds."""
+    from repro_torch import tree as T
+    from repro_torch.core import local_update as LU
+    from repro_torch.core.sync import make_sync
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.models import vit
+
+    cfg, run, stream, batch_fn, eng = train_setup(torch)
+    check_s = [0.0]
+
+    def eval_fn(t, state):                # after each round's sync
+        t0 = time.perf_counter()
+        check(lanes_equal(torch, state), f"lanes differ after the sync at {t}")
+        check_s[0] += time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()             # the main path: counts at 0 ...
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, hist = train(cfg, run, workers=W, b_loc=B_LOC, seq=1, data="host",
+                        eng=eng, eval_fn=eval_fn, log_every=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - check_s[0]
+    counts = ops.launch_counts()          # ... read just after
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    steps = run.total_steps
+    rounds = [dict(t_end=t, h=h, lr=lr, loss=float(m["loss"]),
+                   grad_norm=float(m["grad_norm"]),
+                   divergence=float(m["divergence"]))
+              for (t, h, _, lr), m in zip(hist, eng.round_metrics)]
+    check([(t - h, h) for t, h, _, _ in hist] == QSR_TRACE,
+          f"H trace {[(t - h, h) for t, h, _, _ in hist]} != {QSR_TRACE}")
+    check(eng.h_trace == QSR_TRACE, f"engine trace {eng.h_trace}")
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+              for r in rounds), "a non-finite loss or grad norm")
+    check(all(r["divergence"] > 0 for r in rounds),
+          "zero worker divergence before a sync")
+    attn = cfg.n_layers * W * steps       # one call per layer per worker
+    want = {k: 0 for k in counts}
+    want.update(flash_attention_fwd=attn, flash_attention_bwd=attn,
+                adamw_update=16 * steps)  # one per leaf per step (tree)
+    check(counts == want, f"launch counts {counts} != expected {want}")
+    for r in rounds:
+        emit("train_round", **r)
+
+    # held-out accuracy of the final params, as the example computes it
+    final = eng.params_single(state)
+    with torch.no_grad():
+        accs = []
+        for i in range(8):
+            xs, ys = stream.batch(50_000 + i, 0, 64, noisy=False)
+            accs.append(float(vit.accuracy(cfg, final, {
+                "images": xs.cuda(), "labels": ys.cuda()})))
+
+    # device time of one local step (CUDA events, data already on the card)
+    # and of one sync, on the final state
+    step_fn = LU.make_local_step(cfg, run, with_metrics=True)
+    batch = T.map(lambda x: x.cuda(), batch_fn(0))
+    state, _ = step_fn(state, batch, 1e-5)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    for _ in range(3):
+        state, _ = step_fn(state, batch, 1e-5)
+    ev[1].record()
+    sync = make_sync(run)
+    with torch.no_grad():
+        ev[2].record()
+        for _ in range(3):
+            state = sync(state)
+        ev[3].record()
+    torch.cuda.synchronize()
+    device_ms = ev[0].elapsed_time(ev[1]) / 3
+    sync_ms = ev[2].elapsed_time(ev[3]) / 3
+
+    images = W * B_LOC
+    flops = step_flops(cfg, images, (IMAGE // 16) ** 2)
+    wall_ms = wall / steps * 1e3
+    data_ms = eng.data_seconds / steps * 1e3
+    emit("train", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         params=VIT_PARAMS, workers=W, b_loc=B_LOC, image=IMAGE,
+         steps=steps, rounds=len(rounds), h_trace=eng.h_trace,
+         wall_s=wall, wall_ms_per_step=wall_ms, data_ms_per_step=data_ms,
+         device_ms_per_step=device_ms,
+         device_busy_share=device_ms / wall_ms,
+         images_per_s=images * steps / wall, sync_ms=sync_ms,
+         flop_per_step=flops,
+         flop_floor_ms_per_step=flops / PEAK_FP32_FLOP_PER_S * 1e3,
+         achieved_tflop_s=flops / device_ms / 1e9,
+         launches=counts,
+         launches_per_step={k: v / steps for k, v in counts.items()},
+         peak_mem_gb=peak_gb, heldout_acc=float(np.mean(accs)),
+         final_loss=rounds[-1]["loss"], lanes_equal_after_sync=True)
+    del state, final, eng
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_flat_quantized(torch, np):
+    """The same model and data at full width, layout flat with the int8
+    sync, 2 rounds of H = 2: one adamw_update per step and one
+    sync_flat_update per round, all lanes equal to the anchor after it."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+
+    cfg, run, _, _, eng = train_setup(torch, layout="flat", schedule="constant",
+                                      total_steps=4, sync_quantize=True)
+
+    def eval_fn(t, state):
+        check(lanes_equal(torch, state, state["anchor"]),
+              f"flat lanes differ from the anchor after the sync at {t}")
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, hist = train(cfg, run, workers=W, b_loc=B_LOC, seq=1, data="host",
+                    layout="flat", eng=eng, eval_fn=eval_fn, log_every=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    want = {k: 0 for k in counts}
+    want.update(flash_attention_fwd=cfg.n_layers * W * 4,
+                flash_attention_bwd=cfg.n_layers * W * 4, adamw_update=4,
+                sync_flat_update=2)
+    check(counts == want, f"launch counts {counts} != expected {want}")
+    check([(t - h, h) for t, h, _, _ in hist] == [(0, 2), (2, 2)],
+          f"rounds {hist}")
+    check(all(np.isfinite(loss) for _, _, loss, _ in hist), "non-finite loss")
+    emit("train_flat_quantized", arch=cfg.name, layout="flat",
+         buckets=list(eng.spec.sizes.items()), sync_quantize=True,
+         rounds=[dict(t_end=t, h=h, loss=loss,
+                      divergence=float(m["divergence"]))
+                 for (t, h, loss, _), m in zip(hist, eng.round_metrics)],
+         wall_s=wall, launches=counts, lanes_equal_anchor=True)
+    del eng
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_card_vs_cpu(torch, np):
+    """ViT-B widths at 2 layers, W = 2, 2 images of 224^2 each, one round of
+    H = 2: the same weights and batches on the card (kernels) and on the
+    CPU (plain versions)."""
+    from repro_torch import tree as T
+    from repro_torch.core import local_update as LU
+    from repro_torch.core.sync import make_sync
+    from repro_torch.models import api, param as pm
+
+    cfg, run, _, batch_fn, _ = train_setup(torch, n_layers=2, workers=2,
+                                           b_loc=2, schedule="constant",
+                                           total_steps=2)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    card_p = pm.init_params(api.get_module(cfg).param_defs(cfg), gen,
+                            device="cuda")
+    host_p = T.map(lambda x: x.cpu(), card_p)
+    states = {"cuda": LU.init_state(cfg, run, card_p, 2),
+              "cpu": LU.init_state(cfg, run, host_p, 2)}
+    step_fn = LU.make_local_step(cfg, run, with_metrics=True)
+    sync = make_sync(run)
+    losses = {"cuda": [], "cpu": []}
+    for t in range(2):
+        batch = batch_fn(t)
+        for dev in ("cuda", "cpu"):
+            b = T.map(lambda x: x.to(dev), batch)
+            states[dev], (loss, _) = step_fn(states[dev], b, 6e-3)
+            losses[dev].append(float(loss))
+    with torch.no_grad():
+        for dev in states:
+            states[dev] = sync(states[dev])
+    # losses: fp32 sums in another order, ~1e-6 relative; 1e-4 stated.
+    # params after 2 AdamW steps: m / sqrt(v) flips where a gradient element
+    # sits at the sum-order noise, so a few elements in 1e4 may move by up to
+    # 2 lr per step differently: at most 1 in 2,000 beyond 1e-5, none beyond
+    # 4 lr.
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                      losses["cpu"]))
+    check(loss_err <= 1e-4, f"card vs CPU loss rel err {loss_err}")
+    worst, n_off, n_all = 0.0, 0, 0
+    for a, b in zip(T.leaves(states["cuda"]["params"]),
+                    T.leaves(states["cpu"]["params"])):
+        d = (a.cpu() - b).abs()
+        off = int((d > 1e-5 * (1 + b.abs())).sum())
+        check(off <= max(1, b.numel() // 2000),
+              f"card vs CPU: {off} of {b.numel()} elements beyond 1e-5")
+        worst = max(worst, float(d.max()))
+        n_off, n_all = n_off + off, n_all + b.numel()
+    check(worst <= 4 * 6e-3, f"card vs CPU params differ by {worst}")
+    emit("train_card_vs_cpu", layers=cfg.n_layers, d_model=cfg.d_model,
+         workers=2, b_loc=2, image=IMAGE, steps=2, losses_card=losses["cuda"],
+         losses_cpu=losses["cpu"], max_loss_rel_err=loss_err,
+         max_param_abs_err=worst, params_beyond_1e5=n_off, params=n_all)
+    del states, card_p
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -472,12 +953,22 @@ def main() -> int:
 
     max_len = max(PROMPT_LENS) + MAX_NEW
     timed = phase_kernels(torch, max_len)
-    counts = phase_service(torch, np)
+    timed.update(phase_training_kernels(torch))
+    counts = {}
+    serve = phase_service(torch, np)
+    counts.update({k: serve[k] for k in SERVING_KERNELS})
     phase_card_vs_cpu(torch, np)
     phase_hot_swap(torch, np)
+    trained = phase_train(torch, np)
+    counts.update({k: trained[k] for k in TRAINING_KERNELS[:3]})
+    flat = phase_train_flat_quantized(torch, np)
+    counts["sync_flat_update"] = flat["sync_flat_update"]
+    phase_train_card_vs_cpu(torch, np)
+    check(all(counts[k] > 0 for k in SOURCES),
+          f"a kernel of a path never launched: {counts}")
 
     kernels = []
-    for name in ("flash_decode", "rms_norm", "swiglu"):
+    for name in SERVING_KERNELS + TRAINING_KERNELS:
         t = timed[name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],

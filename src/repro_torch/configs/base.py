@@ -1,8 +1,10 @@
-"""Model config dataclass (a copy of `repro/configs/base.py` ModelConfig).
+"""Config dataclasses (a copy of `repro/configs/base.py`).
 
 The fields match the JAX package's one for one, so a config built here
-describes the same model there.  `RunConfig` (training policy) waits for
-the training slice.
+describes the same model and run there.  Fields of `RunConfig` that name
+parts the port does not run yet (sharding, overlap wires, MoE dispatch)
+are kept so the two configs compare equal; the code that reads them
+raises `ConfigError("not ported yet")` where it meets one it cannot run.
 """
 from __future__ import annotations
 
@@ -68,3 +70,41 @@ class ModelConfig:
         if self.window_pattern == 0:
             return self.window
         return 0 if (i + 1) % self.window_pattern == 0 else self.window
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Distribution + numerics policy for a run."""
+    sharding: str = "dp"            # dp | fsdp
+    param_dtype: str = "bfloat16"
+    remat: bool = True
+    remat_policy: str = "full"      # full | save_collectives
+    seq_shard_activations: bool = False  # Korthikanti-style sequence parallel
+    moe_dispatch_shards: int = 1    # >1: shard-local MoE dispatch
+    moe_dispatch: str = "auto"      # auto | sharded | shard_map
+    microbatch: int = 1             # grad-accumulation chunks per local step
+    optimizer: str = "adamw"        # adamw | sgd
+    # H schedule
+    # qsr | constant | inverse | cubic | postlocal | swap | parallel
+    # | linear_inc | dec_sqrt  (related-work baselines, paper §A)
+    schedule: str = "qsr"
+    h_base: int = 4
+    alpha: float = 0.0175           # QSR growth coefficient
+    beta: float = 0.03              # inverse-rule coefficient
+    rho: float = 0.0075             # cubic-rule coefficient
+    switch_frac: float = 0.5        # post-local / swap switching point
+    # lr schedule
+    lr_schedule: str = "cosine"     # cosine | linear | step
+    peak_lr: float = 0.008
+    end_lr: float = 1e-6
+    warmup_steps: int = 0
+    total_steps: int = 1000
+    weight_decay: float = 0.05
+    # serving layout
+    cache_layout: str = "batch"      # batch | seq_model (flash-decode)
+    # sync options (beyond-paper)
+    sync_quantize: bool = False      # int8-quantized sync deltas
+    outer_momentum: float = 0.0      # DiLoCo-style Nesterov outer optimizer
+    # wire mode for the quantized sync payload: auto (exact integer-code
+    # sum) | ring-int8 (re-quantizing ring; not ported yet)
+    sync_wire: str = "auto"

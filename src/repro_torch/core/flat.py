@@ -14,8 +14,10 @@ initializes the weights by writing through those views — one copy of the
 weights at peak, which is what lets gemma3-4b's 15.5 GB of fp32 weights
 serve from one card.  `flatten` concatenates, so it allocates the buckets.
 
-`ShardedFlatSpace` and the per-tensor segment reductions wait for the
-training slice.
+Training adds the per-tensor segment reductions (`segment_ids`,
+`segment_max`, `spread`, which the quantized sync's per-tensor scales use)
+and the runtime-state conversions `to_flat_state` / `to_tree_state`.
+`ShardedFlatSpace` waits for the distributed slice.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import dataclasses
 import math
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch import tree as T
@@ -73,6 +76,34 @@ class FlatParamSpace:
         self.sizes: dict[str, int] = {b: sizes[b] for b in self.buckets}
         self._order = order           # bucket -> leaf indices, offset order
 
+    def bucket_leaves(self, bucket: str) -> int:
+        return len(self._order[bucket])
+
+    def segment_ids(self, bucket: str) -> np.ndarray:
+        """int32 [N_bucket]: which leaf (bucket-local index) each element of
+        the bucket buffer belongs to — the per-tensor reduction map."""
+        seg = np.empty(self.sizes[bucket], np.int32)
+        for i in self._order[bucket]:
+            lf = self._leaves[i]
+            seg[lf.offset:lf.offset + lf.size] = lf.index
+        return seg
+
+    def segment_max(self, bucket: str, x: torch.Tensor) -> torch.Tensor:
+        """Per-leaf max of an `[N]` bucket-shaped tensor -> `[#leaves]`, in
+        bucket-local leaf order.  max is exact, so this equals a per-tensor
+        `torch.max` bitwise."""
+        return torch.stack([x.narrow(0, self._leaves[i].offset,
+                                     self._leaves[i].size).max()
+                            for i in self._order[bucket]])
+
+    def spread(self, bucket: str, per_leaf: torch.Tensor) -> torch.Tensor:
+        """Per-tensor values `[#leaves]` -> elements `[N]` (each leaf's
+        value repeated over its elements)."""
+        sizes = torch.tensor([self._leaves[i].size for i in self._order[bucket]],
+                             device=per_leaf.device)
+        return torch.repeat_interleave(per_leaf, sizes,
+                                       output_size=self.sizes[bucket])
+
     def empty(self, device) -> dict[str, torch.Tensor]:
         """Uninitialized buckets on `device` (fill them through
         `unflatten`'s views)."""
@@ -113,3 +144,34 @@ class FlatParamSpace:
                 sl = buf.narrow(lead, lf.offset, lf.size)
                 leaves[i] = sl.view(tuple(buf.shape[:lead]) + lf.shape)
         return T.unflatten(self.treedef, leaves)
+
+
+# --------------------------------------------------------------------------
+# Runtime-state conversion (the RoundEngine's layout="flat" entry points)
+# --------------------------------------------------------------------------
+
+_STACKED = ("m", "v", "mu")       # optimizer slots carrying the worker axis
+
+
+def to_flat_state(spec: FlatParamSpace, state: Tree) -> Tree:
+    """Tree runtime state (local_update.init_state layout) -> flat state:
+    params/opt moments become `{bucket: [W, N]}`, the sync anchor and outer
+    momentum become `{bucket: [N]}`; scalars ride along unchanged."""
+    out = {"params": spec.flatten(state["params"], lead=1)}
+    out["opt"] = {k: (spec.flatten(v, lead=1) if k in _STACKED else v)
+                  for k, v in state["opt"].items()}
+    for k in ("anchor", "outer_mu"):
+        if k in state:
+            out[k] = spec.flatten(state[k])
+    return out
+
+
+def to_tree_state(spec: FlatParamSpace, state: Tree) -> Tree:
+    """Inverse of `to_flat_state`: every leaf is a view into its bucket."""
+    out = {"params": spec.unflatten(state["params"], lead=1)}
+    out["opt"] = {k: (spec.unflatten(v, lead=1) if k in _STACKED else v)
+                  for k, v in state["opt"].items()}
+    for k in ("anchor", "outer_mu"):
+        if k in state:
+            out[k] = spec.unflatten(state[k])
+    return out

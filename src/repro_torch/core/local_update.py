@@ -1,0 +1,120 @@
+"""Local-gradient runtime, paper Alg. 2 (port of `repro/core/local_update.py`).
+
+Worker replicas are an explicit leading axis `W` on params and optimizer
+state, so replicas diverge between syncs.  A local step is a per-worker
+loss and gradient plus an elementwise optimizer update (no cross-worker
+communication); the sync is a W-axis mean every H steps.
+
+Where the reference vmaps the per-worker loss and gradient, the port keeps
+each state leaf (each dtype bucket, under the flat layout) as ONE `[W, ...]`
+tensor, makes a grad-requiring alias of it, runs each worker's forward on
+the views `[w]`, sums the W losses and takes one `torch.autograd.grad`.  The
+workers share no parameter, so each worker's slice of the gradient is
+exactly its own gradient.  Under the flat layout the gradient is taken with
+respect to the `[W, N]` buckets through `FlatParamSpace.unflatten`'s views,
+which scatters each leaf's gradient into its slice: bitwise the tree
+layout's per-leaf gradient.  The optimizer then updates the state tensors
+under `torch.no_grad()` (in place on the card).  Folding the W workers into
+one batched product is later work.
+"""
+from __future__ import annotations
+
+from functools import partial
+from typing import Any
+
+import torch
+
+from repro_torch import tree as T
+from repro_torch.core.sync import make_sync
+from repro_torch.errors import ConfigError
+from repro_torch.models import api
+from repro_torch.optim.optimizers import make_optimizer
+
+Tree = Any
+
+
+def replicate_for_workers(tree: Tree, w: int) -> Tree:
+    """Every leaf `x` -> a new contiguous `[W, *x.shape]` copy."""
+    return T.map(lambda x: x[None].expand((w,) + tuple(x.shape)).clone(),
+                 tree)
+
+
+def init_state(cfg, run_cfg, params_single: Tree, w: int) -> Tree:
+    """Runtime state with a leading worker axis W.  The anchor is a copy of
+    `params_single` (the sync may update it in place)."""
+    opt = make_optimizer(run_cfg)
+    params = replicate_for_workers(params_single, w)
+    state = {"params": params, "opt": opt.init(params)}
+    if run_cfg.sync_quantize or run_cfg.outer_momentum > 0.0:
+        state["anchor"] = T.map(torch.clone, params_single)
+        if run_cfg.outer_momentum > 0.0:
+            state["outer_mu"] = T.map(
+                lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device), params_single)
+    return state
+
+
+def make_loss(cfg, run_cfg):
+    """loss(params, batch) -> scalar, with the run's remat policy."""
+    if cfg.n_experts:
+        raise ConfigError(f"{cfg.name}: MoE training is not ported yet")
+    return partial(api.get_module(cfg).loss_fn, cfg, remat=bool(run_cfg.remat))
+
+
+def make_local_step(cfg, run_cfg, *, with_metrics: bool = False, spec=None):
+    """One per-worker optimizer step: NO cross-worker communication.
+
+    state leaves carry the leading worker axis W, batch leaves too.  Returns
+    local_step(state, batch, lr) -> (state, loss) or, with `with_metrics`,
+    (state, (loss, grad_norm)): the mean over workers of the W losses and of
+    each worker's global gradient L2 norm, as 0-d device tensors.  With
+    `spec` (a FlatParamSpace) params/opt are `{bucket: [W, N]}` buffers."""
+    if run_cfg.microbatch > 1:
+        raise ConfigError("microbatch > 1: not ported yet")
+    loss_fn = make_loss(cfg, run_cfg)
+    opt = make_optimizer(run_cfg)
+
+    def local_step(state, batch, lr):
+        leaves, treedef = T.flatten(state["params"])
+        alias = [x.detach().requires_grad_(True) for x in leaves]
+        lanes = [x.unbind(0) for x in alias]
+        w = T.leaves(batch)[0].shape[0]
+        with torch.enable_grad():
+            losses = []
+            for i in range(w):
+                pw = T.unflatten(treedef, [lane[i] for lane in lanes])
+                if spec is not None:
+                    pw = spec.unflatten(pw)
+                losses.append(loss_fn(pw, T.map(lambda x: x[i], batch)))
+            losses = torch.stack(losses)
+            grads = torch.autograd.grad(losses.sum(), alias)
+        with torch.no_grad():
+            params, opt_state = opt.update(
+                state["params"], state["opt"], T.unflatten(treedef, grads), lr)
+            new_state = {**state, "params": params, "opt": opt_state}
+            loss = torch.mean(losses.detach())
+            if not with_metrics:
+                return new_state, loss
+            sq = sum(torch.sum(torch.square(g.float()),
+                               dim=tuple(range(1, g.ndim))) for g in grads)
+            return new_state, (loss, torch.mean(torch.sqrt(sq)))
+
+    return local_step
+
+
+def make_train_round(cfg, run_cfg):
+    """(state, batches [H of [W, ...]], lrs [H]) -> (state, mean_loss): the
+    paper-faithful communication round, H local steps then one parameter-
+    average sync (tree layout)."""
+    local_step = make_local_step(cfg, run_cfg)
+    sync = make_sync(run_cfg)
+
+    def round_fn(state, batches, lrs):
+        losses = []
+        for batch, lr in zip(batches, lrs):
+            state, loss = local_step(state, batch, lr)
+            losses.append(loss)
+        with torch.no_grad():
+            return sync(state), torch.mean(torch.stack(losses))
+
+    return round_fn

@@ -111,7 +111,7 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -121,9 +121,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.swiglu_f32.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
     lib.flash_decode_f32.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                      _I, _I, _I, _F, _I, _P]
+    lib.flash_attention_fwd_f32.argtypes = [_P] * 5 + [_I] * 6 + [_F] + \
+        [_I] * 4 + [_P]
+    lib.flash_attention_bwd_f32.argtypes = [_P] * 10 + [_I] * 6 + [_F] + \
+        [_I] * 4 + [_P]
+    lib.adamw_update_f32.argtypes = [_P] * 4 + [_L] + [_F] * 8 + [_P]
+    lib.sync_flat_update_f32.argtypes = [_P] * 4 + [_L, _I, _F, _P]
     lib.cuda_error_string.argtypes = [_I]
     lib.cuda_error_string.restype = ctypes.c_char_p
-    for fn in (lib.rmsnorm_f32, lib.swiglu_f32, lib.flash_decode_f32):
+    for fn in (lib.rmsnorm_f32, lib.swiglu_f32, lib.flash_decode_f32,
+               lib.flash_attention_fwd_f32, lib.flash_attention_bwd_f32,
+               lib.adamw_update_f32, lib.sync_flat_update_f32):
         fn.restype = _I
 
 

@@ -1,16 +1,23 @@
-"""Single-query decode attention — CUDA kernel wrapper (`csrc/flash_decode.cu`).
+"""Attention — CUDA kernel wrappers (`csrc/flash_decode.cu`,
+`csrc/flash_attention.cu`).
 
-Replaces the Pallas `_decode_kernel` of `repro/kernels/flash_attention.py`
-(`flash_decode`).  `window`, `q_offset` (scalar or per-batch [B]),
-`k_positions` (ring-cache absolute positions, -1 = empty) and `prefix_len`
-are runtime arguments of the one kernel, so every layer, slot and ring state
-shares it.  `flash_decode` launches it on CUDA tensors and raises on
-anything else; `plain` is its plain PyTorch version (`ref.attention`), which
-CPU tensors take through `kernels/ops.py`.  `flash_decode.launches` counts
-launches.
+* `flash_decode` replaces the Pallas `_decode_kernel` of
+  `repro/kernels/flash_attention.py`: single-query decode, with `window`,
+  `q_offset` (scalar or per-batch [B]), `k_positions` (ring-cache absolute
+  positions, -1 = empty) and `prefix_len` as runtime arguments of the one
+  kernel, so every layer, slot and ring state shares it.
+* `flash_attention` replaces the Pallas `_flash_kernel`: full-sequence GQA
+  attention, differentiable.  It is a `torch.autograd.Function` whose
+  forward launches `flash_attention_fwd` (O and the per-row log-sum-exp)
+  and whose backward launches `flash_attention_bwd` (dQ, dK, dV from the
+  saved LSE); the JAX package has no backward kernel, so that one is the
+  port's own.  causal / window / prefix_len / q_offset are runtime
+  arguments.
 
-The blocked training kernel `flash_attention` (full-sequence, with a
-backward pass) is the next slice's.
+Each launcher runs its kernel on CUDA tensors and raises on anything else,
+and counts its launches (`.launches`, one per call).  `plain` is the plain
+PyTorch version (`ref.attention`), which CPU tensors take through
+`kernels/ops.py`; on the CPU its gradient is torch's autograd of it.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from repro_torch.kernels.ref import attention as plain  # noqa: F401
 
 _MAX_G = 8          # query heads per kv head the kernel holds in registers
 _MAX_D = 1024       # head dim: one float4 column per thread of 256
+_FA_HEAD_DIMS = (64, 128, 256)   # head dims flash_attention.cu is built for
 
 
 def flash_decode(q, k, v, *, causal=True, window=0, prefix_len=0, q_offset=0,
@@ -82,3 +90,107 @@ def flash_decode(q, k, v, *, causal=True, window=0, prefix_len=0, q_offset=0,
 
 
 flash_decode.launches = 0
+
+
+def _check_full(q, k, v, name):
+    """Shape / dtype / layout contract of the full-sequence kernels.
+    Returns (b, sq, sk, hq, hkv, d)."""
+    build.require_cuda(f"{name} q", q)
+    if q.ndim != 4 or k.ndim != 4:
+        raise ShapeError(f"{name} q/k must be 4-D, got {tuple(q.shape)} / "
+                         f"{tuple(k.shape)}")
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    if hkv == 0 or hq % hkv != 0:
+        raise ShapeError(f"GQA needs Hq % Hkv == 0, got ({hq}, {hkv})")
+    if d not in _FA_HEAD_DIMS:
+        raise ShapeError(f"{name} is built for head dims {_FA_HEAD_DIMS}, "
+                         f"got {d}")
+    if sq < 1 or sk < 1:
+        raise ShapeError(f"{name} needs Sq, Sk >= 1, got ({sq}, {sk})")
+    build.require(f"{name} q", q, device=q.device, dtype=torch.float32,
+                  aligned=True)
+    for nm, t in (("k", k), ("v", v)):
+        build.require(f"{name} {nm}", t, device=q.device, dtype=torch.float32,
+                      shape=(b, sk, hkv, d), aligned=True)
+    return b, sq, sk, hq, hkv, d
+
+
+def flash_attention_fwd(q, k, v, *, causal, window, prefix_len, q_offset,
+                        scale):
+    """q [B,Sq,Hq,D], k/v [B,Sk,Hkv,D] fp32 on CUDA -> (o [B,Sq,Hq,D],
+    lse [B,Hq,Sq] fp32)."""
+    b, sq, sk, hq, hkv, d = _check_full(q, k, v, "flash_attention_fwd")
+    o = torch.empty_like(q)
+    lse = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
+    if b == 0:
+        return o, lse
+    with torch.cuda.device(q.device):
+        err = build.library().flash_attention_fwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b, sq, sk, hq, hkv, d, float(scale),
+            int(bool(causal)), int(window), int(prefix_len), int(q_offset),
+            build.stream_of(q))
+    build.check(err, "flash_attention_fwd")
+    flash_attention_fwd.launches += 1
+    return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, dout, *, causal, window, prefix_len,
+                        q_offset, scale):
+    """Gradients of `flash_attention_fwd`'s output: (dq, dk, dv), recomputing
+    the probabilities from q, k and the saved lse."""
+    b, sq, sk, hq, hkv, d = _check_full(q, k, v, "flash_attention_bwd")
+    for nm, t in (("o", o), ("dout", dout)):
+        build.require(f"flash_attention_bwd {nm}", t, device=q.device,
+                      dtype=torch.float32, shape=q.shape, aligned=True)
+    build.require("flash_attention_bwd lse", lse, device=q.device,
+                  dtype=torch.float32, shape=(b, hq, sq))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
+    if b == 0:
+        return dq, dk, dv
+    with torch.cuda.device(q.device):
+        err = build.library().flash_attention_bwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), b, sq, sk, hq, hkv, d,
+            float(scale), int(bool(causal)), int(window), int(prefix_len),
+            int(q_offset), build.stream_of(q))
+    build.check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_fwd.launches = 0
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, prefix_len, q_offset, scale):
+        mask = dict(causal=causal, window=window, prefix_len=prefix_len,
+                    q_offset=q_offset, scale=scale)
+        o, lse = flash_attention_fwd(q, k, v, **mask)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = mask
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, dout.contiguous(),
+                                         **ctx.mask)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, prefix_len=0,
+                    q_offset=0, scale=None):
+    """q [B,Sq,Hq,D]; k, v [B,Sk,Hkv,D] -> [B,Sq,Hq,D], differentiable in q,
+    k and v.  fp32, contiguous, 16-byte aligned, D in {64, 128, 256}, on one
+    CUDA device; q_offset a Python int (the absolute position of query row
+    0).  Semantics: `ref.attention`."""
+    build.require_cuda("flash_attention q", q)
+    scale = float(scale) if scale is not None else q.shape[-1] ** -0.5
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window),
+                                 int(prefix_len), int(q_offset), scale)

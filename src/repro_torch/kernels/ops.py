@@ -14,13 +14,20 @@ from __future__ import annotations
 import torch
 
 from repro_torch.errors import ConfigError
+from repro_torch.kernels import adamw_update as _ad
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import swiglu as _sw
+from repro_torch.kernels import sync_update as _su
 
+# every kernel launcher, by the name its launch count is reported under
 KERNELS = {"rms_norm": _rn.rms_norm, "swiglu": _sw.swiglu,
-           "flash_decode": _fa.flash_decode}
+           "flash_decode": _fa.flash_decode,
+           "flash_attention_fwd": _fa.flash_attention_fwd,
+           "flash_attention_bwd": _fa.flash_attention_bwd,
+           "adamw_update": _ad.adamw_update,
+           "sync_flat_update": _su.sync_flat_update}
 
 
 def reset_launch_counts() -> None:
@@ -52,19 +59,28 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     k_positions=None):
     """q [B,Sq,H,D], k/v [B,Sk,Hkv,D] (GQA by head broadcast).
 
-    On the card, single-query causal decode runs the `flash_decode` kernel;
-    the blocked full-sequence kernel is not ported yet, so any other CUDA
-    call raises."""
+    On the card, single-query causal decode without a gradient runs the
+    `flash_decode` kernel (runtime ragged offsets and ring positions); every
+    other call with a scalar q_offset and no ring positions runs the
+    differentiable full-sequence `flash_attention` kernel.  Anything else
+    (a ragged or ring full-sequence call) raises."""
     if not _on_cuda(q, "flash_attention"):
         return ref.attention(q, k, v, causal=causal, window=window,
                              prefix_len=prefix_len, q_offset=q_offset,
                              scale=scale, k_positions=k_positions)
-    if q.shape[1] == 1 and causal:
+    needs_grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    if q.shape[1] == 1 and causal and not needs_grad:
         return _fa.flash_decode(q, k, v, causal=causal, window=window,
                                 prefix_len=prefix_len, q_offset=q_offset,
                                 scale=scale, k_positions=k_positions)
-    raise ConfigError("flash_attention on CUDA: only single-query causal "
-                      "decode (flash_decode) is ported yet")
+    ragged = isinstance(q_offset, torch.Tensor) and q_offset.ndim > 0
+    if k_positions is None and not ragged:
+        return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   prefix_len=prefix_len,
+                                   q_offset=int(q_offset), scale=scale)
+    raise ConfigError("flash_attention on CUDA: ragged offsets and ring "
+                      "positions run only single-query causal decode")
 
 
 def swiglu(x, wg, wi):
@@ -72,3 +88,24 @@ def swiglu(x, wg, wi):
     if _on_cuda(x, "swiglu"):
         return _sw.swiglu(x, wg, wi)
     return ref.swiglu(x, wg, wi)
+
+
+def adamw_update(p, m, v, g, *, lr, beta1, beta2, eps, weight_decay, step):
+    """Fused AdamW update for one tensor.  Returns (new_p, new_m, new_v): on
+    CUDA the kernel updates p, m, v in place and returns them; on the CPU the
+    plain version returns new tensors."""
+    kw = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps,
+              weight_decay=weight_decay, step=step)
+    if _on_cuda(p, "adamw_update"):
+        return _ad.adamw_update(p, m, v, g, **kw)
+    return ref.adamw_update(p, m, v, g, **kw)
+
+
+def sync_flat_update(p, anchor, *, scale=None, mu=None, momentum: float = 0.0):
+    """Fused flat-bucket sync (delta -> int8 codes -> worker mean -> Nesterov
+    -> anchor, broadcast to the W lanes) in one pass.  Returns (new_p,
+    new_anchor, new_mu | None): in place on CUDA, new tensors on the CPU."""
+    kw = dict(scale=scale, mu=mu, momentum=momentum)
+    if _on_cuda(p, "sync_flat_update"):
+        return _su.sync_flat_update(p, anchor, **kw)
+    return ref.sync_flat_update(p, anchor, **kw)

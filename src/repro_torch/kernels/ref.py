@@ -1,10 +1,15 @@
 """Plain PyTorch versions of the kernels (port of `repro/kernels/ref.py`).
 
 They define the semantics the CUDA kernels must match up to fp tolerance,
-and they are what a CPU tensor runs (`kernels/ops.py`).  Only the
-functions on the serving path are here so far: `rms_norm`, `_mask`,
-`attention` and `swiglu`.  The training slice adds the optimizer and sync
-ones.
+and they are what a CPU tensor runs (`kernels/ops.py`).  Here so far:
+`rms_norm`, `_mask`, `attention` and `swiglu` (serving), `adamw_update`,
+`sync_flat_update` and `sync_apply_update` (training).  The ring-int8
+oracles wait for the ring sync.
+
+Each function mirrors the JAX oracle op for op (Python-float constants are
+rounded to fp32 at the op, as JAX's weak types are), so on the CPU the two
+agree to the last few ulps and the port's tree and flat layouts, which run
+the same ops elementwise, agree bitwise.
 """
 from __future__ import annotations
 
@@ -75,6 +80,80 @@ def attention(q, k, v, *, causal=True, window=0, prefix_len=0, q_offset=0,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def adamw_update(p, m, v, g, *, lr, beta1, beta2, eps, weight_decay, step):
+    """AdamW with bias correction; moments fp32, params kept in input dtype.
+    `step` is the (1-based) update count: an int, a float or a 0-d tensor,
+    taken as fp32 as the reference does.  Returns (new_p, new_m, new_v)."""
+    gf = g.float()
+    m1 = beta1 * m + (1.0 - beta1) * gf
+    v1 = beta2 * v + (1.0 - beta2) * torch.square(gf)
+    stepf = torch.as_tensor(step, dtype=torch.float32)
+    bc1 = 1.0 - beta1 ** stepf
+    bc2 = 1.0 - beta2 ** stepf
+    upd = (m1 / bc1) / (torch.sqrt(v1 / bc2) + eps)
+    pf = p.float()
+    p1 = pf - lr * (upd + weight_decay * pf)
+    return p1.to(p.dtype), m1, v1
+
+
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c as an IEEE division on every device.  On CUDA, torch turns a
+    division by a Python scalar into a multiplication by its rounded
+    reciprocal (and torch.mean multiplies by 1/N), which differs in the
+    last bit; a 0-d tensor on x's device keeps the true division, which is
+    what the CPU and the CUDA kernels compute."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def mean0(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the leading worker axis as sum / W.  On integer-valued codes
+    the sum is exact in any order, so this is bitwise the same on the CPU,
+    on the card and in the CUDA kernel."""
+    return true_div(x.sum(0), float(x.shape[0]))
+
+
+def quantize_codes(d: torch.Tensor, scale) -> torch.Tensor:
+    """Integer codes clip(round(d/s*127)) in [-127, 127], kept in fp32.
+    `torch.round` rounds halves to even, as `jnp.round` does."""
+    return torch.clamp(torch.round(d / scale * 127.0), -127.0, 127.0)
+
+
+def sync_flat_update(p, anchor, *, scale=None, mu=None, momentum=0.0):
+    """Fused flat-buffer sync update (one pass in the kernel).
+
+    p [W, N] worker replicas of one dtype bucket; anchor [N] params at the
+    previous sync; scale [N] per-element (per-tensor, spread) int8 scales —
+    None disables quantization; mu [N] fp32 outer-momentum buffer — used iff
+    momentum > 0.  Returns (new_p [W, N], new_anchor [N], new_mu [N] | None).
+    Quantized, the mean runs over the integer codes and is dequantized once
+    after it (the reference's RS-domain rule)."""
+    d = p.float() - anchor.float()[None]
+    if scale is not None:
+        step = mean0(quantize_codes(d, scale[None])) * true_div(scale, 127.0)
+    else:
+        step = mean0(d)
+    new_anchor, new_mu = _outer_step(step, anchor, mu, momentum)
+    new_p = new_anchor[None].expand(p.shape).to(p.dtype).contiguous()
+    return new_p, new_anchor, new_mu
+
+
+def sync_apply_update(step_in, anchor, *, scale=None, mu=None, momentum=0.0):
+    """The gather-leg apply: dequantize the worker-mean codes (when `scale`
+    is given), outer Nesterov, anchor update.  Returns (new_anchor,
+    new_mu | None).  The op sequence after the mean is `sync_flat_update`'s,
+    so the composed (tree) and fused (flat) syncs agree bitwise."""
+    step = step_in * true_div(scale, 127.0) if scale is not None else step_in
+    return _outer_step(step, anchor, mu, momentum)
+
+
+def _outer_step(step, anchor, mu, momentum):
+    new_mu = None
+    if momentum > 0.0:
+        new_mu = momentum * mu + step
+        step = momentum * new_mu + step          # Nesterov
+    return (anchor.float() + step).to(anchor.dtype), new_mu
 
 
 def swiglu(x, wg, wi):

@@ -1,14 +1,15 @@
 """Uniform model protocol: family -> module dispatch (port of
-`repro/models/api.py`).  Only the dense transformer is ported so far."""
+`repro/models/api.py`).  Ported so far: the dense transformer (serving) and
+the vision classifier (training)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.errors import ConfigError
-from repro_torch.models import transformer
+from repro_torch.models import transformer, vit
 
-_FAMILY = {"dense": transformer}
+_FAMILY = {"dense": transformer, "vision": vit}
 
 
 def get_module(cfg: ModelConfig):

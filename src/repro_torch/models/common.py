@@ -1,26 +1,27 @@
-"""Shared building blocks (port of `repro/models/common.py`, serving subset).
+"""Shared building blocks (port of `repro/models/common.py`).
 
 Every block has (a) a ``*_defs`` function producing declarative ParamDefs and
 (b) an ``*_apply`` function consuming the materialized params.  Norms,
 attention and the SwiGLU product route through `repro_torch.kernels.ops`, so
 CUDA tensors run the hand-written kernels and CPU tensors the plain
 versions.  The plain products the JAX package leaves to XLA outside any
-kernel (wq/wk/wv/wo, the MLP wo, the tied unembed) stay `torch.matmul`.
+kernel (wq/wk/wv/wo, the MLP wi/wo, the tied unembed) stay `torch.matmul`,
+and layernorm and GELU, which it computes in plain `jnp`, stay plain torch.
 
 Numerics: this module turns TF32 off for matmuls and for cuDNN
 (`torch.backends.cuda.matmul.allow_tf32 = False`,
 `torch.backends.cudnn.allow_tf32 = False`), so every fp32 product on the
 card runs in full fp32, as the reference does.
 
-Ported so far: rmsnorm, rope, the cached (decode) branches of `attn_apply`,
-the SwiGLU MLP, embedding and the tied unembedding.  The no-cache and
-cross-attention branches need the full-sequence `flash_attention` kernel
-and wait for the training slice; layernorm and GELU wait for the model
-families that use them.
+Ported so far: rmsnorm and layernorm, rope, every branch of `attn_apply`
+(decode with a cache, full-sequence self-attention, cross-attention) and
+its `_attn_chunked` query blocking, the SwiGLU and GELU MLPs, embedding and
+the tied unembedding.  qkv_bias and `lm_loss` wait for the LM slice.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
@@ -37,12 +38,24 @@ torch.backends.cudnn.allow_tf32 = False
 # --------------------------------------------------------------------------
 
 def norm_defs(cfg: ModelConfig) -> dict:
+    if cfg.norm == "layernorm":
+        return {"scale": ParamDef((cfg.d_model,), ("embed",), "ones"),
+                "bias": ParamDef((cfg.d_model,), ("embed",), "zeros")}
     if cfg.norm != "rmsnorm":
         raise ConfigError(f"norm {cfg.norm!r}: not ported yet")
     return {"scale": ParamDef((cfg.d_model,), ("embed",), "ones")}
 
 
 def norm_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        # the reference's op order: population variance as mean((x-mu)^2),
+        # rsqrt(var + 1e-6), fp32 inside, cast back
+        xf = x.float()
+        mu = torch.mean(xf, -1, keepdim=True)
+        var = torch.mean(torch.square(xf - mu), -1, keepdim=True)
+        out = (xf - mu) * torch.rsqrt(var + 1e-6)
+        out = out * p["scale"].float() + p["bias"].float()
+        return out.to(x.dtype)
     return kops.rms_norm(x, p["scale"])
 
 
@@ -84,12 +97,36 @@ def attn_defs(cfg: ModelConfig) -> dict:
     }
 
 
+def _attn_chunked(q, k, v, *, causal, window, prefix_len, q_offset,
+                  q_block=512):
+    """Block the query dim so the [Sq,Sk] score tile stays bounded: query
+    blocks of the largest divisor of Sq at most `q_block`, each at its own
+    q_offset (the reference's scan, as a loop)."""
+    b, sq, hq, hd = q.shape
+    if sq <= q_block:
+        return kops.flash_attention(q, k, v, causal=causal, window=window,
+                                    prefix_len=prefix_len, q_offset=q_offset)
+    while sq % q_block:
+        q_block -= 1
+    outs = [kops.flash_attention(
+        q[:, i:i + q_block].contiguous(), k, v, causal=causal, window=window,
+        prefix_len=prefix_len, q_offset=q_offset + i)
+        for i in range(0, sq, q_block)]
+    return torch.cat(outs, 1)
+
+
 def attn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                positions: torch.Tensor, layer_window: int = 0,
-               prefix_len: int = 0, cache: dict, cache_pos,
-               ring: bool = False):
-    """The cached (decode) branches of the reference's `attn_apply`.
-    Returns (out, cache).
+               prefix_len: int = 0, cache: dict | None = None,
+               cache_pos=None, ring: bool = False,
+               kv_source: torch.Tensor | None = None, use_rope: bool = True):
+    """Returns (out, new_cache).
+
+    kv_source: if given, cross-attention — keys/values from this tensor, no
+    rope, no causal mask, no cache.  cache None and no kv_source: full-
+    sequence causal self-attention (sliding `layer_window`, bidirectional
+    `prefix_len`).  Both run through `_attn_chunked`, so on the card they
+    take the differentiable `flash_attention` kernel.
 
     cache: {"k": [B,Smax,Hkv,hd], "v": ...} of ONE layer, written IN PLACE
     at `cache_pos` (the reference returns a new cache; the port saves the
@@ -101,16 +138,21 @@ def attn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     With ring=True the cache is a circular buffer shorter than the stream
     and keys carry their absolute positions for masking.
     """
-    if cache is None:
-        raise ConfigError("attn_apply without a cache is the full-sequence "
-                          "path, which is not ported yet")
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    src = x if kv_source is None else kv_source
     q = (x @ p["wq"]).reshape(b, s, hq, hd)
-    k = (x @ p["wk"]).reshape(b, s, hkv, hd)
-    v = (x @ p["wv"]).reshape(b, s, hkv, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    k = (src @ p["wk"]).reshape(b, src.shape[1], hkv, hd)
+    v = (src @ p["wv"]).reshape(b, src.shape[1], hkv, hd)
+    if use_rope and kv_source is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_source is not None or cache is None:
+        cross = kv_source is not None
+        o = _attn_chunked(q, k, v, causal=not cross,
+                          window=0 if cross else layer_window,
+                          prefix_len=0 if cross else prefix_len, q_offset=0)
+        return o.reshape(b, s, hq * hd) @ p["wo"], None
 
     ck, cv = cache["k"], cache["v"]
     ln = ck.shape[1]
@@ -143,20 +185,25 @@ def attn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
 
 
 # --------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLP (SwiGLU / GELU)
 # --------------------------------------------------------------------------
 
 def mlp_defs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    if cfg.act != "swiglu":
+    if cfg.act not in ("swiglu", "gelu"):
         raise ConfigError(f"activation {cfg.act!r}: not ported yet")
-    return {"wi": ParamDef((d, f), ("embed", "mlp")),
-            "wo": ParamDef((f, d), ("mlp", "embed")),
-            "wg": ParamDef((d, f), ("embed", "mlp"))}
+    defs = {"wi": ParamDef((d, f), ("embed", "mlp")),
+            "wo": ParamDef((f, d), ("mlp", "embed"))}
+    if cfg.act == "swiglu":
+        defs["wg"] = ParamDef((d, f), ("embed", "mlp"))
+    return defs
 
 
 def mlp_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    return kops.swiglu(x, p["wg"], p["wi"]) @ p["wo"]
+    if cfg.act == "swiglu":
+        return kops.swiglu(x, p["wg"], p["wi"]) @ p["wo"]
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]
 
 
 # --------------------------------------------------------------------------

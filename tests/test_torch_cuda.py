@@ -7,7 +7,10 @@ Every test here is marked `cuda` and skips without a card; on the GPU run
 This file imports torch and the port only (the GPU machine has no jax).
 Tolerances: the kernels sum in another order than the plain versions, so
 fp32 results agree to ~1e-6 relative; 1e-5 (rms_norm) and 2e-5 (products)
-leave an order of magnitude of room.
+leave an order of magnitude of room, 5e-5 for the attention gradients (two
+more contractions).  AdamW runs the plain version's op order with every op
+rounded on its own, but its bias correction's pow may differ by an ulp:
+1e-6.  The quantized sync is held bitwise (integer codes, no FMA).
 """
 import numpy as np
 import pytest
@@ -15,16 +18,20 @@ import torch
 
 from repro_torch.configs import registry as TR
 from repro_torch.errors import ShapeError
+from repro_torch.kernels import adamw_update as t_ad
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rmsnorm as t_rn
 from repro_torch.kernels import swiglu as t_sw
+from repro_torch.kernels import sync_update as t_su
 from repro_torch.launch import weights as W
 from repro_torch.launch.batching import ContinuousBatcher, Request
 
 RMS_TOL = 1e-5
 PROD_TOL = 2e-5
+GRAD_TOL = 5e-5
+ELEM_TOL = 1e-6
 
 pytestmark = pytest.mark.cuda
 
@@ -105,6 +112,96 @@ def test_wrappers_reject_bad_operands(dev):
                           _t(3, 1, 3, 1, 16))
 
 
+# (B, Sq, Sk, Hkv, g, D, causal, window, prefix_len, q_offset)
+FULL = [(2, 196, 196, 3, 1, 64, False, 0, 0, 0),
+        (2, 300, 300, 2, 1, 64, True, 0, 0, 0),
+        (1, 130, 130, 2, 2, 128, True, 64, 0, 0),
+        (2, 77, 77, 1, 4, 128, True, 0, 17, 0),
+        (1, 50, 190, 2, 2, 64, True, 0, 0, 140),
+        (1, 70, 70, 1, 2, 256, True, 16, 5, 0),
+        (1, 9, 9, 2, 1, 64, True, 0, 0, -4)]       # rows 0-3: no allowed key
+
+
+@pytest.mark.parametrize("case", FULL)
+def test_flash_attention_fwd_bwd_match_plain(dev, case):
+    b, sq, sk, hkv, g, d, causal, window, prefix, qoff = case
+    kw = dict(causal=causal, window=window, prefix_len=prefix, q_offset=qoff)
+    q, k, v = _t(20, b, sq, hkv * g, d), _t(21, b, sk, hkv, d), \
+        _t(22, b, sk, hkv, d)
+    w = _t(23, b, sq, hkv * g, d)
+    ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref_ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    got = t_fa.flash_attention(*ins, **kw)
+    want = tref.attention(*ref_ins, **kw)
+    torch.testing.assert_close(got, want, rtol=PROD_TOL, atol=PROD_TOL)
+    g_got = torch.autograd.grad((got * w).sum(), ins)
+    g_want = torch.autograd.grad((want * w).sum(), ref_ins)
+    for a, b_ in zip(g_got, g_want):
+        torch.testing.assert_close(a, b_, rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+def test_ops_sends_grad_requiring_single_query_to_the_full_kernel(dev):
+    q = _t(1, 2, 1, 4, 64).requires_grad_(True)
+    k, v = _t(2, 2, 9, 2, 64), _t(3, 2, 9, 2, 64)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, causal=True, q_offset=8)
+    out.sum().backward()
+    with torch.no_grad():
+        ops.flash_attention(q, k, v, causal=True, q_offset=8)
+    assert ops.launch_counts()["flash_attention_fwd"] == 1
+    assert ops.launch_counts()["flash_attention_bwd"] == 1
+    assert ops.launch_counts()["flash_decode"] == 1
+
+
+@pytest.mark.parametrize("shape,step", [((1000,), 1), ((4, 12, 768, 33), 7),
+                                        ((4, 1001), 300)])
+def test_adamw_update_matches_plain_in_place(dev, shape, step):
+    p, m, g = _t(30, *shape), _t(31, *shape, scale=0.1), _t(32, *shape)
+    v = _t(33, *shape, scale=0.01).abs()
+    kw = dict(lr=3e-3, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.05,
+              step=torch.tensor(float(step)))
+    want = tref.adamw_update(p, m, v, g, **kw)
+    got = t_ad.adamw_update(p, m, v, g, **kw)
+    assert got[0] is p and got[1] is m and got[2] is v      # in place
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a, b_, rtol=ELEM_TOL, atol=ELEM_TOL)
+
+
+@pytest.mark.parametrize("w,n", [(4, 100_003), (2, 300), (3, 5000)])
+@pytest.mark.parametrize("quantize,momentum", [(False, 0.0), (True, 0.0),
+                                               (False, 0.9), (True, 0.9)])
+def test_sync_flat_update_matches_plain(dev, w, n, quantize, momentum):
+    p, a = _t(40, w, n), _t(41, n)
+    scale = _t(42, n).abs() + 0.1 if quantize else None
+    mu = _t(43, n) if momentum else None
+    want = tref.sync_flat_update(p, a, scale=scale, mu=mu, momentum=momentum)
+    got = t_su.sync_flat_update(p.clone(), a.clone(), scale=scale,
+                                mu=None if mu is None else mu.clone(),
+                                momentum=momentum)
+    for x, y in zip(got, want):
+        if y is None:
+            assert x is None
+        elif quantize:      # integer codes, every op rounded alone: bitwise
+            assert torch.equal(x, y)
+        else:               # the fp32 delta sum runs in another order
+            torch.testing.assert_close(x, y, rtol=ELEM_TOL, atol=ELEM_TOL)
+
+
+def test_new_wrappers_reject_bad_operands(dev):
+    q = _t(1, 1, 8, 2, 96)
+    with pytest.raises(ShapeError, match="head dims"):
+        t_fa.flash_attention(q, q, q)
+    q = _t(1, 1, 8, 2, 64)
+    with pytest.raises(ShapeError, match="dtype"):
+        t_fa.flash_attention(q.double(), q.double(), q.double())
+    x = _t(2, 10)
+    with pytest.raises(ShapeError, match="shape"):
+        t_ad.adamw_update(x, x, x, _t(3, 11), lr=1e-3, beta1=0.9, beta2=0.99,
+                          eps=1e-8, weight_decay=0.0, step=1)
+    with pytest.raises(ShapeError, match="\\[W, N\\]"):
+        t_su.sync_flat_update(x, x)
+
+
 def test_batcher_on_card_launches_kernels_and_matches_cpu(dev):
     """Every decode step runs 2L+1 rms_norm, L swiglu and L flash_decode
     launches, and greedy tokens equal the CPU server's on the same
@@ -130,5 +227,8 @@ def test_batcher_on_card_launches_kernels_and_matches_cpu(dev):
     L, steps = cfg.n_layers, b.decode_steps
     assert ops.launch_counts() == {"rms_norm": (2 * L + 1) * steps,
                                    "swiglu": L * steps,
-                                   "flash_decode": L * steps}
+                                   "flash_decode": L * steps,
+                                   "flash_attention_fwd": 0,
+                                   "flash_attention_bwd": 0,
+                                   "adamw_update": 0, "sync_flat_update": 0}
     assert on_card == serve(host)[1]

@@ -10,26 +10,38 @@ against these plain versions on the card by `tests/test_torch_cuda.py`.
 Tolerances are fp32: the two packages sum in different orders (XLA's CPU
 reductions vs torch's), so rms_norm agrees to ~1e-6 relative and the
 products in swiglu/attention to ~1e-6 per contraction; the stated bounds
-(1e-5 and 2e-5) leave an order of magnitude of room.
+(1e-5 and 2e-5) leave an order of magnitude of room.  The attention
+gradients go through two more contractions (dP = dO V^T, then dS K or
+dS^T Q): 5e-5.  The elementwise AdamW and sync updates run the same fp32
+ops in the same order on both sides; they differ only where XLA contracts
+a multiply-add into an FMA or rounds a pow differently (a few ulps): 1e-6.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.adamw_update import adamw_update as j_adamw_update
+from repro.kernels.flash_attention import flash_attention as j_flash_attention
 from repro.kernels.flash_attention import flash_decode as j_flash_decode
 from repro.kernels.rmsnorm import rms_norm as j_rms_norm
 from repro.kernels.swiglu import swiglu as j_swiglu
+from repro.kernels.sync_update import sync_flat_update as j_sync_flat_update
 from repro_torch.errors import ConfigError, ShapeError
+from repro_torch.kernels import adamw_update as t_ad
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rmsnorm as t_rn
 from repro_torch.kernels import swiglu as t_sw
+from repro_torch.kernels import sync_update as t_su
 
 RMS_TOL = 1e-5       # relative; fp32 mean-of-squares in another order
 PROD_TOL = 2e-5      # swiglu / attention: fp32 contractions in another order
+GRAD_TOL = 5e-5      # attention gradients: two more contractions
+ELEM_TOL = 1e-6      # AdamW / sync: same elementwise ops, FMA / pow ulps
 
 
 def _np(seed, *shape, scale=1.0):
@@ -158,6 +170,144 @@ def test_mask_matches_jax_mask(sq, sk, causal, window, prefix, qoff):
     np.testing.assert_array_equal(got, np.asarray(want))
 
 
+# ------------------------------------------- full-sequence attention ------
+
+# (name, B, Sq, Sk, Hkv, g, D, causal, window, prefix_len, q_offset).  Every
+# query row keeps at least one allowed key (the Pallas kernel differs from
+# `ref.attention` on rows with none; test_no_valid_key_rows_follow_jax_ref).
+FULL_CASES = [
+    ("noncausal", 2, 20, 20, 4, 1, 16, False, 0, 0, 0),
+    ("noncausal-vit-like", 2, 13, 13, 3, 1, 64, False, 0, 0, 0),
+    ("causal", 2, 37, 37, 2, 1, 16, True, 0, 0, 0),
+    ("causal-gqa2", 2, 30, 30, 2, 2, 32, True, 0, 0, 0),
+    ("window", 2, 33, 33, 2, 1, 16, True, 8, 0, 0),
+    ("prefix-gqa2", 2, 29, 29, 1, 2, 16, True, 0, 7, 0),
+    ("q-offset", 2, 12, 37, 2, 1, 16, True, 0, 0, 25),
+    ("q-offset-window-gqa2", 1, 17, 40, 2, 2, 16, True, 6, 0, 23),
+]
+FULL_IDS = [c[0] for c in FULL_CASES]
+
+
+def _jax_attention_grads(q, k, v, w, kw):
+    """jax.grad of sum(ref.attention(q, k, v) * w) w.r.t. (q, k, v), jitted
+    (one compile instead of one per primitive)."""
+    fn = jax.jit(jax.grad(lambda q_, k_, v_, w_: jnp.sum(
+        jref.attention(q_, k_, v_, **kw) * w_), argnums=(0, 1, 2)))
+    return fn(*map(jnp.asarray, (q, k, v, w)))
+
+
+def _full_inputs(b, sq, sk, hkv, g, d, seed=30):
+    return (_np(seed, b, sq, hkv * g, d), _np(seed + 1, b, sk, hkv, d),
+            _np(seed + 2, b, sk, hkv, d), _np(seed + 3, b, sq, hkv * g, d))
+
+
+@pytest.mark.parametrize("case", FULL_CASES, ids=FULL_IDS)
+def test_full_attention_matches_jax_ref_and_pallas(case):
+    """The plain version (what CPU tensors run, and what the CUDA kernel is
+    held against on the card) equals `ref.attention` and the Pallas
+    `flash_attention` in interpret mode; block 16 leaves ragged last q and
+    k blocks whenever Sq or Sk % 16 != 0."""
+    _, b, sq, sk, hkv, g, d, causal, window, prefix, qoff = case
+    q, k, v, _ = _full_inputs(b, sq, sk, hkv, g, d)
+    kw = dict(causal=causal, window=window, prefix_len=prefix, q_offset=qoff)
+    got = tref.attention(*map(torch.from_numpy, (q, k, v)), **kw).numpy()
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    _close(got, jref.attention(jq, jk, jv, **kw), PROD_TOL)
+    _close(got, j_flash_attention(jq, jk, jv, interpret=True, block_q=16,
+                                  block_k=16, **kw), PROD_TOL)
+
+
+@pytest.mark.parametrize("case", FULL_CASES, ids=FULL_IDS)
+def test_full_attention_grads_match_jax_grad_of_ref(case):
+    """dq/dk/dv of the plain version (torch autograd — the gradient the
+    CUDA backward kernel is held against) equal `jax.grad` of
+    `ref.attention`: JAX cannot differentiate its Pallas kernel."""
+    _, b, sq, sk, hkv, g, d, causal, window, prefix, qoff = case
+    q, k, v, w = _full_inputs(b, sq, sk, hkv, g, d)
+    kw = dict(causal=causal, window=window, prefix_len=prefix, q_offset=qoff)
+    want = _jax_attention_grads(q, k, v, w, kw)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    out = tref.attention(tq, tk, tv, **kw)
+    got = torch.autograd.grad((out * torch.from_numpy(w)).sum(),
+                              (tq, tk, tv))
+    for gt, wt in zip(got, want):
+        _close(gt.numpy(), wt, GRAD_TOL)
+
+
+def test_no_valid_key_rows_have_uniform_weights_in_the_gradient():
+    """A row with no allowed key has P = 1/Sk and no score gradient in
+    `ref.attention`'s autograd (the masked scores are a constant): the
+    semantics the CUDA backward reproduces."""
+    q, k, v, w = _full_inputs(1, 6, 6, 1, 1, 16)
+    kw = dict(causal=True, window=0, prefix_len=0, q_offset=-3)
+    want = _jax_attention_grads(q, k, v, w, kw)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    got = torch.autograd.grad((tref.attention(tq, tk, tv, **kw)
+                               * torch.from_numpy(w)).sum(), (tq, tk, tv))
+    for gt, wt in zip(got, want):
+        _close(gt.numpy(), wt, GRAD_TOL)
+    assert np.abs(got[0].numpy()[0, :3]).max() == 0.0   # rows 0-2: no key
+
+
+# --------------------------------------------------------------- optimizer --
+
+@pytest.mark.parametrize("shape,step", [((1000,), 1), ((3, 257), 7),
+                                        ((4, 8, 33), 200)])
+def test_adamw_update_matches_jax_ref_and_pallas(shape, step):
+    p, m, g = _np(40, *shape), _np(41, *shape, scale=0.1), _np(42, *shape)
+    v = np.abs(_np(43, *shape, scale=0.01))
+    kw = dict(lr=3e-3, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.05,
+              step=step)
+    got = tref.adamw_update(*map(torch.from_numpy, (p, m, v, g)), **kw)
+    jargs = tuple(map(jnp.asarray, (p, m, v, g)))
+    jkw = dict(kw, step=jnp.float32(step))
+    for want in (jref.adamw_update(*jargs, **jkw),
+                 j_adamw_update(*jargs, interpret=True, **jkw)):
+        for gt, wt in zip(got, want):
+            _close(gt.numpy(), wt, ELEM_TOL)
+
+
+# -------------------------------------------------------------------- sync --
+
+@pytest.mark.parametrize("w,n", [(2, 300), (4, 5000)])
+@pytest.mark.parametrize("quantize,momentum", [(False, 0.0), (True, 0.0),
+                                               (False, 0.9), (True, 0.9)])
+def test_sync_flat_update_matches_jax_ref_and_pallas(w, n, quantize,
+                                                     momentum):
+    rng = np.random.RandomState(n + w)
+    p = rng.randn(w, n).astype(np.float32)
+    anchor = rng.randn(n).astype(np.float32)
+    scale = (np.abs(rng.randn(n)) + 0.1).astype(np.float32) if quantize \
+        else None
+    mu = rng.randn(n).astype(np.float32) if momentum else None
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    j = lambda a: None if a is None else jnp.asarray(a)
+    got = tref.sync_flat_update(t(p), t(anchor), scale=t(scale), mu=t(mu),
+                                momentum=momentum)
+    for want in (jref.sync_flat_update(j(p), j(anchor), scale=j(scale),
+                                       mu=j(mu), momentum=momentum),
+                 j_sync_flat_update(j(p), j(anchor), scale=j(scale),
+                                    mu=j(mu), momentum=momentum,
+                                    interpret=True)):
+        for gt, wt in zip(got, want):
+            if wt is None:
+                assert gt is None
+                continue
+            _close(gt.numpy(), wt, ELEM_TOL)
+    if quantize and not momentum:
+        # integer codes: the code mean is exact, the result bitwise JAX's
+        np.testing.assert_array_equal(
+            got[1].numpy(), np.asarray(jref.sync_flat_update(
+                j(p), j(anchor), scale=j(scale))[1]))
+
+
+def test_quantize_codes_round_half_to_even():
+    d = torch.tensor([0.5, 1.5, 2.5, -0.5, -2.5, 300.0]) / 127.0
+    got = tref.quantize_codes(d, torch.tensor(1.0))
+    want = jnp.clip(jnp.round(jnp.asarray(d.numpy()) / 1.0 * 127.0), -127, 127)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 # ---------------------------------------------------------------- dispatch --
 
 def test_ops_cpu_tensors_take_the_plain_versions():
@@ -174,8 +324,25 @@ def test_ops_cpu_tensors_take_the_plain_versions():
     torch.testing.assert_close(
         ops.flash_attention(q, k, v, window=4, q_offset=qo),
         tref.attention(q, k, v, window=4, q_offset=qo), rtol=0, atol=0)
-    assert ops.launch_counts() == {"rms_norm": 0, "swiglu": 0,
-                                   "flash_decode": 0}
+    p, m, v, g = (torch.from_numpy(_np(i, 3, 7)) for i in range(4))
+    v = v.abs()
+    kw = dict(lr=1e-2, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.05,
+              step=3)
+    for got, want in zip(ops.adamw_update(p, m, v, g, **kw),
+                         tref.adamw_update(p, m, v, g, **kw)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    qf = torch.from_numpy(_np(5, 2, 9, 4, 64))
+    torch.testing.assert_close(
+        ops.flash_attention(qf, qf, qf, causal=False),
+        tref.attention(qf, qf, qf, causal=False), rtol=0, atol=0)
+    a, sc = torch.from_numpy(_np(6, 7)), torch.ones(7)
+    for got, want in zip(ops.sync_flat_update(p, a, scale=sc),
+                         tref.sync_flat_update(p, a, scale=sc)):
+        assert (got is None and want is None) or torch.equal(got, want)
+    assert set(ops.launch_counts()) == {
+        "rms_norm", "swiglu", "flash_decode", "flash_attention_fwd",
+        "flash_attention_bwd", "adamw_update", "sync_flat_update"}
+    assert set(ops.launch_counts().values()) == {0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -189,8 +356,22 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ShapeError, match="CUDA kernel"):
         t_fa.flash_decode(torch.zeros(1, 1, 2, 8), torch.zeros(1, 3, 1, 8),
                           torch.zeros(1, 3, 1, 8))
+    q = torch.zeros(1, 4, 2, 64)
+    with pytest.raises(ShapeError, match="CUDA kernel"):
+        t_fa.flash_attention(q, q, q)
+    with pytest.raises(ShapeError, match="CUDA kernel"):
+        t_fa.flash_attention_bwd(q, q, q, q, torch.zeros(1, 2, 4), q,
+                                 causal=True, window=0, prefix_len=0,
+                                 q_offset=0, scale=0.125)
+    with pytest.raises(ShapeError, match="CUDA kernel"):
+        t_ad.adamw_update(x, x, x, x, lr=1e-3, beta1=0.9, beta2=0.999,
+                          eps=1e-8, weight_decay=0.0, step=1)
+    with pytest.raises(ShapeError, match="CUDA kernel"):
+        t_su.sync_flat_update(x, torch.zeros(8))
     assert t_rn.plain is tref.rms_norm and t_sw.plain is tref.swiglu
     assert t_fa.plain is tref.attention
+    assert t_ad.plain is tref.adamw_update
+    assert t_su.plain is tref.sync_flat_update
 
 
 def test_ops_rejects_devices_without_a_kernel():

@@ -316,7 +316,6 @@ def test_serve_cli_on_cpu_with_swap_demo(tmp_path):
     assert audit["swaps"] == 1 and audit["tokens_emitted"] == 18
     assert json.loads(path.read_text())["decode_steps"] == \
         audit["decode_steps"]
-    assert ops.launch_counts() == {"rms_norm": 0, "swiglu": 0,
-                                   "flash_decode": 0}
+    assert set(ops.launch_counts().values()) == {0}    # CPU: plain versions
     with pytest.raises(SystemExit, match="not ported yet"):
         tserve.main(["--smoke", "--device", "cpu"])
