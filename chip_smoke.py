@@ -13,7 +13,14 @@ shapes.  Then it drives both of the port's paths on the card:
 * training: ViT-B/16 at full width with Local AdamW under the QSR schedule
   through `train()` (W = 4 workers, 32 images each, 10 rounds), the flat
   layout with the quantized sync for 2 rounds, and the card against the
-  CPU at 2 layers.
+  CPU at 2 layers;
+* the sync variants of that training path at full width, flat layout,
+  int8 sync, 2 rounds each: overlap at depth 0 (bitwise the blocking flat
+  run) and depth 1 (`synced_view` pure, `flush` clears the pending sync),
+  partial participation with the mask [1, 1, 0, 1] (every lane
+  re-anchored), and the ring-int8 wire (16 + 12 + 1 launches per sync, the
+  card's ring codes equal the CPU's, the mean within `ring_tolerance`);
+  and overlap at depth 1 on the card against the CPU at 2 layers.
 
 Each path runs with the kernels' launch counters set to 0 just before it
 and read just after, and fails unless every kernel of the path ran.  One
@@ -44,10 +51,13 @@ SLOTS, MAX_NEW = 2, 16
 PROMPT_LENS = (16, 48, 32, 24)        # 4 requests, 16-48 tokens: slots recycle
 # tolerances x max(|plain|, 1): fp32 sums in another order (the attention
 # gradients go through two more contractions); AdamW's bias-correction pow
-# may differ by an ulp; the quantized sync is held bitwise (0)
+# may differ by an ulp; the quantized sync is held bitwise
+# (the unquantized sync sums fp32 deltas in another order: 1e-6); the
+# split sync's apply and the ring's combine and quantize are held bitwise
 TOL = {"rms_norm": 1e-5, "swiglu": 2e-5, "flash_decode": 2e-5,
        "flash_attention_fwd": 2e-5, "flash_attention_bwd": 5e-5,
-       "adamw_update": 1e-6, "sync_flat_update": 1e-6}
+       "adamw_update": 1e-6, "sync_flat_update": 1e-6,
+       "sync_apply_update": 0.0, "ring_combine": 0.0, "ring_quantize": 0.0}
 REPLACES = {
     "rms_norm": "src/repro/kernels/rmsnorm.py:36",
     "swiglu": "src/repro/kernels/swiglu.py:44",
@@ -56,6 +66,9 @@ REPLACES = {
     "flash_attention_bwd": "src/repro/kernels/flash_attention.py:128",
     "adamw_update": "src/repro/kernels/adamw_update.py:57",
     "sync_flat_update": "src/repro/kernels/sync_update.py:87",
+    "sync_apply_update": "src/repro/kernels/sync_update.py:147",
+    "ring_combine": "src/repro/kernels/sync_update.py:186",
+    "ring_quantize": "src/repro/kernels/sync_update.py:212",
 }
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
@@ -66,10 +79,14 @@ SOURCES = {
     "flash_attention_bwd": CSRC + "flash_attention.cu",
     "adamw_update": CSRC + "adamw_update.cu",
     "sync_flat_update": CSRC + "sync_update.cu",
+    "sync_apply_update": CSRC + "sync_update.cu",
+    "ring_combine": CSRC + "ring.cu",
+    "ring_quantize": CSRC + "ring.cu",
 }
 SERVING_KERNELS = ("flash_decode", "rms_norm", "swiglu")
 TRAINING_KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
                     "adamw_update", "sync_flat_update")
+SYNC_KERNELS = ("sync_apply_update", "ring_combine", "ring_quantize")
 
 # the training main path: examples/vit_local_adamw.py's recipe at full width
 TRAIN_ARCH = "vit-b16"
@@ -479,6 +496,99 @@ def phase_training_kernels(torch):
     return summary
 
 
+def phase_sync_kernels(torch):
+    """sync_apply_update on the flat bucket [86,332,648] and the ring's
+    combine and quantize on one ring chunk [21,583,162] (the main path's
+    shapes), each held bitwise against its plain version, with kernel /
+    plain / bound times.  The ring chunks of the main path sit at offsets
+    of c x C elements in the bucket's delta, so half of them are not
+    16-byte aligned: the combine is also timed on such a view."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sync_update as _su
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(2468)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * std
+
+    def bitwise(name, label, got, want, main):
+        err = max(float((x.float() - y.float()).abs().max())
+                  for x, y in zip(got, want) if y is not None)
+        same = all(bool(torch.equal(x, y)) for x, y in zip(got, want)
+                   if y is not None)
+        check(same, f"{name} {label}: not bitwise ({err})")
+        return check_row(name, label, err, max(float(y.float().abs().max())
+                                               for y in want
+                                               if y is not None), main,
+                         bitwise=True)
+
+    summary = {}
+    n = VIT_PARAMS
+    anchor = rnd(n, std=0.02)
+    codes = torch.round(rnd(n) * 40).clamp_(-127, 127)  # a W = 4 code mean
+    qmean = ref.true_div(codes, 4.0)
+    scale = (rnd(n).abs_() + 0.1) * 3e-3
+    delta = rnd(n, std=1e-3)
+    mu0 = rnd(n, std=1e-4)
+    for quantize, momentum in ((True, 0.0), (True, 0.9), (False, 0.9)):
+        step = qmean if quantize else delta
+        kw = dict(scale=scale if quantize else None,
+                  mu=mu0 if momentum else None, momentum=momentum)
+        label = (f"[{n}] quantize {'on' if quantize else 'off'} "
+                 f"momentum {momentum}")
+        want = ref.sync_apply_update(step, anchor, **kw)
+        got = _su.sync_apply_update(step, anchor, **kw)
+        torch.cuda.synchronize()
+        row = bitwise("sync_apply_update", label, got, want, True)
+        del want, got
+        words = 3 + quantize + 2 * (momentum > 0)
+        timed_row(row, timer,
+                  lambda: _su.sync_apply_update(step, anchor, **kw),
+                  lambda: ref.sync_apply_update(step, anchor, **kw), None,
+                  4.0 * n * words,
+                  n * (1.0 + 2 * quantize + 4 * (momentum > 0)))
+        if quantize and not momentum:
+            summary["sync_apply_update"] = row
+        emit("kernel_check", **row)
+    del anchor, codes, qmean, scale, delta, mu0
+
+    c = VIT_PARAMS // W
+    buf = rnd(2 * c + 2, std=1e-3)
+    x, x_off = buf[:c], buf[c + 2 + 1:][:c - 1]
+    acc = rnd(c, std=1e-3)
+    s = acc.abs().max()
+    want = ref.ring_quantize_codes(acc, s)
+    got = _su.ring_quantize(acc, s)
+    torch.cuda.synchronize()
+    row = bitwise("ring_quantize", f"[{c}]", (got,), (want,), True)
+    timed_row(row, timer, lambda: _su.ring_quantize(acc, s),
+              lambda: ref.ring_quantize_codes(acc, s), None, 5.0 * c + 4,
+              4.0 * c)
+    summary["ring_quantize"] = row
+    emit("kernel_check", **row)
+    q = got
+    for k in (1, 2, 3):
+        want = ref.ring_combine(q, s, x, k)
+        got = _su.ring_combine(q, s, x, k)
+        got_off = _su.ring_combine(q[:c - 1], s, x_off, k)
+        want_off = ref.ring_combine(q[:c - 1], s, x_off, k)
+        torch.cuda.synchronize()
+        row = bitwise("ring_combine", f"[{c}] k {k}", got + got_off,
+                      want + want_off, True)
+        if k == 1:
+            timed_row(row, timer, lambda: _su.ring_combine(q, s, x, k),
+                      lambda: ref.ring_combine(q, s, x, k), None,
+                      9.0 * c + 8, 6.0 * c)
+            row["ms_unaligned_x"] = timer(
+                lambda: _su.ring_combine(q[:c - 1], s, x_off, k))
+            summary["ring_combine"] = row
+        emit("kernel_check", **row)
+        del want, got, got_off, want_off
+    del buf, acc, q
+    torch.cuda.empty_cache()
+    return summary
+
+
 # ----------------------------------------------------------- serving -------
 
 def prompts_for(cfg, np):
@@ -680,7 +790,8 @@ def phase_hot_swap(torch, np):
 # ---------------------------------------------------------- training -------
 
 def train_setup(torch, *, layout="tree", n_layers=None, workers=None,
-                b_loc=None, device="cuda", **run_overrides):
+                b_loc=None, device="cuda", sync="blocking", overlap_depth=0,
+                **run_overrides):
     """(cfg, run config, stream, batch_fn, engine) of the ViT-B/16 recipe
     (W workers x B_LOC images unless given)."""
     from repro_torch.configs import registry as R
@@ -697,7 +808,7 @@ def train_setup(torch, *, layout="tree", n_layers=None, workers=None,
     batch_fn = vision_batch_fn(stream, workers, b_loc)
     eng = RoundEngine(cfg, run, workers=workers, b_loc=b_loc, seq=1,
                       data="host", layout=layout, batch_fn=batch_fn,
-                      device=device)
+                      sync=sync, overlap_depth=overlap_depth, device=device)
     return cfg, run, stream, batch_fn, eng
 
 
@@ -829,40 +940,236 @@ def phase_train(torch, np):
 def phase_train_flat_quantized(torch, np):
     """The same model and data at full width, layout flat with the int8
     sync, 2 rounds of H = 2: one adamw_update per step and one
-    sync_flat_update per round, all lanes equal to the anchor after it."""
-    from repro_torch.kernels import ops
-    from repro_torch.launch.train import train
-
-    cfg, run, _, _, eng = train_setup(torch, layout="flat", schedule="constant",
-                                      total_steps=4, sync_quantize=True)
+    sync_flat_update per round, all lanes equal to the anchor after it.
+    Returns the counts and the final state (the overlap phase's bitwise
+    reference)."""
+    from repro_torch import tree as T
+    from repro_torch.core import sync as S
 
     def eval_fn(t, state):
         check(lanes_equal(torch, state, state["anchor"]),
               f"flat lanes differ from the anchor after the sync at {t}")
 
-    ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, hist = train(cfg, run, workers=W, b_loc=B_LOC, seq=1, data="host",
-                    layout="flat", eng=eng, eval_fn=eval_fn, log_every=0)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    want = {k: 0 for k in counts}
-    want.update(flash_attention_fwd=cfg.n_layers * W * 4,
-                flash_attention_bwd=cfg.n_layers * W * 4, adamw_update=4,
-                sync_flat_update=2)
-    check(counts == want, f"launch counts {counts} != expected {want}")
-    check([(t - h, h) for t, h, _, _ in hist] == [(0, 2), (2, 2)],
-          f"rounds {hist}")
-    check(all(np.isfinite(loss) for _, _, loss, _ in hist), "non-finite loss")
-    emit("train_flat_quantized", arch=cfg.name, layout="flat",
+    eng, state, hist, counts, wall = run_variant(
+        torch, np, "train_flat_quantized", sync="blocking", eval_fn=eval_fn)
+    expect_counts("train_flat_quantized", eng.cfg, counts, sync_flat_update=2)
+    sync = S.make_sync(eng.run_cfg, spec=eng.spec)
+    scratch = T.map(torch.clone, state)     # the fused sync works in place
+    with torch.no_grad():
+        ms = sync_ms(torch, lambda: sync(scratch))
+    emit("train_flat_quantized", arch=eng.cfg.name, layout="flat",
          buckets=list(eng.spec.sizes.items()), sync_quantize=True,
          rounds=[dict(t_end=t, h=h, loss=loss,
                       divergence=float(m["divergence"]))
                  for (t, h, loss, _), m in zip(hist, eng.round_metrics)],
-         wall_s=wall, launches=counts, lanes_equal_anchor=True)
-    del eng
+         wall_s=wall, launches=counts, lanes_equal_anchor=True,
+         sync_wall_ms=ms[0], sync_device_ms=ms[1])
+    del eng, scratch
+    torch.cuda.empty_cache()
+    return counts, state
+
+
+def sync_ms(torch, fn, reps: int = 3) -> tuple[float, float]:
+    """(host wall ms, device ms from CUDA events) of one call of `fn`,
+    averaged over `reps` back-to-back calls after a warm-up call, with the
+    device synchronised before and after."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    for _ in range(reps):
+        fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) / reps * 1e3,
+            ev[0].elapsed_time(ev[1]) / reps)
+
+
+def run_variant(torch, np, phase, *, sync, depth=0, mask=None, eval_fn=None,
+                **run_overrides):
+    """2 rounds of H = 2 of the full-width recipe on the flat layout with
+    the int8 sync, through `train()`; launch counts at 0 just before, read
+    just after.  Returns (engine, flushed state, history, counts, wall s)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+
+    cfg, run, _, _, eng = train_setup(
+        torch, layout="flat", schedule="constant", total_steps=4,
+        sync_quantize=True, sync=sync, overlap_depth=depth, **run_overrides)
+    if mask is not None:
+        eng.membership_epoch(mask)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, hist = train(cfg, run, workers=W, b_loc=B_LOC, seq=1, data="host",
+                        layout="flat", sync=sync, overlap_depth=depth,
+                        eng=eng, eval_fn=eval_fn, log_every=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check([(t - h, h) for t, h, _, _ in hist] == [(0, 2), (2, 2)],
+          f"{phase}: rounds {hist}")
+    check(all(np.isfinite(loss) for _, _, loss, _ in hist),
+          f"{phase}: a non-finite loss")
+    check(eng._pending is None, f"{phase}: a sync still pending after train()")
+    return eng, state, hist, counts, wall
+
+
+def expect_counts(phase, cfg, counts, **sync_launches):
+    """4 local steps of W workers: 4 AdamW launches (one flat bucket) and
+    one attention forward and backward per layer per worker per step."""
+    want = {k: 0 for k in counts}
+    want.update(flash_attention_fwd=cfg.n_layers * W * 4,
+                flash_attention_bwd=cfg.n_layers * W * 4, adamw_update=4,
+                **sync_launches)
+    check(counts == want, f"{phase}: launch counts {counts} != {want}")
+
+
+def states_equal(torch, a, b) -> bool:
+    from repro_torch import tree as T
+    la, ta = T.flatten(a)
+    lb, tb = T.flatten(b)
+    return ta == tb and all(bool(torch.equal(x, y)) for x, y in zip(la, lb))
+
+
+def phase_train_overlap(torch, np, blocking_state):
+    """sync="overlap" on the full-width flat quantized run.  Depth 0: the
+    final state bitwise the blocking phase's (same seed and data), with one
+    sync_apply_update per sync and no fused sync.  Depth 1 with outer
+    momentum 0.9: finite, nothing pending after `train()`; then on 2 more
+    rounds driven through the engine, `synced_view` twice and `flush` agree
+    bitwise and leave the state untouched."""
+    from repro_torch import tree as T
+    from repro_torch.core import sync as S
+    from repro_torch.kernels import ops
+
+    eng, state, hist, counts, wall = run_variant(torch, np, "train_overlap",
+                                                 sync="overlap", depth=0)
+    expect_counts("train_overlap d0", eng.cfg, counts, sync_apply_update=2)
+    check(states_equal(torch, state, blocking_state),
+          "overlap at depth 0 is not bitwise the blocking flat run")
+    begin = S.make_sync_begin(eng.run_cfg, eng.spec)
+    apply_ = S.make_sync_apply(eng.run_cfg, eng.spec)
+    with torch.no_grad():
+        pending = begin(state)
+        begin_ms = sync_ms(torch, lambda: begin(state))
+        apply_ms = sync_ms(torch, lambda: apply_(state, pending))
+    del state, pending, eng
+
+    eng1, state1, hist1, counts1, wall1 = run_variant(
+        torch, np, "train_overlap", sync="overlap", depth=1,
+        outer_momentum=0.9)
+    expect_counts("train_overlap d1", eng1.cfg, counts1, sync_apply_update=2)
+    st = state1
+    for t in (4, 6):
+        st, _ = eng1.run_round(st, t, 2, lambda i: 1e-4)
+    before = [x.clone() for x in T.leaves(st)]
+    ops.reset_launch_counts()
+    v1, v2 = eng1.synced_view(st), eng1.synced_view(st)
+    check(all(bool(torch.equal(a, b)) for a, b in zip(T.leaves(st), before)),
+          "synced_view changed the training state")
+    fl = eng1.flush(st)
+    check(states_equal(torch, v1, v2) and states_equal(torch, v1, fl),
+          "synced_view twice and flush disagree")
+    check(ops.launch_counts()["sync_apply_update"] == 3,
+          f"views + flush launches {ops.launch_counts()}")
+    check(all(bool(torch.isfinite(x).all()) for x in T.leaves(fl["params"])),
+          "overlap depth 1: non-finite params")
+    emit("train_overlap", arch=eng1.cfg.name, layout="flat",
+         sync_quantize=True,
+         depth0=dict(rounds=[(t, h, loss) for t, h, loss, _ in hist],
+                     wall_s=wall, launches=counts,
+                     bitwise_blocking=True, begin_wall_ms=begin_ms[0],
+                     begin_device_ms=begin_ms[1], apply_wall_ms=apply_ms[0],
+                     apply_device_ms=apply_ms[1]),
+         depth1_momentum09=dict(rounds=[(t, h, loss)
+                                        for t, h, loss, _ in hist1],
+                                wall_s=wall1, launches=counts1,
+                                synced_view_pure=True,
+                                flush_equals_views=True))
+    del eng1, state1, st, before, v1, v2, fl
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_partial(torch, np):
+    """sync="partial" with the mask [1, 1, 0, 1]: the mean over lanes 0, 1
+    and 3, every lane (lane 2 too) equal to the anchor after each sync, one
+    sync_apply_update per sync."""
+    from repro_torch.core import sync as S
+
+    def eval_fn(t, state):
+        check(lanes_equal(torch, state, state["anchor"]),
+              f"partial: a lane differs from the anchor after the sync at {t}")
+
+    mask = [1.0, 1.0, 0.0, 1.0]
+    eng, state, hist, counts, wall = run_variant(
+        torch, np, "train_partial", sync="partial", mask=mask,
+        eval_fn=eval_fn)
+    expect_counts("train_partial", eng.cfg, counts, sync_apply_update=2)
+    sync = S.make_sync_partial(eng.run_cfg, eng.spec)
+    m = torch.tensor(mask, device="cuda")
+    with torch.no_grad():
+        ms = sync_ms(torch, lambda: sync(state, m))
+    emit("train_partial", arch=eng.cfg.name, membership=mask,
+         epochs=[dataclasses.asdict(e) for e in eng.epochs],
+         rounds=[(t, h, loss) for t, h, loss, _ in hist], wall_s=wall,
+         launches=counts, lanes_equal_anchor=True, sync_wall_ms=ms[0],
+         sync_device_ms=ms[1])
+    del eng, state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_ring(torch, np):
+    """sync_wire="ring-int8", blocking: per sync exactly 16 ring_quantize +
+    12 ring_combine + 1 sync_apply_update launches; the first sync's codes
+    and scales on the card equal `ring_codes_host` on the CPU for the same
+    delta, bitwise; its dequantized mean within `ring_tolerance(4, amax)`
+    of the exact mean."""
+    from repro_torch.core import sync as S
+
+    real, seen = S.ring_codes_host, []
+
+    def record(d, w=None):
+        out = real(d, w)
+        if not seen:
+            seen.append((d.cpu(), out[0].cpu(), out[1].cpu()))
+        return out
+
+    S.ring_codes_host = record
+    try:
+        eng, state, hist, counts, wall = run_variant(
+            torch, np, "train_ring", sync="blocking",
+            sync_wire="ring-int8")
+    finally:
+        S.ring_codes_host = real
+    expect_counts("train_ring", eng.cfg, counts, ring_quantize=2 * 16,
+                  ring_combine=2 * 12, sync_apply_update=2)
+    d, q, s = seen[0]
+    qc, sc = S.ring_codes_host(d)
+    check(bool(torch.equal(q, qc)) and bool(torch.equal(s, sc)),
+          "ring codes on the card differ from the CPU's")
+    n = d.shape[1]
+    mean = q.reshape(-1)[:n].float() * s[:, None].expand(q.shape).reshape(
+        -1)[:n] / 127.0
+    err = float((mean - d.mean(0)).abs().max())
+    amax = float(d.abs().max())
+    tol = S.ring_tolerance(W, amax)
+    check(err <= tol, f"ring mean off the exact mean by {err} > {tol}")
+    sync = S.make_sync(eng.run_cfg, spec=eng.spec)
+    with torch.no_grad():
+        ms = sync_ms(torch, lambda: sync(state))
+    emit("train_ring", arch=eng.cfg.name, wire="ring-int8",
+         rounds=[(t, h, loss) for t, h, loss, _ in hist], wall_s=wall,
+         launches=counts, launches_per_sync={k: v / 2 for k, v in
+                                             counts.items() if k in
+                                             SYNC_KERNELS},
+         codes_card_equal_cpu=True, chunk=q.shape[1], mean_err=err,
+         delta_amax=amax, ring_tolerance=tol, sync_wall_ms=ms[0],
+         sync_device_ms=ms[1])
+    del eng, state, seen, d, q, s, qc, sc, mean
     torch.cuda.empty_cache()
     return counts
 
@@ -923,6 +1230,57 @@ def phase_train_card_vs_cpu(torch, np):
     torch.cuda.empty_cache()
 
 
+def phase_train_card_vs_cpu_overlap(torch, np):
+    """sync="overlap" at depth 1 (int8 sync, outer momentum 0.9), ViT-B
+    widths at 2 layers, W = 2, 2 images of 224^2 each, 2 rounds of H = 2 and
+    the flush: the card (kernels, AdamW in place) against the CPU (plain
+    versions) from the same weights.  Had the boundary params not been
+    cloned before the stale step, the card's correction would collapse
+    every lane onto the consensus and lose that step.  Same rules as
+    `train_card_vs_cpu` on losses and the largest difference; the int8
+    sync turns AdamW's sum-order noise into whole code levels where a
+    delta sits near a rounding boundary, so the count is held at 1 in 100
+    elements beyond 1e-5 (not 1 in 2,000) and the relative L2 within 1e-3.
+    A lost stale step moves nearly every element."""
+    from repro_torch import tree as T
+    kw = dict(n_layers=2, workers=2, b_loc=2, layout="flat",
+              schedule="constant", total_steps=4, sync_quantize=True,
+              outer_momentum=0.9, sync="overlap", overlap_depth=1)
+    cfg, _, _, _, eng_c = train_setup(torch, **kw)
+    _, _, _, _, eng_h = train_setup(torch, device="cpu", **kw)
+    card = eng_c.init_state()
+    states = {"cuda": card,
+              "cpu": T.map(lambda x: x.to("cpu", copy=True), card)}
+    lr = 6e-3
+    losses = {"cuda": [], "cpu": []}
+    for dev, eng in (("cuda", eng_c), ("cpu", eng_h)):
+        st = states[dev]
+        for t in (0, 2):
+            st, m = eng.run_round(st, t, 2, lambda i: lr)
+            losses[dev].append(float(m["loss"]))
+        states[dev] = eng.flush(st)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                      losses["cpu"]))
+    a = states["cuda"]["params"]["float32"].cpu()
+    b = states["cpu"]["params"]["float32"]
+    d = (a - b).abs()
+    off = int((d > 1e-5 * (1 + b.abs())).sum())
+    worst, rel_l2 = float(d.max()), float(d.norm() / b.norm())
+    emit("train_card_vs_cpu_overlap", layers=cfg.n_layers,
+         d_model=cfg.d_model, workers=2, b_loc=2, image=IMAGE, depth=1,
+         outer_momentum=0.9, losses_card=losses["cuda"],
+         losses_cpu=losses["cpu"], max_loss_rel_err=loss_err,
+         max_param_abs_err=worst, param_rel_l2=rel_l2,
+         params_beyond_1e5=off, params=b.numel())
+    check(loss_err <= 1e-4, f"overlap card vs CPU loss rel err {loss_err}")
+    check(off <= b.numel() // 100,
+          f"overlap card vs CPU: {off} of {b.numel()} elements beyond 1e-5")
+    check(rel_l2 <= 1e-3, f"overlap card vs CPU params rel L2 {rel_l2}")
+    check(worst <= 4 * lr, f"overlap card vs CPU params differ by {worst}")
+    del states, card, eng_c, eng_h
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -954,6 +1312,7 @@ def main() -> int:
     max_len = max(PROMPT_LENS) + MAX_NEW
     timed = phase_kernels(torch, max_len)
     timed.update(phase_training_kernels(torch))
+    timed.update(phase_sync_kernels(torch))
     counts = {}
     serve = phase_service(torch, np)
     counts.update({k: serve[k] for k in SERVING_KERNELS})
@@ -961,14 +1320,24 @@ def main() -> int:
     phase_hot_swap(torch, np)
     trained = phase_train(torch, np)
     counts.update({k: trained[k] for k in TRAINING_KERNELS[:3]})
-    flat = phase_train_flat_quantized(torch, np)
+    flat, flat_state = phase_train_flat_quantized(torch, np)
     counts["sync_flat_update"] = flat["sync_flat_update"]
     phase_train_card_vs_cpu(torch, np)
+    # the sync variants: each path's counts at 0 just before it, read after
+    overlap = phase_train_overlap(torch, np, flat_state)
+    del flat_state
+    partial = phase_train_partial(torch, np)
+    ring = phase_train_ring(torch, np)
+    counts["sync_apply_update"] = (overlap["sync_apply_update"]
+                                   + partial["sync_apply_update"]
+                                   + ring["sync_apply_update"])
+    counts.update({k: ring[k] for k in ("ring_combine", "ring_quantize")})
+    phase_train_card_vs_cpu_overlap(torch, np)
     check(all(counts[k] > 0 for k in SOURCES),
           f"a kernel of a path never launched: {counts}")
 
     kernels = []
-    for name in SERVING_KERNELS + TRAINING_KERNELS:
+    for name in SERVING_KERNELS + TRAINING_KERNELS + SYNC_KERNELS:
         t = timed[name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],

@@ -2,8 +2,7 @@
 
 The fields match the JAX package's one for one, so a config built here
 describes the same model and run there.  Fields of `RunConfig` that name
-parts the port does not run yet (sharding, overlap wires, MoE dispatch)
-are kept so the two configs compare equal; the code that reads them
+parts the port does not run yet (sharding, MoE dispatch) are kept so the two configs compare equal; the code that reads them
 raises `ConfigError("not ported yet")` where it meets one it cannot run.
 """
 from __future__ import annotations
@@ -106,5 +105,5 @@ class RunConfig:
     sync_quantize: bool = False      # int8-quantized sync deltas
     outer_momentum: float = 0.0      # DiLoCo-style Nesterov outer optimizer
     # wire mode for the quantized sync payload: auto (exact integer-code
-    # sum) | ring-int8 (re-quantizing ring; not ported yet)
+    # sum) | ring-int8 (re-quantizing ring)
     sync_wire: str = "auto"

@@ -1,5 +1,5 @@
 """RoundEngine: the runtime that owns state, data and telemetry for a
-training run (port of `repro/core/engine.py`, blocking sync).
+training run (port of `repro/core/engine.py`).
 
 The reference compiles one XLA program per power-of-two bucket of H and
 masks the padded steps; PyTorch runs eagerly, so the port runs exactly `h`
@@ -19,26 +19,75 @@ buffer per dtype bucket: one optimizer kernel launch per step and one sync
 kernel launch per round per bucket; bitwise the tree trajectory).  Data:
 "host" with a `batch_fn(step) -> batch [W, B_loc, ...]` (CPU tensors, moved
 to the run's device here); `data_seconds` accumulates the host time spent
-in `batch_fn`.  Anything else of the reference — device data, the built-in
-token stream, flat_sharded, overlap/partial sync, meshes, adaptive batch,
-membership changes, checkpoints — raises `ConfigError("not ported yet")`.
+in `batch_fn`.
+
+Sync modes:
+  * "blocking": every round ends fully synced.
+  * "overlap": a round ends with the reduce half only (`make_sync_begin`);
+    the next round runs its first min(overlap_depth, h) steps on the stale
+    params, then applies the pending sync — exactly at depth 0 (bitwise
+    the blocking trajectory), as the correction x_i <- x_i + (consensus -
+    x_i_at_boundary) at depth > 0.  The boundary params are CLONED before
+    those steps: on the card the optimizer updates params in place.
+    `synced_view` (pure) gives an observer the consensus, `flush` applies
+    the last pending sync.
+  * "partial": the boundary mean runs over the lanes of the membership mask
+    (`membership_epoch`), and every lane re-anchors to it.
+The ring-int8 wire (`RunConfig.sync_wire`) composes with blocking and
+overlap on the flat layout.  `membership_epoch` also resizes the worker
+axis (lanes leave or join) through the tree layout.
+
+Anything else of the reference — device data, the built-in token stream,
+flat_sharded, meshes, adaptive batch, checkpoints — raises
+`ConfigError("not ported yet")`.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import tree as T
 from repro_torch.core import flat
 from repro_torch.core import local_update as LU
-from repro_torch.core.sync import make_sync
+from repro_torch.core.sync import (make_sync, make_sync_apply,
+                                   make_sync_begin, make_sync_partial)
 from repro_torch.device import resolve_device
 from repro_torch.errors import ConfigError
 from repro_torch.models import api, param as pm
 
 Tree = Any
+
+
+class PendingSyncError(RuntimeError):
+    """An overlap-mode sync is still in flight where a synced state is
+    required (a real exception: asserts vanish under `python -O`)."""
+
+
+class MembershipError(RuntimeError):
+    """An illegal worker-set change: membership may only move at a round
+    boundary (never with a sync in flight), and a mask must keep at least
+    one participant."""
+
+
+@dataclasses.dataclass(frozen=True)
+class MembershipEpoch:
+    """One round-boundary change of the worker set, appended to
+    `engine.epochs` by `membership_epoch()`.  (The reference's `parked`
+    compile-cache keys have no counterpart: nothing is compiled.)
+
+    index:      epoch ordinal
+    workers:    worker-axis size W after the change
+    membership: the participation mask in force, one float per lane
+    resized:    True when the W axis itself changed
+    """
+    index: int
+    workers: int
+    membership: tuple[float, ...]
+    resized: bool
 
 
 def worker_divergence(params: Tree) -> torch.Tensor:
@@ -49,6 +98,18 @@ def worker_divergence(params: Tree) -> torch.Tensor:
         m = torch.mean(xf, 0, keepdim=True)
         sq = sq + torch.sum(torch.square(xf - m), dim=tuple(range(1, xf.ndim)))
     return torch.mean(torch.sqrt(sq))
+
+
+def _remap_worker_lanes(tree_state: Tree, lanes: list[int]) -> Tree:
+    """Tree-layout state with its worker axis re-padded to `lanes` (source
+    lane per new slot; repeating a lane clones it — params AND moments).
+    The anchor, outer momentum and step counter carry no worker axis."""
+    take = lambda x: torch.stack([x[i] for i in lanes])    # noqa: E731
+    out = dict(tree_state)
+    out["params"] = T.map(take, tree_state["params"])
+    out["opt"] = {k: (T.map(take, v) if k in flat._STACKED else v)
+                  for k, v in tree_state["opt"].items()}
+    return out
 
 
 def _metrics(params, losses, gns, denom):
@@ -84,10 +145,12 @@ class RoundEngine:
         if cfg.family == "vision" and not (data == "host" and batch_fn):
             raise ConfigError(
                 "vision configs need data='host' and an image batch_fn")
+        if sync != "blocking" and mode != "bucketed":
+            raise ConfigError(
+                "overlap/partial sync runs through the bucketed program")
         for bad, what in ((data == "device", "data='device'"),
                           (batch_fn is None, "the built-in token stream"),
                           (layout == "flat_sharded", "layout='flat_sharded'"),
-                          (sync != "blocking", f"sync={sync!r}"),
                           (mesh is not None, "a mesh"),
                           (adaptive_batch, "adaptive_batch")):
             if bad:
@@ -100,6 +163,11 @@ class RoundEngine:
         self._host_batch = batch_fn
         self.spec = None                    # FlatParamSpace (layout="flat")
         self._step = self._sync = None
+        self._pending = None                # overlap: the in-flight reduce
+        # partial sync: the participation mask over the worker axis (all
+        # lanes by default); only membership_epoch() changes it
+        self.membership = np.ones(workers, np.float32)
+        self.epochs: list[MembershipEpoch] = []
         self.h_trace: list[tuple[int, int]] = []    # (t_start, h) executed
         self.round_metrics: list[dict] = []         # per round, device scalars
         self.data_seconds = 0.0                     # host time in batch_fn
@@ -133,6 +201,10 @@ class RoundEngine:
 
     def params_single(self, state: Tree) -> Tree:
         """Worker-0 params as the model tree, whatever the layout (views)."""
+        if self._pending is not None:
+            raise PendingSyncError(
+                "in-flight sync: pass flush(state) or synced_view(state), "
+                "not the raw run state")
         params = state["params"]
         if self.layout == "flat":
             params = self._ensure_spec().unflatten(params, lead=1)
@@ -141,21 +213,41 @@ class RoundEngine:
     # -- execution --------------------------------------------------------
 
     def _programs(self):
+        """(local step, sync) for blocking / partial, (local step, (begin,
+        apply)) for overlap — built once, rebuilt after a resize."""
         if self._step is None:
             spec = self._ensure_spec() if self.layout == "flat" else None
             self._step = LU.make_local_step(self.cfg, self.run_cfg,
                                             with_metrics=True, spec=spec)
-            self._sync = make_sync(self.run_cfg, spec=spec)
+            if self.sync_mode == "overlap":
+                self._sync = (make_sync_begin(self.run_cfg, spec),
+                              make_sync_apply(self.run_cfg, spec))
+            elif self.sync_mode == "partial":
+                self._sync = make_sync_partial(self.run_cfg, spec)
+            else:
+                self._sync = make_sync(self.run_cfg, spec=spec)
         return self._step, self._sync
 
     def run_round(self, state: Tree, t: int, h: int, lr_fn):
         """Execute the communication round starting at step t with period h:
-        h local steps on batches `batch_fn(t + i)`, then the sync.  Returns
-        (state, metrics) with metrics {"loss", "grad_norm", "divergence"} as
-        0-d device tensors."""
+        h local steps on batches `batch_fn(t + i)`, then the sync (overlap:
+        the pending sync applied after the first min(depth, h) steps, and
+        this round's reduce left pending).  Returns (state, metrics) with
+        metrics {"loss", "grad_norm", "divergence"} as 0-d device
+        tensors."""
         step, sync = self._programs()
+        pending = self._pending if self.sync_mode == "overlap" else None
+        d = min(self.overlap_depth, h) if pending is not None else 0
+        entry = None
+        if pending is not None and d > 0:
+            # the boundary params, kept apart from the in-place steps
+            entry = T.map(torch.clone, state["params"])
         losses, gns = [], []
         for i in range(h):
+            if pending is not None and i == d:
+                with torch.no_grad():
+                    state = sync[1](state, pending, entry)
+                pending = None
             t0 = time.perf_counter()
             batch = self._host_batch(t + i)
             self.data_seconds += time.perf_counter() - t0
@@ -164,16 +256,116 @@ class RoundEngine:
             losses.append(loss)
             gns.append(gn)
         with torch.no_grad():
+            if pending is not None:         # depth >= h: apply at the end
+                state = sync[1](state, pending, entry)
             metrics = _metrics(state["params"], losses, gns, float(h))
-            state = sync(state)
+            if self.sync_mode == "overlap":
+                self._pending = sync[0](state)
+            elif self.sync_mode == "partial":
+                state = sync(state, torch.as_tensor(self.membership,
+                                                    device=self.device))
+            else:
+                state = sync(state)
         self.h_trace.append((t, h))
         self.round_metrics.append(metrics)
         return state, metrics
 
     def synced_view(self, state: Tree) -> Tree:
-        """The synced consensus: under blocking sync, the state itself."""
-        return state
+        """State with the in-flight sync applied, WITHOUT consuming it: the
+        consensus an observer (eval, logging) should see under overlap
+        mode.  Pure: the apply writes new tensors, so the training state,
+        its anchor and its outer momentum are left as they are."""
+        if self._pending is None:
+            return state
+        with torch.no_grad():
+            return self._programs()[1][1](state, self._pending)
 
     def flush(self, state: Tree) -> Tree:
-        """Apply the in-flight sync: under blocking sync there is none."""
+        """Apply the in-flight sync, if any (overlap mode), leaving the state
+        at the consensus a blocking round would have.  Call before reading
+        out final params."""
+        state = self.synced_view(state)
+        self._pending = None
         return state
+
+    def set_overlap_depth(self, depth: int) -> None:
+        """Retune the overlap depth at a round boundary (overlap engines
+        only)."""
+        if self.sync_mode != "overlap":
+            raise MembershipError(
+                "overlap depth is only a knob under sync='overlap'")
+        depth = int(depth)
+        if depth < 0:
+            raise MembershipError(f"overlap depth must be >= 0, got {depth}")
+        self.overlap_depth = depth
+
+    # -- elastic membership -----------------------------------------------
+
+    def membership_epoch(self, membership: Sequence[float] | None = None, *,
+                         state: Tree | None = None,
+                         keep_lanes: Sequence[int] | None = None,
+                         grow_to: int | None = None) -> Tree | None:
+        """The only place the worker set changes — a round boundary.
+
+        * `membership_epoch([1, 1, 0, 1])` — the participation mask for the
+          next rounds (sync="partial"): lane 2 keeps training, but its delta
+          is left out of the boundary mean, which divides by |P| = 3.
+        * `membership_epoch(state=st, keep_lanes=(0, 1, 3))` — lanes leave:
+          the worker axis shrinks to the kept lanes.  Returns the new state.
+        * `membership_epoch(state=st, grow_to=4)` — lanes join as clones of
+          lane 0 (the post-sync consensus), params and moments.
+
+        Each change is recorded as a MembershipEpoch.  Raises
+        MembershipError with a sync in flight or on an empty mask."""
+        if self._pending is not None:
+            raise MembershipError(
+                "membership may only change at a round boundary: a sync is "
+                "in flight over the old worker set — flush() first")
+        resize = keep_lanes is not None or grow_to is not None
+        if resize:
+            if state is None:
+                raise MembershipError("a resize needs the run state")
+            if keep_lanes is not None:
+                lanes = [int(i) for i in keep_lanes]
+                if not lanes or not all(0 <= i < self.workers
+                                        for i in lanes):
+                    raise MembershipError(
+                        f"keep_lanes {lanes} out of range for "
+                        f"W={self.workers}")
+            else:
+                if grow_to <= self.workers:
+                    raise MembershipError(
+                        f"grow_to={grow_to} does not grow W={self.workers}")
+                lanes = list(range(self.workers)) + \
+                    [0] * (grow_to - self.workers)
+            state = self._resize_lanes(state, lanes)
+            self.membership = np.ones(self.workers, np.float32)
+        elif membership is not None:
+            mask = np.asarray(membership, np.float32)
+            if mask.shape != (self.workers,) or mask.sum() < 1:
+                raise MembershipError(
+                    f"membership mask must be [{self.workers}] with at "
+                    f"least one participant, got {mask!r}")
+            self.membership = mask
+        self.epochs.append(MembershipEpoch(
+            index=len(self.epochs), workers=self.workers,
+            membership=tuple(float(x) for x in self.membership),
+            resized=resize))
+        return state
+
+    def _resize_lanes(self, state: Tree, lanes: list[int]) -> Tree:
+        """Re-pad the worker axis to `lanes` through the tree layout, so the
+        kept lanes stay bitwise; the flat spec and the step and sync
+        callables are rebuilt for the new W."""
+        spec = self._ensure_spec() if self.layout == "flat" else None
+        tree_state = state if spec is None else flat.to_tree_state(spec,
+                                                                   state)
+        tree_state = _remap_worker_lanes(tree_state, lanes)
+        self.workers = len(lanes)
+        self.spec = None
+        self._step = self._sync = None
+        if self.layout == "tree":
+            return tree_state
+        params_single = T.map(lambda x: x[0], tree_state["params"])
+        return flat.to_flat_state(self._ensure_spec(params_single),
+                                  tree_state)

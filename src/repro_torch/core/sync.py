@@ -1,5 +1,5 @@
 """Synchronization (model averaging) applied every H steps (port of
-`repro/core/sync.py`, the blocking, collective-free part).
+`repro/core/sync.py`, its mesh-less half).
 
 Paper-faithful sync (Alg. 2 line 15): the global iterate is the plain mean
 of the worker replicas; optimizer state is not averaged.  Beyond the paper:
@@ -14,16 +14,37 @@ Layouts:
     code mean) then `make_sync_apply` (the plain `sync_apply_update` per
     leaf and the broadcast back to the W lanes), as the reference composes
     them for its tree layout.
-  * flat (spec=FlatParamSpace) — one fused pass per dtype bucket through
-    `ops.sync_flat_update` (the CUDA kernel on the card) whenever an anchor
-    is in play; plain `worker_mean` otherwise.
+  * flat (spec=FlatParamSpace) — the blocking sync is one fused pass per
+    dtype bucket through `ops.sync_flat_update` (the CUDA kernel on the
+    card, in place) whenever an anchor is in play; plain `worker_mean`
+    otherwise.  The split halves (overlap, partial, ring) apply through
+    `ops.sync_apply_update`, one launch per bucket, out of place.
 Both run the same elementwise ops, so the layouts stay bitwise equal.
-Partial, overlap and ring-int8 sync, and the collectives of the sharded
-layout, are not ported yet.
+
+The split sync: `make_sync_begin` (the reduce: a pure function of the
+pre-sync state) and `make_sync_apply` (dequantize, outer update, params),
+which the engine's overlap mode runs one round apart.  Pending syncs are the
+mean params (plain), the mean delta (momentum only) or {"q", "scale"}
+(quantized); `entry_params` turns the apply into the correction form
+x_i <- x_i + (consensus - entry_i) for overlap depth > 0.
+
+Partial participation (`make_sync_partial`): a membership mask m in {0,1}^W
+zeroes absent lanes' deltas BEFORE the scale statistic and the quantizer;
+the mean divides by |P| = sum(m).  Quantized pendings carry the undivided
+code sum and {"count": |P|}.  The apply broadcasts the consensus to ALL W
+lanes, so an absent lane re-anchors.
+
+The ring-int8 wire (`run_cfg.sync_wire`): the re-quantizing ring, emulated
+mesh-less over one bucket (`ring_codes_host`): per ring chunk, W - 1 hops
+of `ops.ring_combine` + `ops.ring_quantize_codes` carrying int8 codes and a
+0-d device scale.  Its result is within `ring_tolerance` of the exact mean,
+never bitwise.  The collective halves (reduce_scatter / all_gather, the
+mesh ring) wait for the distributed slice and raise.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import tree as T
 from repro_torch.errors import ConfigError
@@ -46,78 +67,232 @@ def _guarded_scale(amax: torch.Tensor) -> torch.Tensor:
     return torch.where(amax > 0.0, amax, torch.ones_like(amax))
 
 
-def flat_delta_scales(spec, bucket: str, p, anchor):
+def _lane_mask(mask, x):
+    """A [W] mask shaped to multiply `x` [W, ...] lane by lane."""
+    return mask.reshape((mask.shape[0],) + (1,) * (x.ndim - 1))
+
+
+def flat_delta_scales(spec, bucket: str, p, anchor, mask=None):
     """Per-tensor int8 scales for one flat bucket, spread to elements [N]:
     max|p - anchor| over the worker axis and every element of each leaf —
-    the tree path's per-leaf statistic, bitwise (max is exact)."""
-    d = p.float() - anchor.float()[None]
-    d = torch.amax(d.abs_(), 0)
+    the tree path's per-leaf statistic, bitwise (max is exact).  A
+    membership `mask` ([W] f32) zeroes absent lanes' deltas first, so the
+    statistic is exactly the participant amax."""
+    d = (p.float() - anchor.float()[None]).abs_()
+    if mask is not None:
+        d = d * _lane_mask(mask, d)
+    d = torch.amax(d, 0)
     return spec.spread(bucket, _guarded_scale(spec.segment_max(bucket, d)))
 
 
-def _check_wire(run_cfg) -> None:
-    if run_cfg.sync_wire != "auto":
-        raise ConfigError(f"sync_wire={run_cfg.sync_wire!r}: not ported yet")
+def _no_mesh(spec) -> None:
+    if getattr(spec, "mesh", None) is not None:
+        raise ConfigError("the collective sync (reduce_scatter / all_gather "
+                          "over a mesh): not ported yet")
 
 
-def _tree_only(spec) -> None:
-    if spec is not None:
-        raise ConfigError("the composed flat sync (overlap / sharded "
-                          "layouts): not ported yet")
+# --------------------------------------------------------------------------
+# The re-quantizing int8 ring (`sync_wire="ring-int8"`)
+# --------------------------------------------------------------------------
+
+WIRE_MODES = ("auto", "ring-int8")
 
 
-def make_sync_begin(run_cfg, spec=None):
-    """First half of the sync, tree layout: begin(state) -> pending — the
-    worker-mean params (plain), the worker-mean delta (momentum only), or
-    {"q": mean codes, "scale": per-leaf scales} (quantized)."""
-    _check_wire(run_cfg)
-    _tree_only(spec)
+def check_wire(run_cfg) -> str:
+    """Validate + return the wire mode.  ring-int8 rides the quantized sync
+    machinery (codes + anchor), so it requires sync_quantize."""
+    wire = getattr(run_cfg, "sync_wire", "auto")
+    if wire not in WIRE_MODES:
+        raise ValueError(f"unknown sync_wire {wire!r}; pick from {WIRE_MODES}")
+    if wire == "ring-int8" and not run_cfg.sync_quantize:
+        raise ValueError("sync_wire='ring-int8' requires sync_quantize=True "
+                         "(the ring carries int8 codes of the delta)")
+    return wire
+
+
+def ring_tolerance(w: int, amax, rounds: int = 1):
+    """Worst-case |ring mean - exact mean| bound after `rounds` syncs whose
+    per-tensor delta amax never exceeded `amax`: each hop's requantization
+    errs at most amax/254 per element, attenuated to k/W of that by the
+    remaining folds, plus the final quantize — amax/254 * (W+1)/2 per sync,
+    with a 2x safety factor for the fold's own fp32 rounding."""
+    return float(amax) * (w + 1) / 254.0 * rounds * 2.0
+
+
+def ring_codes_host(d, w: int | None = None):
+    """Mesh-less int8 ring over one bucket delta d [W, N] (one chunk per
+    worker): chunk c's partial seeds at worker (c+1) mod W and folds each
+    visitor's contribution through the per-hop requant pass (W - 1
+    `ring_combine` and W `ring_quantize_codes` launches per chunk on the
+    card).  N is zero-padded to a multiple of W (a zero delta is exact under
+    requantization).  Returns (q [W, ceil(N/W)] int8 mean codes, s [W] f32
+    per-chunk scales); the scales never leave the device."""
+    w = d.shape[0] if w is None else w
+    pad = (-d.shape[1]) % w
+    if pad:
+        d = F.pad(d, (0, pad))
+    dc = d.reshape(w, w, d.shape[1] // w)   # [worker, chunk, chunk_len]
+    qs, ss = [], []
+    for c in range(w):
+        j0 = (c + 1) % w
+        acc = dc[j0, c]
+        s = _guarded_scale(torch.max(torch.abs(acc)))
+        q = kops.ring_quantize_codes(acc, s)
+        for k in range(1, w):
+            acc, amax = kops.ring_combine(q, s, dc[(j0 + k) % w, c], k)
+            s = _guarded_scale(amax)
+            q = kops.ring_quantize_codes(acc, s)
+        qs.append(q)
+        ss.append(s)
+    return torch.stack(qs), torch.stack(ss)
+
+
+def _ring_host_begin(spec, params, anchor):
+    """Mesh-less ring pending for the flat layout: per bucket
+    {"q": [W, C] int8, "scale": [W] f32} with C = ceil(N/W)."""
+    out_q, out_s = {}, {}
+    for b in spec.buckets:
+        d = params[b].float() - anchor[b].float()[None]
+        out_q[b], out_s[b] = ring_codes_host(d)
+    return {"q": out_q, "scale": out_s}
+
+
+def _ring_host_gather(pending, anchor):
+    """Ring pending -> per-element (step_in, scales) [N] per bucket: the
+    codes already ARE the mean (no /W), each chunk's scale spread over its
+    elements (an expand, so no host sync)."""
+    step, scl = {}, {}
+    for b in pending["q"]:
+        q, s = pending["q"][b], pending["scale"][b]
+        n = anchor[b].shape[0]
+        step[b] = q.reshape(-1)[:n].float()
+        scl[b] = s[:, None].expand(q.shape).reshape(-1)[:n]
+    return step, scl
+
+
+# --------------------------------------------------------------------------
+# The split sync: reduce (begin) | outer update + apply
+# --------------------------------------------------------------------------
+
+def make_sync_begin(run_cfg, spec=None, partial: bool = False):
+    """First half of the sync: begin(state) -> pending, a pure function of
+    the pre-sync state (new tensors; nothing of the state is written).
+
+    pending per bucket/leaf: the worker-mean params in f32 (plain sync), the
+    worker-mean delta (momentum-only sync), {"q": worker-mean integer codes,
+    "scale": per-element scales} (quantized), or the ring's
+    {"q": [W, C] int8, "scale": [W]} (ring-int8, flat layout).
+
+    With a mask, begin(state, mask) ([W] f32 in {0,1} on the state's
+    device): plain/momentum pendings arrive divided by |P|; quantized ones
+    carry the code sum and {"count": |P|}.  partial=True refuses the ring
+    wire, which cannot take a mask."""
     quantize, mom = run_cfg.sync_quantize, run_cfg.outer_momentum
+    wire = check_wire(run_cfg)
+    _no_mesh(spec)
+    if wire == "ring-int8" and spec is None:
+        raise ValueError("sync_wire='ring-int8' needs a flat layout "
+                         "(--param-layout flat | flat_sharded): the ring "
+                         "chunks a bucket, not a pytree leaf")
+    if wire == "ring-int8" and partial:
+        raise ValueError("sync_wire='ring-int8' does not compose with "
+                         "partial participation: the running-mean ring "
+                         "bakes W into every hop — use wire='auto'")
 
-    def begin(state):
+    def mean_w(x, mask):
+        if mask is None:
+            return kref.mean0(x)
+        return (x * _lane_mask(mask, x)).sum(0) / mask.sum()
+
+    def begin(state, mask=None):
         params = state["params"]
         if not quantize and mom == 0.0:
-            return T.map(lambda p: kref.mean0(p.float()), params)
+            return T.map(lambda p: mean_w(p.float(), mask), params)
+        anchor = state["anchor"]
+        if wire == "ring-int8":
+            return _ring_host_begin(spec, params, anchor)
         delta = T.map(lambda p, a: p.float() - a.float()[None], params,
-                      state["anchor"])
-        if quantize:
+                      anchor)
+        if mask is not None:
+            # zero absent lanes BEFORE the scale statistic and the quantizer
+            delta = T.map(lambda d: d * _lane_mask(mask, d), delta)
+        if not quantize:
+            if mask is None:
+                return T.map(kref.mean0, delta)
+            return T.map(lambda d: d.sum(0) / mask.sum(), delta)
+        if spec is None:
             scales = T.map(lambda d: _guarded_scale(torch.max(torch.abs(d))),
                            delta)
-            qmean = T.map(lambda d, s: kref.mean0(kref.quantize_codes(d, s)),
-                          delta, scales)
-            return {"q": qmean, "scale": scales}
-        return T.map(kref.mean0, delta)
+        else:
+            scales = {b: flat_delta_scales(spec, b, params[b], anchor[b],
+                                           mask) for b in spec.buckets}
+        codes = T.map(lambda d, s: kref.quantize_codes(
+            d, s[None] if s.ndim else s), delta, scales)
+        if mask is None:
+            return {"q": T.map(kref.mean0, codes), "scale": scales}
+        return {"q": T.map(lambda q: q.sum(0), codes), "scale": scales,
+                "count": mask.sum()}
 
     return begin
 
 
-def make_sync_apply(run_cfg, spec=None):
-    """Second half, tree layout: apply(state, pending) -> state with the
-    outer update applied and the consensus broadcast to every lane."""
-    _check_wire(run_cfg)
-    _tree_only(spec)
+def make_sync_apply(run_cfg, spec=None, partial: bool = False):
+    """Second half of the sync: apply(state, pending, entry_params=None) ->
+    a NEW state (the input state's tensors are not written, so applying a
+    pending sync to the live state is a pure view of it).
+
+      * entry_params=None — exact mode: every lane becomes the consensus.
+        Right after begin() this is the blocking sync; deferred to the next
+        round with no step in between (overlap depth 0) it stays bitwise
+        the blocking trajectory.
+      * entry_params given (the params begin() saw) — correction mode for
+        overlap depth > 0: x_i <- x_i + (consensus - entry_i).
+
+    Under the flat layout the dequantize + outer update + anchor run as one
+    `ops.sync_apply_update` per bucket (the CUDA kernel on the card); under
+    the tree layout the plain version per leaf, as the reference does.
+    Partial pendings divide their code sums by pending["count"]."""
     quantize, mom = run_cfg.sync_quantize, run_cfg.outer_momentum
+    wire = check_wire(run_cfg)
+    _no_mesh(spec)
+    del partial  # pendings self-describe via their "count" entry
 
-    def to_params(consensus, params):
-        return T.map(lambda c, p: c[None].expand(p.shape).to(p.dtype)
-                     .contiguous(), consensus, params)
+    def to_params(consensus, params, entry):
+        if entry is None:
+            return T.map(lambda c, p: c[None].expand(p.shape).to(p.dtype)
+                         .contiguous(), consensus, params)
+        return T.map(lambda c, p, e: (p.float() + (c[None] - e.float()))
+                     .to(p.dtype), consensus, params, entry)
 
-    def apply(state, pending):
+    def apply(state, pending, entry_params=None):
         params = state["params"]
         if not quantize and mom == 0.0:
-            return {**state, "params": to_params(pending, params)}
-        step_in = pending["q"] if quantize else pending
+            return {**state, "params": to_params(pending, params,
+                                                 entry_params)}
+        if quantize and wire == "ring-int8":
+            step_in, scales = _ring_host_gather(pending, state["anchor"])
+        elif quantize:
+            cnt = pending.get("count")
+            step_in = (pending["q"] if cnt is None
+                       else T.map(lambda q: q / cnt, pending["q"]))
+            scales = pending["scale"]
+        else:
+            step_in, scales = pending, None
+        mu_in = state["outer_mu"] if mom > 0.0 else None
+        apply_one = kops.sync_apply_update if spec is not None \
+            else kref.sync_apply_update
         ls, treedef = T.flatten(step_in)
         la = T.leaves(state["anchor"])
-        lsc = T.leaves(pending["scale"]) if quantize else [None] * len(ls)
-        lmu = T.leaves(state["outer_mu"]) if mom > 0.0 else [None] * len(ls)
-        outs = [kref.sync_apply_update(s, a, scale=sc, mu=m, momentum=mom)
+        lsc = T.leaves(scales) if quantize else [None] * len(ls)
+        lmu = T.leaves(mu_in) if mom > 0.0 else [None] * len(ls)
+        outs = [apply_one(s, a, scale=sc, mu=m, momentum=mom)
                 for s, a, sc, m in zip(ls, la, lsc, lmu)]
         new_state = dict(state)
         new_state["anchor"] = T.unflatten(treedef, [o[0] for o in outs])
         if mom > 0.0:
             new_state["outer_mu"] = T.unflatten(treedef, [o[1] for o in outs])
-        new_state["params"] = to_params(new_state["anchor"], params)
+        new_state["params"] = to_params(new_state["anchor"], params,
+                                        entry_params)
         return new_state
 
     return apply
@@ -127,12 +302,14 @@ def make_sync(run_cfg, spec=None):
     """Returns sync(state) -> state.  state = {"params", "opt", "anchor"?,
     "outer_mu"?}; params carry a leading worker axis.  With `spec` (a
     FlatParamSpace) the state is flat: params {bucket: [W, N]},
-    anchor/outer_mu {bucket: [N]}, and an anchored sync is one fused
-    `sync_flat_update` per bucket (in place on the card)."""
-    _check_wire(run_cfg)
+    anchor/outer_mu {bucket: [N]}, and an anchored sync on the auto wire is
+    one fused `sync_flat_update` per bucket (in place on the card).  The
+    tree layout and the ring wire compose begin and apply."""
     quantize, mom = run_cfg.sync_quantize, run_cfg.outer_momentum
+    wire = check_wire(run_cfg)
+    _no_mesh(spec)
 
-    if spec is not None:
+    if spec is not None and wire != "ring-int8":
         def sync_flat(state):
             params = state["params"]
             if not quantize and mom == 0.0:
@@ -155,10 +332,42 @@ def make_sync(run_cfg, spec=None):
 
         return sync_flat
 
-    begin = make_sync_begin(run_cfg)
-    apply_ = make_sync_apply(run_cfg)
+    begin = make_sync_begin(run_cfg, spec)
+    apply_ = make_sync_apply(run_cfg, spec)
 
     def sync_composed(state):
         return apply_(state, begin(state))
 
     return sync_composed
+
+
+def make_sync_partial(run_cfg, spec=None):
+    """Partial-participation sync: sync(state, mask) -> state, the two
+    halves composed with a membership mask [W] (module docstring).  Every
+    layout runs the composed begin/apply; an all-ones mask is bitwise the
+    composed blocking sync for power-of-two W."""
+    begin = make_sync_begin(run_cfg, spec, partial=True)
+    apply_ = make_sync_apply(run_cfg, spec, partial=True)
+
+    def sync_partial(state, mask):
+        return apply_(state, begin(state, mask))
+
+    return sync_partial
+
+
+SYNC_PROGRAMS = ("blocking", "partial", "begin", "apply")
+
+
+def sync_program(run_cfg, spec=None, program: str = "blocking"):
+    """One callable per sync sub-program, by name: `blocking` and `partial`
+    are the whole-sync callables, `begin` / `apply` the overlap halves."""
+    if program == "blocking":
+        return make_sync(run_cfg, spec=spec)
+    if program == "partial":
+        return make_sync_partial(run_cfg, spec=spec)
+    if program == "begin":
+        return make_sync_begin(run_cfg, spec=spec)
+    if program == "apply":
+        return make_sync_apply(run_cfg, spec=spec)
+    raise ConfigError(
+        f"unknown sync program {program!r}; pick from {SYNC_PROGRAMS}")

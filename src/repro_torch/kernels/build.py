@@ -127,11 +127,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         [_I] * 4 + [_P]
     lib.adamw_update_f32.argtypes = [_P] * 4 + [_L] + [_F] * 8 + [_P]
     lib.sync_flat_update_f32.argtypes = [_P] * 4 + [_L, _I, _F, _P]
+    lib.sync_apply_update_f32.argtypes = [_P] * 6 + [_L, _F, _P]
+    lib.ring_combine_f32.argtypes = [_P] * 5 + [_L, _I, _P]
+    lib.ring_quantize_f32.argtypes = [_P] * 3 + [_L, _P]
     lib.cuda_error_string.argtypes = [_I]
     lib.cuda_error_string.restype = ctypes.c_char_p
     for fn in (lib.rmsnorm_f32, lib.swiglu_f32, lib.flash_decode_f32,
                lib.flash_attention_fwd_f32, lib.flash_attention_bwd_f32,
-               lib.adamw_update_f32, lib.sync_flat_update_f32):
+               lib.adamw_update_f32, lib.sync_flat_update_f32,
+               lib.sync_apply_update_f32, lib.ring_combine_f32,
+               lib.ring_quantize_f32):
         fn.restype = _I
 
 

@@ -3,7 +3,22 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace repro {
+
+// True when `p` is null or `bytes`-aligned: the vector (float4 / char4)
+// pass of an elementwise kernel needs every operand aligned.
+inline bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<std::uintptr_t>(p) % bytes == 0;
+}
+
+// Blocks of `threads` for a grid-stride loop over `work` items: enough to
+// cover them, at most 16 per SM of the H100's 132.
+inline int grid_blocks(long long work, int threads) {
+  const long long want = (work + threads - 1) / threads;
+  return static_cast<int>(want < 132 * 16 ? (want > 0 ? want : 1) : 132 * 16);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

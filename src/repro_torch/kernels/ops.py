@@ -27,7 +27,10 @@ KERNELS = {"rms_norm": _rn.rms_norm, "swiglu": _sw.swiglu,
            "flash_attention_fwd": _fa.flash_attention_fwd,
            "flash_attention_bwd": _fa.flash_attention_bwd,
            "adamw_update": _ad.adamw_update,
-           "sync_flat_update": _su.sync_flat_update}
+           "sync_flat_update": _su.sync_flat_update,
+           "sync_apply_update": _su.sync_apply_update,
+           "ring_combine": _su.ring_combine,
+           "ring_quantize": _su.ring_quantize}
 
 
 def reset_launch_counts() -> None:
@@ -109,3 +112,31 @@ def sync_flat_update(p, anchor, *, scale=None, mu=None, momentum: float = 0.0):
     if _on_cuda(p, "sync_flat_update"):
         return _su.sync_flat_update(p, anchor, **kw)
     return ref.sync_flat_update(p, anchor, **kw)
+
+
+def sync_apply_update(step_in, anchor, *, scale=None, mu=None,
+                      momentum: float = 0.0):
+    """The gather-leg apply of the split sync: dequantize the worker-mean
+    codes (when `scale` is given), outer Nesterov, new anchor.  Returns NEW
+    (anchor, mu | None) on every device: the inputs are left as they are."""
+    kw = dict(scale=scale, mu=mu, momentum=momentum)
+    if _on_cuda(step_in, "sync_apply_update"):
+        return _su.sync_apply_update(step_in, anchor, **kw)
+    return ref.sync_apply_update(step_in, anchor, **kw)
+
+
+def ring_combine(q, s, x, k: int):
+    """One receive hop of the int8 ring: (acc, amax) with acc = (k * q *
+    s/127 + x) / (k + 1) and amax = max|acc| (a 0-d tensor on q's
+    device)."""
+    if _on_cuda(q, "ring_combine"):
+        return _su.ring_combine(q, s, x, k)
+    return ref.ring_combine(q, s, x, k)
+
+
+def ring_quantize_codes(acc, scale):
+    """Send-side half of the per-hop requant pass: int8 codes of a ring
+    partial mean under one scalar scale (a 0-d tensor)."""
+    if _on_cuda(acc, "ring_quantize"):
+        return _su.ring_quantize(acc, scale)
+    return ref.ring_quantize_codes(acc, scale)

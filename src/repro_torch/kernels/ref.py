@@ -3,8 +3,8 @@
 They define the semantics the CUDA kernels must match up to fp tolerance,
 and they are what a CPU tensor runs (`kernels/ops.py`).  Here so far:
 `rms_norm`, `_mask`, `attention` and `swiglu` (serving), `adamw_update`,
-`sync_flat_update` and `sync_apply_update` (training).  The ring-int8
-oracles wait for the ring sync.
+`sync_flat_update` and `sync_apply_update` (training), `ring_combine` and
+`ring_quantize_codes` (the ring-int8 sync's per-hop requant pass).
 
 Each function mirrors the JAX oracle op for op (Python-float constants are
 rounded to fp32 at the op, as JAX's weak types are), so on the CPU the two
@@ -146,6 +146,25 @@ def sync_apply_update(step_in, anchor, *, scale=None, mu=None, momentum=0.0):
     so the composed (tree) and fused (flat) syncs agree bitwise."""
     step = step_in * true_div(scale, 127.0) if scale is not None else step_in
     return _outer_step(step, anchor, mu, momentum)
+
+
+def ring_combine(q, s, x, k: int):
+    """One receive hop of the re-quantizing int8 ring.  q [n] int8 codes of
+    the incoming partial mean over k contributors, s () the sender's
+    guarded scale (a 0-d tensor on q's device), x [n] this worker's chunk.
+    Folds x into the running MEAN, acc = (k * q * s/127 + x) / (k + 1), and
+    returns (acc [n] f32, amax ()) with amax = max|acc|, the statistic the
+    next hop's scale is guarded from.  Both divisions are IEEE divisions
+    (`true_div`) on every device."""
+    deq = q.float() * true_div(s, 127.0)
+    acc = true_div(float(k) * deq + x.float(), float(k + 1))
+    return acc, torch.max(torch.abs(acc))
+
+
+def ring_quantize_codes(acc, scale):
+    """int8 wire codes of a ring partial mean under ONE guarded scalar scale
+    (a 0-d tensor): clip(round(acc/scale*127)) in [-127, 127], as int8."""
+    return quantize_codes(acc.float(), scale).to(torch.int8)
 
 
 def _outer_step(step, anchor, mu, momentum):

@@ -21,6 +21,23 @@ baseline (Alg. 1 == schedule "parallel", H = 1 every round).
     state, history = train(cfg, run, workers=4, b_loc=32, seq=1,
                            data="host", eng=eng)
 
+The sync variants run through the same call.  Overlap (the reduce at the
+round boundary, applied after the next round's first `overlap_depth`
+steps) and partial participation are engine modes; the ring-int8 wire and
+the int8 sync are `RunConfig` fields and need the flat layout:
+
+    run = dataclasses.replace(run, sync_quantize=True, sync_wire="ring-int8")
+    eng = RoundEngine(cfg, run, workers=4, b_loc=32, seq=1, data="host",
+                      batch_fn=fn, layout="flat", sync="overlap",
+                      overlap_depth=0)
+    state, history = train(cfg, run, workers=4, b_loc=32, seq=1,
+                           data="host", layout="flat", sync="overlap",
+                           eng=eng)
+
+Under sync="partial", `eng.membership_epoch([1, 1, 0, 1])` before the run
+(or between rounds) sets which lanes the boundary mean takes.  Pass
+`device="cpu"` to RoundEngine to run any of these on the CPU.
+
 Checkpoints, the async observer and the adaptive controller are not ported
 yet (they raise); the CLI `main()` waits for the LM slice, whose default
 arch it trains.
@@ -49,7 +66,9 @@ def train(cfg, run_cfg: RunConfig, *, workers: int, b_loc: int, seq: int,
     `eng` to keep a handle on the engine (H-trace, per-round metrics, data
     time) after the run; otherwise one is built from the mode flags on
     `device`.  `eval_fn(t, state)` runs after every round on the synced
-    state."""
+    state (`eng.synced_view`: under overlap, the consensus of the pending
+    sync, without consuming it).  The returned state is `eng.flush(state)`:
+    fully synced in every sync mode."""
     for bad, what in ((ckpt_dir, "checkpoints"),
                       (async_observer, "the async observer"),
                       (run_cfg.schedule == "adaptive" or controller_trace

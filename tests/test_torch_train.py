@@ -24,6 +24,7 @@ numbers.  Tolerances, each with its reason:
 * inside the port, tree and flat layouts: bitwise.
 """
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -329,7 +330,7 @@ def test_unported_training_options_raise():
     base = dict(workers=2, b_loc=2, seq=1, data="host", batch_fn=fn,
                 device="cpu")
     for kw, what in ((dict(layout="flat_sharded"), "flat_sharded'"),
-                     (dict(sync="overlap"), "overlap'"),
+                     (dict(mesh=object()), "a mesh"),
                      (dict(adaptive_batch=True), "adaptive_batch")):
         with pytest.raises(ConfigError, match=f"{what}: not ported yet"):
             teng.RoundEngine(tcfg, run, **{**base, **kw})
@@ -339,7 +340,8 @@ def test_unported_training_options_raise():
     with pytest.raises(ConfigError, match="need data='host'"):
         teng.RoundEngine(tcfg, run, workers=2, b_loc=2, seq=1, device="cpu")
     with pytest.raises(ConfigError, match="not ported yet"):
-        tsync.make_sync(TRun(sync_wire="ring-int8"))
+        tsync.make_sync(TRun(sync_quantize=True),
+                        spec=types.SimpleNamespace(mesh=object()))
     with pytest.raises(ConfigError, match="not ported yet"):
         ttrain.train(tcfg, run, workers=2, b_loc=2, seq=1, data="host",
                      ckpt_dir="/nonexistent", device="cpu")
