@@ -46,6 +46,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # H100 SXM data sheet (the published peaks the bounds are computed against)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12          # fp32 outside the tensor cores
+PEAK_TF32_FLOP_PER_S = 495e12         # dense TF32 on the tensor cores
+# the attention kernels' times before they moved onto the tensor cores (fp32
+# FMAs on the CUDA cores), from this script on an NVIDIA H100 80GB HBM3 at
+# 700 W, ViT-B/16's [32,196,12,64]: printed beside this run's for comparison
+CUDA_CORE_MS = {"flash_attention_fwd": 0.2834, "flash_attention_bwd": 0.9132}
 ARCH = "gemma3-4b"
 SLOTS, MAX_NEW = 2, 16
 PROMPT_LENS = (16, 48, 32, 24)        # 4 requests, 16-48 tokens: slots recycle
@@ -153,10 +158,22 @@ class Timer:
         return times[len(times) // 2]
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             peak: float = PEAK_FP32_FLOP_PER_S) -> tuple[float, str]:
     tb = nbytes / PEAK_BYTES_PER_S * 1e3
-    tf = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    tf = flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def tensor_core_bound(row) -> None:
+    """The attention kernels run every product in 3xTF32 on the tensor cores
+    (three TF32 products for each fp32 one), so their bound is that
+    arithmetic's against the same bytes.  The fp32 CUDA-core bound the
+    kernels had before stays beside it as `bound_fp32_ms`."""
+    row["bound_fp32_ms"], row["bound_fp32_by"] = row["bound_ms"], row["bound_by"]
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        row["bytes"], 3.0 * row["flops"], PEAK_TF32_FLOP_PER_S)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
 
 
 # ------------------------------------------------------- kernel cases ------
@@ -330,17 +347,24 @@ def attention_work(torch, a, backward: bool) -> tuple[float, float]:
 
 
 def attention_cases(rnd):
-    """(label, inputs, main-path shape?).  The main path's: ViT-B/16,
-    [32,196,12,64] non-causal (196 tokens: no tile divides it)."""
+    """(label, inputs, main-path shape?, timed?).  The main path's: ViT-B/16,
+    [32,196,12,64] non-causal (196 tokens: no tile divides it).  Also timed:
+    a gemma3-4b prefill of 2048 tokens through a sliding-window layer (D =
+    256, GQA 2), and a causal D = 128 case with GQA 4."""
     def fa(label, b, sq, sk, hkv, g, d, causal, window=0, prefix_len=0,
-           q_offset=0, main=False):
+           q_offset=0, main=False, timed=False):
         return (label, dict(q=rnd(b, sq, hkv * g, d), k=rnd(b, sk, hkv, d),
                             v=rnd(b, sk, hkv, d), dout=rnd(b, sq, hkv * g, d),
                             causal=causal, window=window,
-                            prefix_len=prefix_len, q_offset=q_offset), main)
+                            prefix_len=prefix_len, q_offset=q_offset), main,
+                main or timed)
     return [
         fa("vit-b q[32,196,12,64] non-causal", 32, 196, 196, 12, 1, 64,
            False, main=True),
+        fa("gemma3-4b prefill q[1,2048,8,256] kv[.,.,4,.] causal window 1024",
+           1, 2048, 2048, 4, 2, 256, True, window=1024, timed=True),
+        fa("q[4,1024,16,128] kv[.,.,4,.] gqa 4 causal", 4, 1024, 1024, 4, 4,
+           128, True, timed=True),
         fa("q[4,300,8,64] causal", 4, 300, 300, 8, 1, 64, True),
         fa("q[4,300,8,64] causal window 64", 4, 300, 300, 8, 1, 64, True,
            window=64),
@@ -355,6 +379,24 @@ def attention_cases(rnd):
         fa("q[1,130,4,256] gqa 2 window 32 prefix 5", 1, 130, 130, 2, 2, 256,
            True, window=32, prefix_len=5),
     ]
+
+
+def sdpa_inputs(torch, a):
+    """SDPA's operands for the same function as the attention case `a`:
+    [B,H,S,D] views that require grad, the kv heads repeated for GQA, and
+    the mask as a boolean attn_mask (None where every key is allowed)."""
+    from repro_torch.kernels import ref
+    q, k, v = a["q"], a["k"], a["v"]
+    gh = q.shape[2] // k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if gh > 1:
+        kt, vt = (x.repeat_interleave(gh, dim=1) for x in (kt, vt))
+    am = None
+    if a["causal"] or a["window"] or a["prefix_len"]:
+        am = ref._mask(q.shape[1], k.shape[1], causal=a["causal"],
+                       window=a["window"], prefix_len=a["prefix_len"],
+                       q_offset=a["q_offset"], device=q.device)
+    return (*(x.detach().requires_grad_(True) for x in (qt, kt, vt)), am)
 
 
 def phase_training_kernels(torch):
@@ -373,7 +415,7 @@ def phase_training_kernels(torch):
         return torch.randn(*shape, generator=g, device="cuda") * std
 
     summary = {}
-    for label, a, main in attention_cases(rnd):
+    for label, a, main, timed in attention_cases(rnd):
         q, k, v, do = a["q"], a["k"], a["v"], a["dout"]
         mask = {key: a[key] for key in ("causal", "window", "prefix_len",
                                         "q_offset")}
@@ -390,16 +432,16 @@ def phase_training_kernels(torch):
         gerr = max(float((x - y).abs().max()) for x, y in zip(grads, want_g))
         bwd = check_row("flash_attention_bwd", label, gerr,
                         max(float(y.abs().max()) for y in want_g), main)
-        if main:
-            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
-                          for x in (q, k, v))
-            lib = F.scaled_dot_product_attention(qt, kt, vt)
+        if timed:
+            qt, kt, vt, am = sdpa_inputs(torch, a)
+            lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
             dot = do.transpose(1, 2)
             with torch.no_grad():
                 timed_row(fwd, timer,
                           lambda: _fa.flash_attention_fwd(q, k, v, **kw),
                           lambda: ref.attention(q, k, v, **mask),
-                          lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                          lambda: F.scaled_dot_product_attention(
+                              qt, kt, vt, attn_mask=am),
                           *attention_work(torch, a, False))
             timed_row(bwd, timer,
                       lambda: _fa.flash_attention_bwd(q, k, v, o, lse, do,
@@ -409,6 +451,19 @@ def phase_training_kernels(torch):
                       lambda: torch.autograd.grad(lib, (qt, kt, vt), dot,
                                                   retain_graph=True),
                       *attention_work(torch, a, True))
+            tensor_core_bound(fwd)
+            tensor_core_bound(bwd)
+        if main:
+            # no atomics, a fixed summation order: a second run on the same
+            # inputs gives the same bits (the overlap gate rests on it)
+            o2, lse2 = _fa.flash_attention_fwd(q, k, v, **kw)
+            grads2 = _fa.flash_attention_bwd(q, k, v, o2, lse2, do, **kw)
+            torch.cuda.synchronize()
+            same = all(bool(torch.equal(x, y)) for x, y in
+                       zip((o, lse, *grads), (o2, lse2, *grads2)))
+            check(same, f"flash_attention {label}: a second run differs")
+            fwd["bitwise_repeat"] = bwd["bitwise_repeat"] = same
+            del o2, lse2, grads2
 
             def fwd_bwd(fn, xs, d_out):
                 out = fn(*xs)
@@ -420,6 +475,7 @@ def phase_training_kernels(torch):
                 F.scaled_dot_product_attention, (qt, kt, vt), dot))
             summary["flash_attention_fwd"], summary["flash_attention_bwd"] = \
                 fwd, bwd
+        if timed:
             del lib
         emit("kernel_check", **fwd)
         emit("kernel_check", **bwd)
@@ -1300,12 +1356,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.library()
-    regs = [ln.strip() for ln in build.ptxas_log.splitlines()
-            if "registers" in ln]
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=build.build_seconds,
          sources=[str(p.relative_to(ROOT)) for p in build.sources()],
-         ptxas=regs)
+         ptxas=[ln.strip() for ln in build.ptxas_log.splitlines()
+                if "entry function" in ln or "registers" in ln
+                or "spill" in ln])
     check(not torch.backends.cuda.matmul.allow_tf32
           and not torch.backends.cudnn.allow_tf32, "TF32 must be off")
 
@@ -1336,16 +1392,26 @@ def main() -> int:
     check(all(counts[k] > 0 for k in SOURCES),
           f"a kernel of a path never launched: {counts}")
 
+    emit("attention_vs_cuda_core", **{name: dict(
+        ms=timed[name]["ms"], cuda_core_ms=CUDA_CORE_MS[name],
+        library_ms=timed[name]["library_ms"],
+        bound_ms=timed[name]["bound_ms"],
+        bound_fp32_ms=timed[name]["bound_fp32_ms"],
+        speedup_vs_cuda_core=CUDA_CORE_MS[name] / timed[name]["ms"],
+        speedup_vs_library=timed[name]["library_ms"] / timed[name]["ms"])
+        for name in CUDA_CORE_MS})
     kernels = []
     for name in SERVING_KERNELS + TRAINING_KERNELS + SYNC_KERNELS:
         t = timed[name]
+        extra = {key: t[key] for key in ("bound_fp32_ms", "bound_fp32_by")
+                 if key in t}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=counts[name],
             max_abs_err=t["max_abs_err"], ms=t["ms"], kernel_ms=t["ms"],
             plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-            library_ms=t["library_ms"], shape=t["shape"]))
+            library_ms=t["library_ms"], shape=t["shape"], **extra))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

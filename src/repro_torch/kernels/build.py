@@ -125,6 +125,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         [_I] * 4 + [_P]
     lib.flash_attention_bwd_f32.argtypes = [_P] * 10 + [_I] * 6 + [_F] + \
         [_I] * 4 + [_P]
+    lib.flash_attention_bwd_scratch_floats.argtypes = [_I] * 4
+    lib.flash_attention_bwd_scratch_floats.restype = _L
     lib.adamw_update_f32.argtypes = [_P] * 4 + [_L] + [_F] * 8 + [_P]
     lib.sync_flat_update_f32.argtypes = [_P] * 4 + [_L, _I, _F, _P]
     lib.sync_apply_update_f32.argtypes = [_P] * 6 + [_L, _F, _P]

@@ -136,10 +136,18 @@ def flash_attention_fwd(q, k, v, *, causal, window, prefix_len, q_offset,
     return o, lse
 
 
+def bwd_scratch_floats(b, hq, sq, sk) -> int:
+    """fp32 scratch `flash_attention_bwd_f32` takes as `delta`: its delta rows
+    and one chunk of the dS its dK/dV launch stores for its dQ launch, as
+    the library sizes it (at most 64 MiB or 64 floats per query row)."""
+    return build.library().flash_attention_bwd_scratch_floats(b, sq, sk, hq)
+
+
 def flash_attention_bwd(q, k, v, o, lse, dout, *, causal, window, prefix_len,
                         q_offset, scale):
     """Gradients of `flash_attention_fwd`'s output: (dq, dk, dv), recomputing
-    the probabilities from q, k and the saved lse."""
+    the probabilities from q, k and the saved lse.  Allocates the scratch
+    `bwd_scratch_floats` sizes (59 MB at ViT-B/16's [32,196,12,64])."""
     b, sq, sk, hq, hkv, d = _check_full(q, k, v, "flash_attention_bwd")
     for nm, t in (("o", o), ("dout", dout)):
         build.require(f"flash_attention_bwd {nm}", t, device=q.device,
@@ -147,14 +155,15 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, causal, window, prefix_len,
     build.require("flash_attention_bwd lse", lse, device=q.device,
                   dtype=torch.float32, shape=(b, hq, sq))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
     if b == 0:
         return dq, dk, dv
+    scratch = torch.empty(bwd_scratch_floats(b, hq, sq, sk),
+                          dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = build.library().flash_attention_bwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), b, sq, sk, hq, hkv, d,
+            dv.data_ptr(), scratch.data_ptr(), b, sq, sk, hq, hkv, d,
             float(scale), int(bool(causal)), int(window), int(prefix_len),
             int(q_offset), build.stream_of(q))
     build.check(err, "flash_attention_bwd")

@@ -129,7 +129,19 @@ FULL = [(2, 196, 196, 3, 1, 64, False, 0, 0, 0),
         (2, 77, 77, 1, 4, 128, True, 0, 17, 0),
         (1, 50, 190, 2, 2, 64, True, 0, 0, 140),
         (1, 70, 70, 1, 2, 256, True, 16, 5, 0),
-        (1, 9, 9, 2, 1, 64, True, 0, 0, -4)]       # rows 0-3: no allowed key
+        (1, 9, 9, 2, 1, 64, True, 0, 0, -4),       # rows 0-3: no allowed key
+        # the tensor-core tiling's edges: Sq, Sk in {1, 8, 15, 17, 65, 197}
+        # (n8 groups cut by the sequence's end, warps wholly past it, single
+        # rows), each head dim, GQA g = 8, dead rows across a whole tile
+        (2, 1, 1, 2, 1, 64, False, 0, 0, 0),
+        (1, 8, 15, 1, 8, 64, True, 0, 0, 7),
+        (2, 15, 17, 2, 2, 128, False, 0, 0, 0),
+        (1, 17, 8, 2, 1, 256, True, 0, 0, 0),
+        (1, 65, 197, 1, 2, 256, True, 0, 0, 132),
+        (2, 197, 65, 2, 1, 64, False, 8, 0, 0),
+        (1, 197, 197, 1, 8, 128, True, 32, 3, 0),
+        (1, 1, 197, 2, 4, 256, True, 0, 0, 196),
+        (1, 65, 65, 4, 1, 64, True, 0, 0, -30)]    # rows 0-29: no allowed key
 
 
 @pytest.mark.parametrize("case", FULL)
@@ -148,6 +160,59 @@ def test_flash_attention_fwd_bwd_match_plain(dev, case):
     g_want = torch.autograd.grad((want * w).sum(), ref_ins)
     for a, b_ in zip(g_got, g_want):
         torch.testing.assert_close(a, b_, rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+# (B, Sq, Sk, Hkv, g, D, causal): ViT-B/16's attention, and one causal GQA
+REPEAT = [(32, 196, 196, 12, 1, 64, False), (2, 300, 300, 2, 4, 128, True)]
+
+
+@pytest.mark.parametrize("case", REPEAT)
+def test_flash_attention_fwd_bwd_bitwise_repeatable(dev, case):
+    """No atomics and a fixed summation order: two runs on the same inputs
+    give the same bits (the overlap-vs-blocking training gate rests on it)."""
+    b, sq, sk, hkv, g, d, causal = case
+    q, k, v = _t(50, b, sq, hkv * g, d), _t(51, b, sk, hkv, d), \
+        _t(52, b, sk, hkv, d)
+    do = _t(53, b, sq, hkv * g, d)
+    kw = dict(causal=causal, window=0, prefix_len=0, q_offset=0,
+              scale=d ** -0.5)
+    runs = []
+    for _ in range(2):
+        o, lse = t_fa.flash_attention_fwd(q, k, v, **kw)
+        runs.append((o, lse, *t_fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                         **kw)))
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
+
+
+def test_flash_attention_bwd_chunks_ds_past_its_scratch_bound(dev):
+    """The backward stores dS for every key while B*Hq*Sq*Sk floats fit 64
+    MiB, else in chunks of 64-key multiples.  At Sq = 1100, Sk = 1101 and 8
+    query heads one batch row fits (one chunk) and two do not (896 + 205
+    keys): the two rows' gradients match the plain version, and each row's
+    are bitwise those of the one-chunk run on that row alone."""
+    sq, sk, hkv, g, d = 1100, 1101, 4, 2, 128
+    kw = dict(causal=True, window=700, prefix_len=0, q_offset=1,
+              scale=d ** -0.5)
+    mask = {key: kw[key] for key in ("causal", "window", "prefix_len",
+                                     "q_offset")}
+    rows1, rows2 = sq * hkv * g, 2 * sq * hkv * g
+    assert t_fa.bwd_scratch_floats(1, hkv * g, sq, sk) == rows1 + rows1 * 1104
+    assert t_fa.bwd_scratch_floats(2, hkv * g, sq, sk) == rows2 + rows2 * 896
+    q, k, v = _t(60, 2, sq, hkv * g, d), _t(61, 2, sk, hkv, d), \
+        _t(62, 2, sk, hkv, d)
+    do = _t(63, 2, sq, hkv * g, d)
+    o, lse = t_fa.flash_attention_fwd(q, k, v, **kw)
+    grads = t_fa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(tref.attention(*ins, **mask), ins, do)
+    for a, b_ in zip(grads, want):
+        torch.testing.assert_close(a, b_, rtol=GRAD_TOL, atol=GRAD_TOL)
+    for row in range(2):
+        one = [x[row:row + 1].contiguous() for x in (q, k, v, o, lse, do)]
+        alone = t_fa.flash_attention_bwd(*one, **kw)
+        for a, b_ in zip(grads, alone):
+            assert torch.equal(a[row:row + 1], b_)
 
 
 def test_ops_sends_grad_requiring_single_query_to_the_full_kernel(dev):
