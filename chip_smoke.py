@@ -5,11 +5,15 @@
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/` and
 holds each against its plain PyTorch version at its path's full-width
-shapes.  Then it drives both of the port's paths on the card:
+shapes, with an empty kernel's launch timed as the floor under them (the
+serving kernels also at a long serving shape: 8 slots of a 4096-row cache).
+Then it drives both of the port's paths on the card:
 
 * serving: gemma3-4b at full width (random weights drawn on the card from
-  a seed) through the continuous-batching loop, the card against the CPU
-  at 2 layers, and a hot weight swap;
+  a seed) through the continuous-batching loop, the device time of one
+  decode step there and at 8 slots x 4096 (a second `service` line, beside
+  its bytes floor), the card against the CPU at 2 layers, and a hot weight
+  swap;
 * training: ViT-B/16 at full width with Local AdamW under the QSR schedule
   through `train()` (W = 4 workers, 32 images each, 10 rounds), the flat
   layout with the quantized sync for 2 rounds, and the card against the
@@ -53,6 +57,10 @@ PEAK_TF32_FLOP_PER_S = 495e12         # dense TF32 on the tensor cores
 CUDA_CORE_MS = {"flash_attention_fwd": 0.2834, "flash_attention_bwd": 0.9132}
 ARCH = "gemma3-4b"
 SLOTS, MAX_NEW = 2, 16
+# the long serving shape: 8 slots of a 4096-row cache, slot s at position
+# (s+1) 512 - 1 (a decode batch of staggered long requests)
+LONG_SLOTS, LONG_LEN = 8, 4096
+LONG_POS = [(s + 1) * 512 - 1 for s in range(LONG_SLOTS)]
 PROMPT_LENS = (16, 48, 32, 24)        # 4 requests, 16-48 tokens: slots recycle
 # tolerances x max(|plain|, 1): fp32 sums in another order (the attention
 # gradients go through two more contractions); AdamW's bias-correction pow
@@ -192,7 +200,10 @@ def kernel_cases(torch, main_len: int):
 
     d, f, hq, hkv, hd = 2560, 10240, 8, 4, 256
     cases = []
-    for n, main in ((4, False), (SLOTS, True)):
+    # the main path's [2, 2560], a decode batch of 8 slots, and a bytes-bound
+    # [8192, 2560] (a prefill's or a large batch's norm)
+    for n, main in ((4, False), (SLOTS, True), (LONG_SLOTS, False),
+                    (8192, False)):
         cases.append(("rms_norm", f"[{n},{d}]",
                       dict(x=rnd(n, d), scale=rnd(d)), main, True))
     for n, main in ((4, False), (SLOTS, True), (256, False)):
@@ -200,18 +211,20 @@ def kernel_cases(torch, main_len: int):
                       dict(x=rnd(n, d), wg=rnd(d, f, std=d ** -0.5),
                            wi=rnd(d, f, std=d ** -0.5)), main, True))
 
-    def fd(b, sk, *, window, prefix_len=0, ring=False, main=False, timed=True):
+    def fd(b, sk, *, window, prefix_len=0, ring=False, main=False, timed=True,
+           qoff=None, note=""):
         kpos = None
         if ring:        # a ring after wrap-around, with empty (-1) slots
             kpos = torch.arange(sk, device="cuda", dtype=torch.int32) + 300
             kpos[: sk // 8] = -1
         label = (f"q[{b},1,{hq},{hd}] kv[{b},{sk},{hkv},{hd}] w{window}"
-                 f" p{prefix_len}{' ring' if ring else ''}")
+                 f" p{prefix_len}{' ring' if ring else ''}{note}")
         hi = sk + 300 if ring else sk
+        qo = ragged(b, hi) if qoff is None else torch.tensor(
+            qoff, dtype=torch.int32, device="cuda")
         args = dict(q=rnd(b, 1, hq, hd), k=rnd(b, sk, hkv, hd),
                     v=rnd(b, sk, hkv, hd), window=window,
-                    prefix_len=prefix_len, q_offset=ragged(b, hi),
-                    k_positions=kpos)
+                    prefix_len=prefix_len, q_offset=qo, k_positions=kpos)
         cases.append(("flash_decode", label, args, main, timed))
 
     fd(4, 512, window=1024)
@@ -219,6 +232,22 @@ def kernel_cases(torch, main_len: int):
     fd(4, 512, window=64, timed=False)
     fd(4, 500, window=1024, ring=True, timed=False)   # Sk % 64 != 0
     fd(4, 500, window=0, prefix_len=37, timed=False)
+    # a real serving shape: 8 slots of a 4096-row cache, the slots at
+    # positions (s+1) 512 - 1, through a local (window 1024) and a global
+    # layer: split-K over the SMs and the skipped tiles show here
+    for w in (1024, 0):
+        fd(LONG_SLOTS, LONG_LEN, window=w, qoff=LONG_POS,
+           note=" q_offset (s+1)512-1")
+    # edges: Sk one past a split unit, an uneven cut of 17 units over 16
+    # splits, rows with no allowed key (before the cache; past the window)
+    # under splits, ring positions under splits
+    fd(4, 65, window=0, timed=False, qoff=[64, 63, 0, -1], note=" dead row")
+    fd(4, 1089, window=100, timed=False, qoff=[1088, 700, 1300, 5],
+       note=" dead row")
+    fd(4, 4097, window=0, prefix_len=70, timed=False, qoff=[4096, 64, -1, 2047])
+    fd(4, 700, window=1024, ring=True, timed=False)
+    fd(4, 1089, window=0, ring=True, timed=False, qoff=[1388, 900, 100, 310],
+       note=" dead row")
     fd(SLOTS, main_len, window=1024, main=True)
     return cases
 
@@ -298,9 +327,24 @@ def timed_row(row, timer, kernel, plain, library, nbytes, flops) -> dict:
     return row
 
 
+def launch_floor_ms(torch, timer) -> float:
+    """Device time of an empty kernel's launch with the kernels' `Timer`:
+    the least any launch costs, against which the decode-size rows (bounds
+    of nanoseconds) are read."""
+    from repro_torch.kernels import build
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        build.check(lib.empty_launch(stream), "empty_launch")
+    return timer(launch)
+
+
 def phase_kernels(torch, main_len):
     from repro_torch.kernels import ops, ref
     timer = Timer(torch)
+    floor = launch_floor_ms(torch, timer)
+    emit("launch_floor", launch_floor_ms=floor)
     summary = {}
     for name, label, a, main, timed in kernel_cases(torch, main_len):
         plain = {"rms_norm": ref.rms_norm, "swiglu": ref.swiglu,
@@ -317,6 +361,7 @@ def phase_kernels(torch, main_len):
                       lambda: run_kernel(torch, ops.KERNELS, name, a),
                       lambda: run_kernel(torch, {name: plain}, name, a),
                       lib, *work(torch, name, a))
+            row["launch_floor_ms"] = floor
             if main:
                 summary[name] = row
         emit("kernel_check", **row)
@@ -694,7 +739,8 @@ def phase_service(torch, np):
         check(solo[0].out == r.out,
               f"request {r.rid}: batched {r.out} != solo {solo[0].out}")
 
-    device_ms = device_step_ms(torch, cfg, weights, max_len)
+    device_ms = device_step_ms(torch, cfg, weights, SLOTS, max_len,
+                               [max_len // 2, max_len - 1])
 
     # bytes one decode step must read: every weight once + the whole cache
     w_bytes = sum(b.numel() * b.element_size() for b in weights.bufs.values())
@@ -725,22 +771,63 @@ def phase_service(torch, np):
          copy_rate_bytes_per_s=copy_rate, launches=counts,
          launches_per_step=per_step, solo_match=True,
          peak_mem_gb=peak_gb)
+    phase_long_step(torch, cfg, weights, w_bytes)
     del weights, reqs
     torch.cuda.empty_cache()
     return counts
 
 
-def device_step_ms(torch, cfg, weights, max_len, reps: int = 10) -> float:
-    """Device time of one full-width decode step without the host's launch
-    gaps: the step is captured once in a CUDA graph and the graph replayed
-    back to back between two events.  Measurement only — the port itself
-    launches eagerly."""
+def long_step_bytes(cfg, slots, max_len, positions) -> tuple[float, float]:
+    """(bytes of the keys and values a decode step's masks allow, bytes of
+    the whole cache) for slots at `positions` of a max_len-row cache: a
+    local layer's row reads min(pos + 1, window) keys, a global one pos + 1."""
+    row = cfg.n_kv_heads * cfg.hd * 4 * 2          # one key's K and V rows
+    need = sum(min(p + 1, w) if w else p + 1
+               for i in range(cfg.n_layers)
+               for w in (cfg.layer_window(i),) for p in positions)
+    return float(need * row), float(cfg.n_layers * slots * max_len * row)
+
+
+def phase_long_step(torch, cfg, weights, w_bytes):
+    """Device ms of one full-width decode step at LONG_SLOTS slots of a
+    LONG_LEN-row cache (positions LONG_POS), beside its bytes floor
+    (weights + the keys the masks allow) and the whole cache's bytes, with
+    the launches of one step."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    ms = device_step_ms(torch, cfg, weights, LONG_SLOTS, LONG_LEN, LONG_POS,
+                        count=True)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    want = dict(rms_norm=2 * cfg.n_layers + 1, swiglu=cfg.n_layers,
+                flash_decode=cfg.n_layers)
+    check(counts == want, f"long step launches {counts} != {want}")
+    kv_need, kv_all = long_step_bytes(cfg, LONG_SLOTS, LONG_LEN, LONG_POS)
+    floor = (w_bytes + kv_need) / PEAK_BYTES_PER_S * 1e3
+    emit("service", measurement="decode_step_long", arch=cfg.name,
+         layers=cfg.n_layers, slots=LONG_SLOTS, max_len=LONG_LEN,
+         positions=LONG_POS, device_ms_per_step=ms,
+         weight_bytes=w_bytes, kv_bytes_needed=kv_need,
+         kv_bytes_whole_cache=kv_all,
+         floor_ms_datasheet=floor, floor_share=floor / ms,
+         floor_ms_whole_cache=(w_bytes + kv_all) / PEAK_BYTES_PER_S * 1e3,
+         launches_per_step=counts)
+    torch.cuda.empty_cache()
+
+
+def device_step_ms(torch, cfg, weights, slots, max_len, positions,
+                   reps: int = 10, count: bool = False) -> float:
+    """Device time of one full-width decode step of `slots` slots at
+    `positions` of a max_len-row cache, without the host's launch gaps: the
+    step is captured once in a CUDA graph and the graph replayed back to
+    back between two events.  Measurement only — the port itself launches
+    eagerly.  With `count`, the kernels' launch counters are set to 0 just
+    before the captured step, so they hold one step's launches."""
+    from repro_torch.kernels import ops
     from repro_torch.models import api
     mod = api.get_module(cfg)
-    cache = mod.init_cache(cfg, SLOTS, max_len, device="cuda")
-    tok = torch.zeros(SLOTS, dtype=torch.long, device="cuda")
-    pos = torch.tensor([max_len // 2, max_len - 1], dtype=torch.int32,
-                       device="cuda")
+    cache = mod.init_cache(cfg, slots, max_len, device="cuda")
+    tok = torch.zeros(slots, dtype=torch.long, device="cuda")
+    pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
     tree = weights.as_tree()
     with torch.no_grad():
         side = torch.cuda.Stream()
@@ -750,6 +837,8 @@ def device_step_ms(torch, cfg, weights, max_len, reps: int = 10) -> float:
                 mod.decode_step(cfg, tree, tok, cache, pos)
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        if count:
+            ops.reset_launch_counts()
         with torch.cuda.graph(graph):
             mod.decode_step(cfg, tree, tok, cache, pos)
         graph.replay()
@@ -760,7 +849,7 @@ def device_step_ms(torch, cfg, weights, max_len, reps: int = 10) -> float:
             graph.replay()
         ev[1].record()
         torch.cuda.synchronize()
-    del graph
+    del graph, cache
     return ev[0].elapsed_time(ev[1]) / reps
 
 

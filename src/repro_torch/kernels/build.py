@@ -119,8 +119,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     `cudaError_t` of its launch (0 = success)."""
     lib.rmsnorm_f32.argtypes = [_P, _P, _P, _I, _I, _F, _P]
     lib.swiglu_f32.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
-    lib.flash_decode_f32.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                     _I, _I, _I, _F, _I, _P]
+    lib.flash_decode_f32.argtypes = [_P] * 7 + [_I] * 7 + [_F, _I, _P]
     lib.flash_attention_fwd_f32.argtypes = [_P] * 5 + [_I] * 6 + [_F] + \
         [_I] * 4 + [_P]
     lib.flash_attention_bwd_f32.argtypes = [_P] * 10 + [_I] * 6 + [_F] + \
@@ -132,13 +131,20 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sync_apply_update_f32.argtypes = [_P] * 6 + [_L, _F, _P]
     lib.ring_combine_f32.argtypes = [_P] * 5 + [_L, _I, _P]
     lib.ring_quantize_f32.argtypes = [_P] * 3 + [_L, _P]
+    lib.flash_decode_scratch_floats.argtypes = [_I] * 4
+    lib.flash_decode_scratch_floats.restype = _L
+    lib.flash_decode_split_range.argtypes = [_I] * 7 + \
+        [ctypes.POINTER(_I)] * 2
+    lib.flash_decode_next_tile.argtypes = [_I] * 9
+    lib.empty_launch.argtypes = [_P]
     lib.cuda_error_string.argtypes = [_I]
     lib.cuda_error_string.restype = ctypes.c_char_p
     for fn in (lib.rmsnorm_f32, lib.swiglu_f32, lib.flash_decode_f32,
                lib.flash_attention_fwd_f32, lib.flash_attention_bwd_f32,
                lib.adamw_update_f32, lib.sync_flat_update_f32,
                lib.sync_apply_update_f32, lib.ring_combine_f32,
-               lib.ring_quantize_f32):
+               lib.ring_quantize_f32, lib.flash_decode_split_range,
+               lib.flash_decode_next_tile, lib.empty_launch):
         fn.restype = _I
 
 

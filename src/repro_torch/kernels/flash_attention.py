@@ -5,7 +5,12 @@
   `repro/kernels/flash_attention.py`: single-query decode, with `window`,
   `q_offset` (scalar or per-batch [B]), `k_positions` (ring-cache absolute
   positions, -1 = empty) and `prefix_len` as runtime arguments of the one
-  kernel, so every layer, slot and ring state shares it.
+  kernel, so every layer, slot and ring state shares it.  It splits each
+  row's keys over up to 64 blocks and skips the key tiles a row's mask
+  wholly excludes.  The plan is computed in C only; `decode_num_splits`,
+  `decode_split_plan` and `decode_tiles` are a Python model of it for the
+  CPU tests, held against the library's `flash_decode_split_range` and
+  `flash_decode_next_tile` by a card test, and the kernel never reads them.
 * `flash_attention` replaces the Pallas `_flash_kernel`: full-sequence GQA
   attention, differentiable.  It is a `torch.autograd.Function` whose
   forward launches `flash_attention_fwd` (O and the per-row log-sum-exp)
@@ -30,6 +35,80 @@ from repro_torch.kernels.ref import attention as plain  # noqa: F401
 _MAX_G = 8          # query heads per kv head the kernel holds in registers
 _MAX_D = 1024       # head dim: one float4 column per thread of 256
 _FA_HEAD_DIMS = (64, 128, 256)   # head dims flash_attention.cu is built for
+DECODE_SPLIT_KEYS = 64   # flash_decode's split boundaries: multiples of this
+DECODE_UNITS_PER_SPLIT = 2   # a split's share of those 64-key units
+DECODE_MAX_SPLITS = 64   # blocks per (batch row, kv head) at most
+
+
+def decode_num_splits(sk: int) -> int:
+    """Blocks `flash_decode` launches per (batch row, kv head), as
+    `num_splits` in `csrc/flash_decode.cu`: one per 2 units of 64 keys, at
+    most 64.  A function of Sk alone, never of the batch."""
+    units = -(-sk // DECODE_SPLIT_KEYS)
+    return max(1, min(DECODE_MAX_SPLITS, -(-units // DECODE_UNITS_PER_SPLIT)))
+
+
+def decode_tile_keys(d: int) -> int:
+    """Keys per cp.async tile of `flash_decode` at head dim d."""
+    d4 = d // 4
+    return 32 if d4 <= 32 else 16 if d4 <= 64 else 8
+
+
+def decode_allowed(sk: int, qpos: int, *, causal=True, window=0,
+                   prefix_len=0, ring=False):
+    """(lo, hi, pre, skip): with no ring positions a row at query position
+    qpos may attend keys [lo, hi] (none when lo > hi) and [0, pre); `skip`
+    is true when it may attend one, and then the kernel walks only the key
+    tiles that hold one."""
+    lo = max(0, qpos - window + 1) if window > 0 else 0
+    hi = min(qpos, sk - 1) if causal else sk - 1
+    pre = min(prefix_len, sk) if prefix_len > 0 else 0
+    return lo, hi, pre, (not ring and (lo <= hi or pre > 0))
+
+
+def decode_split_plan(sk: int, qpos: int, *, causal=True, window=0,
+                      prefix_len=0, ring=False) -> list[tuple[int, int]]:
+    """Key ranges [k0, k1) of one row's splits, as `split_range` in
+    `csrc/flash_decode.cu` computes them from q_offset on the card: the
+    row's n units of 64 keys (the hull of its allowed keys when it skips,
+    else all Sk) spread over min(decode_num_splits(Sk), ceil(n / 2))
+    splits, none of them empty.  A function of Sk and the row's own mask
+    only."""
+    lo, hi, pre, skip = decode_allowed(sk, qpos, causal=causal, window=window,
+                                       prefix_len=prefix_len, ring=ring)
+    first, last = 0, sk - 1
+    if skip:
+        if pre > 0:
+            last = max(hi, pre - 1) if lo <= hi else pre - 1
+        else:
+            first, last = lo, hi
+    u = DECODE_SPLIT_KEYS
+    u0, n = first // u, last // u - first // u + 1
+    na = min(decode_num_splits(sk), -(-n // DECODE_UNITS_PER_SPLIT))
+    return [((u0 + s * n // na) * u, min((u0 + (s + 1) * n // na) * u, sk))
+            for s in range(na)]
+
+
+def decode_tiles(k0: int, k1: int, tile: int, sk: int, qpos: int, *,
+                 causal=True, window=0, prefix_len=0, ring=False) -> list[int]:
+    """Starts of the key tiles a split over [k0, k1) walks (`next_tile` in
+    `csrc/flash_decode.cu`): every tile, or with `skip` only those holding
+    an allowed key."""
+    lo, hi, pre, skip = decode_allowed(sk, qpos, causal=causal, window=window,
+                                       prefix_len=prefix_len, ring=ring)
+
+    def next_tile(t):
+        if not skip or t < pre:
+            return t
+        if lo > hi or t > hi:
+            return k1
+        return lo // tile * tile if t + tile - 1 < lo else t
+
+    out, t = [], next_tile(k0)
+    while t < k1:
+        out.append(t)
+        t = next_tile(t + tile)
+    return out
 
 
 def flash_decode(q, k, v, *, causal=True, window=0, prefix_len=0, q_offset=0,
@@ -37,7 +116,10 @@ def flash_decode(q, k, v, *, causal=True, window=0, prefix_len=0, q_offset=0,
     """q [B,1,Hq,D] against a KV cache k/v [B,Sk,Hkv,D] -> [B,1,Hq,D].
 
     q_offset: int or int tensor [B] (absolute query position per batch
-    row); k_positions: None (= arange(Sk)) or int tensor [Sk]."""
+    row); k_positions: None (= arange(Sk)) or int tensor [Sk].  One call
+    counts one launch; on the card it runs one kernel when Sk <= 128 (one
+    split per row), else two: the splits, with their partials in a scratch
+    allocated here, then the merge."""
     build.require_cuda("flash_decode q", q)
     if q.ndim != 4 or k.ndim != 4:
         raise ShapeError(f"flash_decode q/k must be 4-D, got {tuple(q.shape)}"
@@ -78,9 +160,15 @@ def flash_decode(q, k, v, *, causal=True, window=0, prefix_len=0, q_offset=0,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    lib = build.library()
+    floats = lib.flash_decode_scratch_floats(b, hq, sk, d)
+    part = None      # the splits' partials (acc, m, l), merged by a 2nd launch
+    if floats:
+        part = torch.empty(floats, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = build.library().flash_decode_f32(
+        err = lib.flash_decode_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(),
             qoff.data_ptr(), None if kpos is None else kpos.data_ptr(),
             b, sk, hq, hkv, d, int(window), int(prefix_len), scale,
             int(bool(causal)), build.stream_of(q))

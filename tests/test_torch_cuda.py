@@ -106,6 +106,175 @@ def test_flash_decode_no_valid_key_gives_mean_of_v(dev):
                                rtol=PROD_TOL, atol=PROD_TOL)
 
 
+def _allowed_rows(sk, qoff, window, prefix):
+    """[B, Sk] bool: the keys each row may attend (no ring positions)."""
+    return tref._mask(1, sk, causal=True, window=window, prefix_len=prefix,
+                      q_offset=torch.tensor(qoff))[:, 0]
+
+
+# flash_decode across its split and tile boundaries: Sk in 64-key split
+# units, 2 per split.  (g, D, window, prefix_len, ring shift | None); g = 2
+# at D <= 256 runs the per-warp loop, g = 8 at D = 256 the block-wide one
+SPLIT_SK = [1, 63, 64, 65, 257, 4097]
+SPLIT_MASKS = {"causal": (2, 256, 0, 0, None), "window": (2, 256, 100, 0, None),
+               "prefix": (2, 64, 40, 70, None), "ring": (2, 128, 300, 0, 500),
+               "gqa8-window": (8, 256, 100, 0, None),
+               "gqa8-ring": (8, 256, 300, 0, 500)}
+
+
+def _split_offsets(sk, window, ring):
+    """One row at the end of the cache, one in its middle, one whose keys
+    are all masked (before the first key, or past the window), one past
+    the end of the cache."""
+    if ring is not None:
+        return [ring + sk - 1, ring + sk // 2, ring - 5, ring + sk + 40]
+    dead = -3 if not window else sk + window + 7
+    return [sk - 1, sk // 2, dead, sk + 11]
+
+
+@pytest.mark.parametrize("sk", SPLIT_SK)
+@pytest.mark.parametrize("mask", list(SPLIT_MASKS))
+def test_flash_decode_across_splits_matches_plain(dev, sk, mask):
+    g, d, window, prefix, ring = SPLIT_MASKS[mask]
+    b, hkv = 4, 2
+    q, k, v = _t(70, b, 1, hkv * g, d), _t(71, b, sk, hkv, d), \
+        _t(72, b, sk, hkv, d)
+    kpos = None
+    if ring is not None:
+        kpos = torch.arange(sk, dtype=torch.int32, device=dev) + ring
+        kpos[3::7] = -1
+    kw = dict(window=window, prefix_len=prefix, k_positions=kpos,
+              q_offset=torch.tensor(_split_offsets(sk, window, ring),
+                                    dtype=torch.int32, device=dev))
+    torch.testing.assert_close(t_fa.flash_decode(q, k, v, **kw),
+                               tref.attention(q, k, v, **kw),
+                               rtol=PROD_TOL, atol=PROD_TOL)
+
+
+@pytest.mark.parametrize("g", [2, 8])
+@pytest.mark.parametrize("sk", [64, 257, 4097])
+def test_flash_decode_row_is_bitwise_independent_of_the_batch(dev, sk, g):
+    """Each row of a batch of 8 (live, windowed, prefix and dead rows) gives
+    bitwise the output it gives alone: the split plan depends on Sk and the
+    row's own mask only (batched decode must equal solo decode)."""
+    b, hkv, d = 8, 4, 256
+    q, k, v = _t(80, b, 1, hkv * g, d), _t(81, b, sk, hkv, d), \
+        _t(82, b, sk, hkv, d)
+    qoff = [(i + 1) * sk // 8 - 1 for i in range(b)]
+    qoff[2] = -1
+    for window, prefix in ((0, 0), (200, 0), (200, 9)):
+        kw = dict(window=window, prefix_len=prefix)
+        qo = torch.tensor(qoff, dtype=torch.int32, device=dev)
+        batched = t_fa.flash_decode(q, k, v, q_offset=qo, **kw)
+        for i in range(b):
+            alone = t_fa.flash_decode(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                      q_offset=qo[i:i + 1], **kw)
+            assert torch.equal(batched[i:i + 1], alone), (window, prefix, i)
+
+
+@pytest.mark.parametrize("g", [2, 8])
+@pytest.mark.parametrize("sk", [65, 257, 4097])
+@pytest.mark.parametrize("window,prefix", [(0, 0), (100, 0), (64, 30)])
+def test_flash_decode_never_reads_masked_tiles(dev, sk, window, prefix, g):
+    """K and V rows outside each row's allowed keys hold NaN: the kernel
+    skips every tile that holds no allowed key and gives masked keys in the
+    tiles it walks zero weight without multiplying their V rows, so the
+    output is finite and equals the plain version with those rows zeroed."""
+    b, hkv, d = 4, 2, 256
+    q, k, v = _t(90, b, 1, hkv * g, d), _t(91, b, sk, hkv, d), \
+        _t(92, b, sk, hkv, d)
+    qoff = [sk - 1, sk // 2, sk // 3 + 5, min(sk - 1, 140)]
+    allowed = _allowed_rows(sk, qoff, window, prefix).to(dev)
+    assert bool(allowed.any(-1).all())
+    keep = allowed[:, :, None, None]
+    kn = torch.where(keep, k, float("nan"))
+    vn = torch.where(keep, v, float("nan"))
+    kw = dict(window=window, prefix_len=prefix,
+              q_offset=torch.tensor(qoff, dtype=torch.int32, device=dev))
+    got = t_fa.flash_decode(q, kn, vn, **kw)
+    assert bool(torch.isfinite(got).all())
+    want = tref.attention(q, torch.where(keep, k, 0.0),
+                          torch.where(keep, v, 0.0), **kw)
+    torch.testing.assert_close(got, want, rtol=PROD_TOL, atol=PROD_TOL)
+
+
+def test_flash_decode_split_plan_matches_the_library(dev):
+    """The split plan and the tile walk are computed in C only; the Python
+    model the CPU tests hold (`decode_split_plan`, `decode_tiles`) gives the
+    library's splits, tiles and scratch size on every case."""
+    import ctypes
+    from repro_torch.kernels import build
+    lib = build.library()
+    k0, k1 = ctypes.c_int(), ctypes.c_int()
+    for sk in (1, 63, 64, 65, 128, 129, 1000, 4096, 4097, 8193):
+        n = t_fa.decode_num_splits(sk)
+        assert lib.flash_decode_scratch_floats(8, 8, sk, 256) == \
+            (8 * 8 * n * 258 if n > 1 else 0)
+        for qpos in sorted({-1, 0, 5, 63, 64, sk // 2, sk - 1, sk + 300}):
+            for kw in (dict(), dict(window=1024), dict(window=100),
+                       dict(prefix_len=70), dict(window=64, prefix_len=37),
+                       dict(causal=False), dict(ring=True)):
+                mask = (int(kw.get("causal", True)), kw.get("window", 0),
+                        kw.get("prefix_len", 0), int(kw.get("ring", False)))
+                plan = t_fa.decode_split_plan(sk, qpos, **kw)
+                got = []
+                for s in range(len(plan)):
+                    na = lib.flash_decode_split_range(
+                        sk, qpos, *mask, s, ctypes.byref(k0),
+                        ctypes.byref(k1))
+                    assert na == len(plan), (sk, qpos, kw)
+                    got.append((k0.value, k1.value))
+                assert got == plan, (sk, qpos, kw)
+                for tile in (32, 16, 8):
+                    for a, b in plan:
+                        walk, t = [], lib.flash_decode_next_tile(
+                            a, b, tile, sk, qpos, *mask)
+                        while t < b:
+                            walk.append(t)
+                            t = lib.flash_decode_next_tile(
+                                t + tile, b, tile, sk, qpos, *mask)
+                        assert walk == t_fa.decode_tiles(
+                            a, b, tile, sk, qpos, **kw), (sk, qpos, kw, tile)
+
+
+def test_flash_decode_and_rms_norm_bitwise_repeatable(dev):
+    q, k, v = _t(95, 8, 1, 8, 256), _t(96, 8, 4097, 4, 256), \
+        _t(97, 8, 4097, 4, 256)
+    qo = torch.tensor([(i + 1) * 512 - 1 for i in range(8)],
+                      dtype=torch.int32, device=dev)
+    for window in (0, 1024):
+        a = t_fa.flash_decode(q, k, v, q_offset=qo, window=window)
+        assert torch.equal(a, t_fa.flash_decode(q, k, v, q_offset=qo,
+                                                window=window))
+    x, sc = _t(98, 8192, 2560), _t(99, 2560)
+    assert torch.equal(t_rn.rms_norm(x, sc), t_rn.rms_norm(x, sc))
+
+
+@pytest.mark.parametrize("n", [1, 2, 8, 8192])
+@pytest.mark.parametrize("d", [4, 6, 256, 2560, 16384])
+def test_rms_norm_matches_plain_and_each_row_alone(dev, n, d):
+    """Row in registers (d % 4 == 0, d <= 3072) or the strided path (d = 6,
+    16384): within tolerance of the plain version, and each row bitwise the
+    same as that row normalised alone."""
+    x, sc = _t(100, n, d), _t(101, d)
+    got = t_rn.rms_norm(x, sc)
+    torch.testing.assert_close(got, tref.rms_norm(x, sc), rtol=RMS_TOL,
+                               atol=RMS_TOL)
+    for i in sorted({0, n // 2, n - 1}):
+        assert torch.equal(got[i:i + 1], t_rn.rms_norm(x[i:i + 1], sc))
+
+
+@pytest.mark.parametrize("d", [256, 2560])
+def test_rms_norm_strided_path_gives_the_register_paths_bits(dev, d):
+    """A row that is not 16-byte aligned takes the strided path, which sums
+    in the register path's order: the same bits."""
+    x_mis = _t(102, 3 * d + 1)[1:].view(3, d)        # 4 bytes off
+    x_al = x_mis.clone()                              # the same, aligned
+    assert x_mis.data_ptr() % 16 and x_al.data_ptr() % 16 == 0
+    sc = _t(103, d)
+    assert torch.equal(t_rn.rms_norm(x_mis, sc), t_rn.rms_norm(x_al, sc))
+
+
 def test_wrappers_reject_bad_operands(dev):
     x = _t(1, 4, 64)
     with pytest.raises(ShapeError, match="dtype"):
