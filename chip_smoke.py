@@ -24,7 +24,15 @@ Then it drives both of the port's paths on the card:
   partial participation with the mask [1, 1, 0, 1] (every lane
   re-anchored), and the ring-int8 wire (16 + 12 + 1 launches per sync, the
   card's ring codes equal the CPU's, the mean within `ring_tolerance`);
-  and overlap at depth 1 on the card against the CPU at 2 layers.
+  and overlap at depth 1 on the card against the CPU at 2 layers;
+* the LM path: gemma3-4b's one-shot `generate` (prefill through the
+  full-sequence attention kernel, then decode) at full width, its tokens
+  equal to the `--slots 2` service's, and a timed prefill of 4 x 1024
+  tokens; starcoder2-3b Local AdamW under QSR at full width (2 layers, W = 4
+  x 4 sequences of 1024 tokens from the built-in token stream, the training
+  CLI's recipe, 8 steps), at its full 30 layers (W = 1, remat) for 2 steps,
+  and the card against the CPU at 2 layers; on the card `rms_norm` and
+  `swiglu` refuse autograd (they have no backward kernel).
 
 Each path runs with the kernels' launch counters set to 0 just before it
 and read just after, and fails unless every kernel of the path ran.  One
@@ -109,6 +117,28 @@ TRAIN_RUN = dict(schedule="qsr", optimizer="adamw", total_steps=24,
                  alpha=3.5e-3, weight_decay=0.01, remat=False)
 QSR_TRACE = [(t, 2) for t in range(0, 16, 2)] + [(16, 3), (19, 5)]
 VIT_PARAMS = 86_332_648
+
+# the LM training path: the training CLI's recipe (launch/train.py main:
+# peak lr 3e-3, alpha 0.002, H_base 2, warmup max(steps // 20, 1), remat
+# off) on starcoder2-3b at full width, cut to 2 layers, on the engine's
+# built-in token stream
+LM_ARCH = "starcoder2-3b"
+LM_W, LM_B, LM_SEQ, LM_LAYERS, LM_STEPS = 4, 4, 1024, 2, 8
+LM_RUN = dict(schedule="qsr", optimizer="adamw", total_steps=LM_STEPS,
+              peak_lr=3e-3, alpha=0.002, h_base=2,
+              warmup_steps=max(LM_STEPS // 20, 1), remat=False)
+LM_TRACE = [(t, 2) for t in range(0, LM_STEPS, 2)]
+LM_PARAMS = {2: 342_915_072, 30: 3_029_710_848}
+LM_LEAVES = 13                  # tree leaves: the AdamW launches per step
+# one-shot generate (gemma3-4b): prompts x prompt tokens, new tokens; and
+# the timed prefill
+GEN_B, GEN_PLEN, GEN_NEW = 4, 32, 16
+PREFILL_B, PREFILL_LEN = 4, 1024
+# prefill's last-position logits against the prompt fed through
+# decode_step, x max(|logits|, 1): fp32 sums in another order in every
+# product (the full-sequence attention kernel in 3xTF32 against the decode
+# kernel's fp32 FMAs, cuBLAS at another M) through 34 layers
+PREFILL_TOL = 2e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -200,13 +230,14 @@ def kernel_cases(torch, main_len: int):
 
     d, f, hq, hkv, hd = 2560, 10240, 8, 4, 256
     cases = []
-    # the main path's [2, 2560], a decode batch of 8 slots, and a bytes-bound
-    # [8192, 2560] (a prefill's or a large batch's norm)
+    # the main path's [2, 2560], a decode batch of 8 slots, the prefill's
+    # 4 x 1024 rows, and a bytes-bound [8192, 2560]
     for n, main in ((4, False), (SLOTS, True), (LONG_SLOTS, False),
-                    (8192, False)):
+                    (PREFILL_B * PREFILL_LEN, False), (8192, False)):
         cases.append(("rms_norm", f"[{n},{d}]",
                       dict(x=rnd(n, d), scale=rnd(d)), main, True))
-    for n, main in ((4, False), (SLOTS, True), (256, False)):
+    for n, main in ((4, False), (SLOTS, True), (256, False),
+                    (PREFILL_B * PREFILL_LEN, False)):
         cases.append(("swiglu", f"[{n},{d}]x[{d},{f}]",
                       dict(x=rnd(n, d), wg=rnd(d, f, std=d ** -0.5),
                            wi=rnd(d, f, std=d ** -0.5)), main, True))
@@ -341,11 +372,13 @@ def launch_floor_ms(torch, timer) -> float:
 
 
 def phase_kernels(torch, main_len):
+    """Returns (the main path's rows by kernel, every timed row by (kernel,
+    shape))."""
     from repro_torch.kernels import ops, ref
     timer = Timer(torch)
     floor = launch_floor_ms(torch, timer)
     emit("launch_floor", launch_floor_ms=floor)
-    summary = {}
+    summary, rows = {}, {}
     for name, label, a, main, timed in kernel_cases(torch, main_len):
         plain = {"rms_norm": ref.rms_norm, "swiglu": ref.swiglu,
                  "flash_decode": ref.attention}[name]
@@ -362,10 +395,11 @@ def phase_kernels(torch, main_len):
                       lambda: run_kernel(torch, {name: plain}, name, a),
                       lib, *work(torch, name, a))
             row["launch_floor_ms"] = floor
+            rows[name, label] = row
             if main:
                 summary[name] = row
         emit("kernel_check", **row)
-    return summary
+    return summary, rows
 
 
 # ------------------------------------------------ training kernels ---------
@@ -391,11 +425,20 @@ def attention_work(torch, a, backward: bool) -> tuple[float, float]:
     return 2 * qo + 2 * kv + lse, pairs * 4.0 * d
 
 
+LM_TRAIN_ATTN = ("starcoder2-3b train q[4,1024,24,128] kv[.,.,2,.] causal "
+                 "window 4096")
+PREFILL_ATTN = tuple(f"gemma3-4b prefill q[4,1024,8,256] kv[.,.,4,.] causal "
+                     f"window {w}" for w in (1024, 0))
+
+
 def attention_cases(rnd):
     """(label, inputs, main-path shape?, timed?).  The main path's: ViT-B/16,
     [32,196,12,64] non-causal (196 tokens: no tile divides it).  Also timed:
-    a gemma3-4b prefill of 2048 tokens through a sliding-window layer (D =
-    256, GQA 2), and a causal D = 128 case with GQA 4."""
+    the LM path's shapes (starcoder2-3b training, GQA 12, and gemma3-4b's
+    prefill of 4 x 1024 tokens through a local and a global layer), a
+    gemma3-4b prefill of 2048 tokens through a sliding-window layer (D =
+    256, GQA 2), and a causal D = 128 case with GQA 4.  D = 32 (the
+    starcoder2 smoke config's) is checked, not timed."""
     def fa(label, b, sq, sk, hkv, g, d, causal, window=0, prefix_len=0,
            q_offset=0, main=False, timed=False):
         return (label, dict(q=rnd(b, sq, hkv * g, d), k=rnd(b, sk, hkv, d),
@@ -406,6 +449,17 @@ def attention_cases(rnd):
     return [
         fa("vit-b q[32,196,12,64] non-causal", 32, 196, 196, 12, 1, 64,
            False, main=True),
+        fa(LM_TRAIN_ATTN, LM_B, LM_SEQ, LM_SEQ, 2, 12, 128, True,
+           window=4096, timed=True),
+        fa(PREFILL_ATTN[0], PREFILL_B, PREFILL_LEN, PREFILL_LEN, 4, 2, 256,
+           True, window=1024, timed=True),
+        fa(PREFILL_ATTN[1], PREFILL_B, PREFILL_LEN, PREFILL_LEN, 4, 2, 256,
+           True, timed=True),
+        fa("starcoder2-smoke q[2,64,8,32] kv[.,.,2,.] causal window 64", 2,
+           64, 64, 2, 4, 32, True, window=64),
+        fa("q[1,197,8,32] kv[.,.,1,.] gqa 8 causal window 16 prefix 5", 1,
+           197, 197, 1, 8, 32, True, window=16, prefix_len=5),
+        fa("q[2,130,4,32] non-causal", 2, 130, 130, 4, 1, 32, False),
         fa("gemma3-4b prefill q[1,2048,8,256] kv[.,.,4,.] causal window 1024",
            1, 2048, 2048, 4, 2, 256, True, window=1024, timed=True),
         fa("q[4,1024,16,128] kv[.,.,4,.] gqa 4 causal", 4, 1024, 1024, 4, 4,
@@ -447,7 +501,9 @@ def sdpa_inputs(torch, a):
 def phase_training_kernels(torch):
     """flash_attention forward and backward, adamw_update and
     sync_flat_update against their plain versions at the training path's
-    shapes, with kernel / plain / library / bound times at the main path's."""
+    shapes, with kernel / plain / library / bound times at the main path's.
+    Returns (the main path's rows by kernel, every timed attention row by
+    (kernel, shape))."""
     from repro_torch.kernels import adamw_update as _ad
     from repro_torch.kernels import flash_attention as _fa
     from repro_torch.kernels import ref
@@ -459,7 +515,7 @@ def phase_training_kernels(torch):
     def rnd(*shape, std=1.0):
         return torch.randn(*shape, generator=g, device="cuda") * std
 
-    summary = {}
+    summary, rows = {}, {}
     for label, a, main, timed in attention_cases(rnd):
         q, k, v, do = a["q"], a["k"], a["v"], a["dout"]
         mask = {key: a[key] for key in ("causal", "window", "prefix_len",
@@ -498,6 +554,8 @@ def phase_training_kernels(torch):
                       *attention_work(torch, a, True))
             tensor_core_bound(fwd)
             tensor_core_bound(bwd)
+            rows["flash_attention_fwd", label] = fwd
+            rows["flash_attention_bwd", label] = bwd
         if main:
             # no atomics, a fixed summation order: a second run on the same
             # inputs gives the same bits (the overlap gate rests on it)
@@ -594,7 +652,7 @@ def phase_training_kernels(torch):
         del pk, ak, muk
     del p, anchor, scale, mu0
     torch.cuda.empty_cache()
-    return summary
+    return summary, rows
 
 
 def phase_sync_kernels(torch):
@@ -697,7 +755,9 @@ def prompts_for(cfg, np):
     return [rng.integers(0, cfg.vocab, n, dtype=np.int32) for n in PROMPT_LENS]
 
 
-def phase_service(torch, np):
+def phase_service(torch, np, rows):
+    """The serving main path, then (same weights) the one-shot generate
+    path.  Returns (the service's counts, generate's counts)."""
     from repro_torch.configs import registry as R
     from repro_torch.kernels import ops
     from repro_torch.launch import weights as W
@@ -772,9 +832,10 @@ def phase_service(torch, np):
          launches_per_step=per_step, solo_match=True,
          peak_mem_gb=peak_gb)
     phase_long_step(torch, cfg, weights, w_bytes)
+    gen = phase_generate(torch, np, cfg, weights, rows)
     del weights, reqs
     torch.cuda.empty_cache()
-    return counts
+    return counts, gen
 
 
 def long_step_bytes(cfg, slots, max_len, positions) -> tuple[float, float]:
@@ -1426,6 +1487,389 @@ def phase_train_card_vs_cpu_overlap(torch, np):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- LM -------
+
+def lm_forward_flops(cfg, seqs: int, seq: int,
+                     unembed_rows: int | None = None) -> float:
+    """Matmul + attention FLOPs of the LM's forward over `seqs` sequences
+    of `seq` tokens: every product of the layers, QK^T and PV over the
+    (query, key) pairs each layer's causal window allows, and the tied
+    unembedding of `unembed_rows` positions (all of them by default)."""
+    d, hd = cfg.d_model, cfg.hd
+    mlp = (3 if cfg.act == "swiglu" else 2) * d * cfg.d_ff
+    per_layer = 2 * d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd + mlp
+    pairs = sum(min(i + 1, w) if w else i + 1
+                for layer in range(cfg.n_layers)
+                for w in (cfg.layer_window(layer),) for i in range(seq))
+    rows = seqs * seq if unembed_rows is None else unembed_rows
+    return (seqs * (2.0 * seq * cfg.n_layers * per_layer
+                    + pairs * cfg.n_heads * 4.0 * hd)
+            + 2.0 * rows * d * cfg.vocab)
+
+
+def lm_step_flops(cfg, seqs: int, seq: int) -> float:
+    """One local step of the LM: forward + backward = 3x the forward."""
+    return 3.0 * lm_forward_flops(cfg, seqs, seq)
+
+
+def profile_device_ms(torch, fn, top: int = 12) -> dict:
+    """Device time by kernel name over one call of `fn`, from
+    torch.profiler's CUDA activity: the sum over every kernel and the `top`
+    names by time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    return {"kernel_ms": sum(r[1] for r in rows),
+            "top": [dict(name=n[:100], ms=ms, calls=c)
+                    for n, ms, c in rows[:top]]}
+
+
+def lm_setup(n_layers, **run_overrides):
+    """(cfg, run config) of the LM recipe: starcoder2-3b at full width cut
+    to `n_layers`."""
+    from repro_torch.configs import registry as R
+    from repro_torch.configs.base import RunConfig
+    cfg = dataclasses.replace(R.get_config(LM_ARCH), n_layers=n_layers)
+    return cfg, RunConfig(**{**LM_RUN, **run_overrides})
+
+
+def lm_engine(*, n_layers, workers, b_loc, seq, **run_overrides):
+    """(cfg, run config, engine on the card) of the LM recipe, the engine
+    drawing from its built-in token stream."""
+    from repro_torch.core.engine import RoundEngine
+    cfg, run = lm_setup(n_layers, **run_overrides)
+    eng = RoundEngine(cfg, run, workers=workers, b_loc=b_loc, seq=seq,
+                      data="host")
+    return cfg, run, eng
+
+
+def run_lm(torch, np, phase, cfg, run, eng, trace):
+    """`train()` on the engine with the launch counts at 0 just before and
+    read just after, every lane equal after every sync.  Returns (state,
+    rounds, counts, wall s, peak GB); the wall holds the state's init on
+    the card too (~0.05 s)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.models import api, param as pm
+    check(pm.count_params(api.get_module(cfg).param_defs(cfg))
+          == LM_PARAMS[cfg.n_layers], f"{phase}: parameter count")
+    check_s = [0.0]
+
+    def eval_fn(t, state):              # after each round's sync
+        t0 = time.perf_counter()
+        check(lanes_equal(torch, state),
+              f"{phase}: lanes differ after the sync at {t}")
+        check_s[0] += time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()             # the path: counts at 0 ...
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, hist = train(cfg, run, workers=eng.workers, b_loc=eng.b_loc,
+                        seq=eng.seq, data="host", eng=eng, eval_fn=eval_fn,
+                        log_every=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - check_s[0]
+    counts = ops.launch_counts()          # ... read just after
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rounds = [dict(t_end=t, h=h, lr=lr, loss=float(m["loss"]),
+                   grad_norm=float(m["grad_norm"]),
+                   divergence=float(m["divergence"]))
+              for (t, h, _, lr), m in zip(hist, eng.round_metrics)]
+    check(eng.h_trace == trace, f"{phase}: H trace {eng.h_trace} != {trace}")
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+              for r in rounds), f"{phase}: a non-finite loss or grad norm")
+    return state, rounds, counts, wall, peak_gb
+
+
+def phase_train_lm(torch, np):
+    """The LM training main path: starcoder2-3b at full width (2 layers),
+    Local AdamW under QSR through `train()`, W = 4 x 4 sequences of 1024
+    tokens from the built-in token stream, 8 steps.  Then the device time
+    of one local step (CUDA events, the batch already on the card) and its
+    kernels by name (torch.profiler)."""
+    from repro_torch import tree as T
+    from repro_torch.core import local_update as LU
+    from repro_torch.data.synthetic import make_train_batch
+
+    cfg, run, eng = lm_engine(n_layers=LM_LAYERS, workers=LM_W, b_loc=LM_B,
+                              seq=LM_SEQ)
+    state, rounds, counts, wall, peak_gb = run_lm(
+        torch, np, "train_lm", cfg, run, eng, LM_TRACE)
+    attn = cfg.n_layers * LM_W * LM_STEPS  # one call per layer per worker
+    want = {k: 0 for k in counts}
+    want.update(flash_attention_fwd=attn, flash_attention_bwd=attn,
+                adamw_update=LM_LEAVES * LM_STEPS)
+    check(counts == want, f"train_lm: launch counts {counts} != {want}")
+    for r in rounds:
+        emit("train_lm_round", **r)
+
+    step_fn = LU.make_local_step(cfg, run, with_metrics=True)
+    batch = T.map(lambda x: x.cuda(), make_train_batch(
+        cfg, eng.stream, 0, LM_W, LM_B, LM_SEQ))
+    state, _ = step_fn(state, batch, 1e-6)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(2):
+        state, _ = step_fn(state, batch, 1e-6)
+    ev[1].record()
+    torch.cuda.synchronize()
+    device_ms = ev[0].elapsed_time(ev[1]) / 2
+    prof = profile_device_ms(torch, lambda: step_fn(state, batch, 1e-6))
+
+    tokens = LM_W * LM_B * LM_SEQ
+    flops = lm_step_flops(cfg, LM_W * LM_B, LM_SEQ)
+    wall_ms = wall / LM_STEPS * 1e3
+    emit("train_lm", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         params=LM_PARAMS[cfg.n_layers], workers=LM_W, b_loc=LM_B,
+         seq=LM_SEQ, steps=LM_STEPS, rounds=len(rounds), h_trace=eng.h_trace,
+         layout="tree", sync="blocking", wall_s=wall,
+         wall_ms_per_step=wall_ms,
+         data_ms_per_step=eng.data_seconds / LM_STEPS * 1e3,
+         device_ms_per_step=device_ms,
+         device_busy_share=device_ms / wall_ms,
+         tokens_per_s=tokens * LM_STEPS / wall, flop_per_step=flops,
+         flop_floor_ms_per_step=flops / PEAK_FP32_FLOP_PER_S * 1e3,
+         achieved_tflop_s=flops / device_ms / 1e9,
+         profiled_step=prof, launches=counts,
+         launches_per_step={k: v / LM_STEPS for k, v in counts.items()},
+         peak_mem_gb=peak_gb, final_loss=rounds[-1]["loss"],
+         lanes_equal_after_sync=True)
+    del state, batch, eng
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_lm_full_depth(torch, np):
+    """starcoder2-3b at all 30 layers: W = 1, 1 sequence of 1024 tokens,
+    remat on, 2 steps (one QSR round).  With remat every layer's forward
+    runs again in the backward: 2 L attention forwards a step.  Peak memory
+    beside what the state holds: params, AdamW's m and v, and the
+    gradient."""
+    cfg, run, eng = lm_engine(n_layers=30, workers=1, b_loc=1, seq=LM_SEQ,
+                              total_steps=2, remat=True)
+    state, rounds, counts, wall, peak_gb = run_lm(
+        torch, np, "train_lm_full_depth", cfg, run, eng, [(0, 2)])
+    steps = 2
+    want = {k: 0 for k in counts}
+    want.update(flash_attention_fwd=2 * cfg.n_layers * steps,
+                flash_attention_bwd=cfg.n_layers * steps,
+                adamw_update=LM_LEAVES * steps)
+    check(counts == want,
+          f"train_lm_full_depth: launch counts {counts} != {want}")
+    n = LM_PARAMS[cfg.n_layers]
+    flops = lm_step_flops(cfg, 1, LM_SEQ)
+    emit("train_lm_full_depth", arch=cfg.name, layers=cfg.n_layers,
+         params=n, workers=1, b_loc=1, seq=LM_SEQ, steps=steps, remat=True,
+         rounds=rounds, wall_s=wall,
+         wall_ms_per_step=wall / steps * 1e3,
+         tokens_per_s=LM_SEQ * steps / wall, flop_per_step_no_remat=flops,
+         flop_floor_ms_per_step_no_remat=flops / PEAK_FP32_FLOP_PER_S * 1e3,
+         launches=counts, peak_mem_gb=peak_gb,
+         state_gb_p_m_v_grad=4 * 4 * n / 1e9, lanes_equal_after_sync=True)
+    del state, eng
+    torch.cuda.empty_cache()
+
+
+def phase_train_lm_card_vs_cpu(torch, np):
+    """starcoder2-3b widths at 2 layers, W = 2, 1 sequence of 128 tokens
+    each, one round of H = 2 at the recipe's peak lr: the same weights and
+    token batches on the card (kernels) and on the CPU (plain versions).
+    Loss and grad norm within 1e-4 relative; params: at most 1 element in
+    2,000 of each leaf beyond 1e-5 (AdamW's first steps flip where a
+    gradient sits at the sum-order noise), none beyond 4 lr."""
+    from repro_torch import tree as T
+    from repro_torch.core import local_update as LU
+    from repro_torch.core.sync import make_sync
+    from repro_torch.data.synthetic import TokenStream, make_train_batch
+    from repro_torch.models import api, param as pm
+
+    cfg, run = lm_setup(2)
+    lr = run.peak_lr
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    card_p = pm.init_params(api.get_module(cfg).param_defs(cfg), gen,
+                            device="cuda")
+    states = {"cuda": LU.init_state(cfg, run, card_p, 2),
+              "cpu": LU.init_state(cfg, run, T.map(lambda x: x.cpu(),
+                                                   card_p), 2)}
+    del card_p
+    step_fn = LU.make_local_step(cfg, run, with_metrics=True)
+    sync = make_sync(run)
+    stream = TokenStream(vocab=cfg.vocab, seed=0)
+    losses, gns = {"cuda": [], "cpu": []}, {"cuda": [], "cpu": []}
+    t0 = time.perf_counter()
+    for t in range(2):
+        batch = make_train_batch(cfg, stream, t, 2, 1, 128)
+        for dev in ("cuda", "cpu"):
+            b = T.map(lambda x: x.to(dev), batch)
+            states[dev], (loss, gn) = step_fn(states[dev], b, lr)
+            losses[dev].append(float(loss))
+            gns[dev].append(float(gn))
+    with torch.no_grad():
+        for dev in states:
+            states[dev] = sync(states[dev])
+    wall = time.perf_counter() - t0
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                      losses["cpu"]))
+    gn_err = max(abs(a - b) / abs(b) for a, b in zip(gns["cuda"],
+                                                    gns["cpu"]))
+    check(loss_err <= 1e-4, f"LM card vs CPU loss rel err {loss_err}")
+    check(gn_err <= 1e-4, f"LM card vs CPU grad norm rel err {gn_err}")
+    worst, n_off, n_all = 0.0, 0, 0
+    for a, b in zip(T.leaves(states["cuda"]["params"]),
+                    T.leaves(states["cpu"]["params"])):
+        d = (a.cpu() - b).abs()
+        off = int((d > 1e-5 * (1 + b.abs())).sum())
+        check(off <= max(1, b.numel() // 2000),
+              f"LM card vs CPU: {off} of {b.numel()} elements beyond 1e-5")
+        worst = max(worst, float(d.max()))
+        n_off, n_all = n_off + off, n_all + b.numel()
+    check(worst <= 4 * lr, f"LM card vs CPU params differ by {worst}")
+    emit("train_lm_card_vs_cpu", arch=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, workers=2, b_loc=1, seq=128, steps=2,
+         losses_card=losses["cuda"], losses_cpu=losses["cpu"],
+         grad_norms_card=gns["cuda"], grad_norms_cpu=gns["cpu"],
+         max_loss_rel_err=loss_err, max_grad_norm_rel_err=gn_err,
+         max_param_abs_err=worst, params_beyond_1e5=n_off, params=n_all,
+         wall_s=wall)
+    del states
+    torch.cuda.empty_cache()
+
+
+def phase_generate(torch, np, cfg, weights, rows):
+    """gemma3-4b at full width: one-shot `generate` of GEN_B prompts x
+    GEN_PLEN tokens, GEN_NEW new, greedy, with the launch counts at 0 just
+    before and read just after (one prefill, then one decode step per new
+    token); its tokens equal the `--slots 2` service's for the same prompts
+    (which feeds each prompt through decode steps), and its prefill's
+    last-position logits equal those of the prompt fed through
+    `decode_step` within PREFILL_TOL.  Then a prefill of PREFILL_B x
+    PREFILL_LEN tokens: device ms (CUDA events), its launches, and its
+    kernels by name (torch.profiler), beside the kernels' isolated times
+    from this run's kernel rows.  Returns the generate path's counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate, run_service
+    from repro_torch.models import api
+
+    mod = api.get_module(cfg)
+    tree = weights.as_tree()
+    n_l = cfg.n_layers
+    rng = np.random.default_rng(9)
+    prompts = rng.integers(0, cfg.vocab, (GEN_B, GEN_PLEN), dtype=np.int32)
+    ops.reset_launch_counts()             # the path: counts at 0 ...
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = generate(cfg, tree, prompts, gen_len=GEN_NEW)
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    counts = ops.launch_counts()          # ... read just after
+    want = {k: 0 for k in counts}
+    want.update(rms_norm=(2 * n_l + 1) * (GEN_NEW + 1),
+                swiglu=n_l * (GEN_NEW + 1), flash_attention_fwd=n_l,
+                flash_decode=n_l * GEN_NEW)
+    check(counts == want, f"generate: launch counts {counts} != {want}")
+    check(tuple(toks.shape) == (GEN_B, GEN_PLEN + GEN_NEW)
+          and bool(torch.equal(toks[:, :GEN_PLEN].cpu(),
+                               torch.from_numpy(prompts))),
+          f"generate: tokens of shape {tuple(toks.shape)}")
+    got = toks[:, GEN_PLEN:].cpu().tolist()
+    reqs, _ = run_service(cfg, weights, list(prompts), slots=SLOTS,
+                          max_new=GEN_NEW, max_len=GEN_PLEN + GEN_NEW)
+    for r in reqs:
+        check(r.out == got[r.rid], f"generate row {r.rid}: {got[r.rid]} != "
+              f"the --slots {SLOTS} service's {r.out}")
+
+    with torch.no_grad():
+        pt = torch.from_numpy(prompts).cuda()
+        lp, _ = mod.prefill(cfg, tree, pt, mod.init_cache(
+            cfg, GEN_B, GEN_PLEN, device="cuda"))
+        cache = mod.init_cache(cfg, GEN_B, GEN_PLEN, device="cuda")
+        for i in range(GEN_PLEN):
+            ld, cache = mod.decode_step(cfg, tree, pt[:, i], cache, i)
+    err, scale = float((lp - ld).abs().max()), float(ld.abs().max())
+    tol = PREFILL_TOL * max(scale, 1.0)
+    check(err <= tol, f"prefill vs decode logits differ by {err} > {tol}")
+    check(bool(torch.equal(lp.argmax(-1), ld.argmax(-1))),
+          "prefill vs decode: another greedy token")
+    del cache, lp, ld
+
+    # a prefill of PREFILL_B x PREFILL_LEN tokens
+    pt = torch.from_numpy(rng.integers(0, cfg.vocab, (PREFILL_B, PREFILL_LEN),
+                                       dtype=np.int32)).cuda()
+    cache = mod.init_cache(cfg, PREFILL_B, PREFILL_LEN, device="cuda")
+    with torch.no_grad():
+        mod.prefill(cfg, tree, pt, cache)      # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        mod.prefill(cfg, tree, pt, cache)
+        ev[1].record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        pre_counts = {k: v for k, v in ops.launch_counts().items() if v}
+        prof = profile_device_ms(torch,
+                                 lambda: mod.prefill(cfg, tree, pt, cache))
+    device_ms = ev[0].elapsed_time(ev[1])
+    want = dict(rms_norm=2 * n_l + 1, swiglu=n_l, flash_attention_fwd=n_l)
+    check(pre_counts == want, f"prefill launches {pre_counts} != {want}")
+    n_global = sum(cfg.layer_window(i) == 0 for i in range(n_l))
+    rows_ms = dict(
+        swiglu=n_l * rows["swiglu", f"[{PREFILL_B * PREFILL_LEN},"
+                          f"{cfg.d_model}]x[{cfg.d_model},{cfg.d_ff}]"]["ms"],
+        flash_attention_fwd=(
+            (n_l - n_global) * rows["flash_attention_fwd",
+                                    PREFILL_ATTN[0]]["ms"]
+            + n_global * rows["flash_attention_fwd", PREFILL_ATTN[1]]["ms"]),
+        rms_norm=2 * n_l * rows["rms_norm", f"[{PREFILL_B * PREFILL_LEN},"
+                                f"{cfg.d_model}]"]["ms"])
+    emit("generate", arch=cfg.name, layers=n_l, prompts=GEN_B,
+         prompt_len=GEN_PLEN, new_tokens=GEN_NEW, wall_s=gen_wall,
+         tokens_per_s=GEN_B * GEN_NEW / gen_wall, launches=counts,
+         equals_slots_service=True, prefill_vs_decode_max_abs_err=err,
+         prefill_vs_decode_tol=tol)
+    emit("prefill", arch=cfg.name, layers=n_l, batch=PREFILL_B,
+         prompt_len=PREFILL_LEN, global_layers=n_global, wall_ms=wall_ms,
+         device_ms=device_ms, tokens_per_s=PREFILL_B * PREFILL_LEN / wall_ms
+         * 1e3, launches=pre_counts, profiled=prof,
+         kernel_rows_ms_x_launches=rows_ms,
+         flop=lm_forward_flops(cfg, PREFILL_B, PREFILL_LEN,
+                               unembed_rows=PREFILL_B))
+    del cache, pt
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_guard(torch):
+    """On the card the forward-only rms_norm and swiglu refuse autograd:
+    no zero gradient comes back without an error."""
+    from repro_torch.errors import ConfigError
+    from repro_torch.kernels import ops
+    x = torch.randn(4, 256, device="cuda", requires_grad=True)
+    w = torch.randn(256, 512, device="cuda") * 0.05
+    raised = []
+    for name, call in (("rms_norm", lambda: ops.rms_norm(x, w[:, 0])),
+                       ("swiglu", lambda: ops.swiglu(x, w, w))):
+        try:
+            call()
+        except ConfigError as e:
+            raised.append(name)
+            check("backward: not ported yet" in str(e), f"{name}: {e}")
+    check(raised == ["rms_norm", "swiglu"],
+          f"guard: only {raised} refused autograd on the card")
+    emit("guard", refused_under_grad=raised)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1455,29 +1899,40 @@ def main() -> int:
           and not torch.backends.cudnn.allow_tf32, "TF32 must be off")
 
     max_len = max(PROMPT_LENS) + MAX_NEW
-    timed = phase_kernels(torch, max_len)
-    timed.update(phase_training_kernels(torch))
+    timed, rows = phase_kernels(torch, max_len)
+    t_summary, t_rows = phase_training_kernels(torch)
+    timed.update(t_summary)
+    rows.update(t_rows)
     timed.update(phase_sync_kernels(torch))
-    counts = {}
-    serve = phase_service(torch, np)
-    counts.update({k: serve[k] for k in SERVING_KERNELS})
+    phase_guard(torch)
+    # each path's counts at 0 just before it and read just after; a
+    # kernel's launches in the `kernels` line sum the paths that run it
+    counts = dict.fromkeys(SOURCES, 0)
+
+    def add(path_counts, names):
+        for k in names:
+            counts[k] += path_counts[k]
+
+    serve, gen = phase_service(torch, np, rows)
+    add(serve, SERVING_KERNELS)
+    add(gen, SERVING_KERNELS + ("flash_attention_fwd",))
     phase_card_vs_cpu(torch, np)
     phase_hot_swap(torch, np)
-    trained = phase_train(torch, np)
-    counts.update({k: trained[k] for k in TRAINING_KERNELS[:3]})
+    add(phase_train(torch, np), TRAINING_KERNELS[:3])
     flat, flat_state = phase_train_flat_quantized(torch, np)
-    counts["sync_flat_update"] = flat["sync_flat_update"]
+    add(flat, ("sync_flat_update",))
     phase_train_card_vs_cpu(torch, np)
-    # the sync variants: each path's counts at 0 just before it, read after
+    # the sync variants
     overlap = phase_train_overlap(torch, np, flat_state)
     del flat_state
-    partial = phase_train_partial(torch, np)
-    ring = phase_train_ring(torch, np)
-    counts["sync_apply_update"] = (overlap["sync_apply_update"]
-                                   + partial["sync_apply_update"]
-                                   + ring["sync_apply_update"])
-    counts.update({k: ring[k] for k in ("ring_combine", "ring_quantize")})
+    add(overlap, ("sync_apply_update",))
+    add(phase_train_partial(torch, np), ("sync_apply_update",))
+    add(phase_train_ring(torch, np), SYNC_KERNELS)
     phase_train_card_vs_cpu_overlap(torch, np)
+    # the LM training path
+    add(phase_train_lm(torch, np), TRAINING_KERNELS[:3])
+    phase_train_lm_full_depth(torch, np)
+    phase_train_lm_card_vs_cpu(torch, np)
     check(all(counts[k] > 0 for k in SOURCES),
           f"a kernel of a path never launched: {counts}")
 
@@ -1489,11 +1944,23 @@ def main() -> int:
         speedup_vs_cuda_core=CUDA_CORE_MS[name] / timed[name]["ms"],
         speedup_vs_library=timed[name]["library_ms"] / timed[name]["ms"])
         for name in CUDA_CORE_MS})
+    # the LM path's shapes, beside each kernel's main-path row
+    lm_shapes = {
+        "rms_norm": [f"[{PREFILL_B * PREFILL_LEN},2560]"],
+        "swiglu": [f"[{PREFILL_B * PREFILL_LEN},2560]x[2560,10240]"],
+        "flash_attention_fwd": [LM_TRAIN_ATTN, *PREFILL_ATTN],
+        "flash_attention_bwd": [LM_TRAIN_ATTN]}
     kernels = []
     for name in SERVING_KERNELS + TRAINING_KERNELS + SYNC_KERNELS:
         t = timed[name]
         extra = {key: t[key] for key in ("bound_fp32_ms", "bound_fp32_by")
                  if key in t}
+        if name in lm_shapes:
+            extra["lm_path"] = [
+                {key: rows[name, label][key] for key in (
+                    "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "max_abs_err")}
+                for label in lm_shapes[name]]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=counts[name],

@@ -1,8 +1,8 @@
 """Architecture registry: --arch <id> -> (config, smoke_config).
 
-Only the architectures the port runs so far are importable (gemma3-4b for
-serving, vit-b16 for training); every other id of the JAX package's
-registry raises `ConfigError("not ported yet")`.
+Only the architectures the port runs so far are importable (the dense LMs
+gemma3-4b and starcoder2-3b, and vit-b16); every other id of the JAX
+package's registry raises `ConfigError("not ported yet")`.
 """
 from __future__ import annotations
 
@@ -11,10 +11,11 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 from repro_torch.errors import ConfigError
 
-ARCHS: dict[str, str] = {"gemma3-4b": "gemma3_4b", "vit-b16": "vit_b"}
+ARCHS: dict[str, str] = {"gemma3-4b": "gemma3_4b",
+                         "starcoder2-3b": "starcoder2_3b", "vit-b16": "vit_b"}
 
 # ids the JAX package registers that this package does not cover yet
-NOT_PORTED = ("starcoder2-3b", "paligemma-3b", "whisper-base", "zamba2-1.2b",
+NOT_PORTED = ("paligemma-3b", "whisper-base", "zamba2-1.2b",
               "qwen1.5-110b", "mamba2-130m", "dbrx-132b", "phi3-medium-14b",
               "kimi-k2-1t-a32b")
 

@@ -17,9 +17,10 @@ step.
 Layouts: "tree" (state mirrors the model tree) and "flat" (one `[W, N]`
 buffer per dtype bucket: one optimizer kernel launch per step and one sync
 kernel launch per round per bucket; bitwise the tree trajectory).  Data:
-"host" with a `batch_fn(step) -> batch [W, B_loc, ...]` (CPU tensors, moved
-to the run's device here); `data_seconds` accumulates the host time spent
-in `batch_fn`.
+"host", from a `batch_fn(step) -> batch [W, B_loc, ...]` or, without one,
+the built-in `TokenStream(vocab, seed)` through `make_train_batch`, as the
+reference's host path draws it (CPU tensors, moved to the run's device
+here); `data_seconds` accumulates the host time spent drawing batches.
 
 Sync modes:
   * "blocking": every round ends fully synced.
@@ -37,9 +38,9 @@ The ring-int8 wire (`RunConfig.sync_wire`) composes with blocking and
 overlap on the flat layout.  `membership_epoch` also resizes the worker
 axis (lanes leave or join) through the tree layout.
 
-Anything else of the reference — device data, the built-in token stream,
-flat_sharded, meshes, adaptive batch, checkpoints — raises
-`ConfigError("not ported yet")`.
+Anything else of the reference — device data (drawn from `jax.random`
+inside the jitted round: no twin), flat_sharded, meshes, adaptive batch,
+checkpoints — raises `ConfigError("not ported yet")`.
 """
 from __future__ import annotations
 
@@ -55,6 +56,7 @@ from repro_torch.core import flat
 from repro_torch.core import local_update as LU
 from repro_torch.core.sync import (make_sync, make_sync_apply,
                                    make_sync_begin, make_sync_partial)
+from repro_torch.data.synthetic import TokenStream, make_train_batch
 from repro_torch.device import resolve_device
 from repro_torch.errors import ConfigError
 from repro_torch.models import api, param as pm
@@ -148,9 +150,12 @@ class RoundEngine:
         if sync != "blocking" and mode != "bucketed":
             raise ConfigError(
                 "overlap/partial sync runs through the bucketed program")
-        for bad, what in ((data == "device", "data='device'"),
-                          (batch_fn is None, "the built-in token stream"),
-                          (layout == "flat_sharded", "layout='flat_sharded'"),
+        if data == "device":
+            raise ConfigError(
+                "data='device': not ported yet (the reference draws those "
+                "batches from jax.random inside its jitted round, which has "
+                "no twin); pass data='host'")
+        for bad, what in ((layout == "flat_sharded", "layout='flat_sharded'"),
                           (mesh is not None, "a mesh"),
                           (adaptive_batch, "adaptive_batch")):
             if bad:
@@ -160,7 +165,10 @@ class RoundEngine:
         self.workers, self.b_loc, self.seq, self.seed = workers, b_loc, seq, seed
         self.mode, self.data, self.layout = mode, data, layout
         self.sync_mode, self.overlap_depth = sync, overlap_depth
-        self._host_batch = batch_fn
+        self.stream = TokenStream(vocab=max(cfg.vocab, 2), seed=seed)
+        self._host_batch = batch_fn or (
+            lambda step: make_train_batch(self.cfg, self.stream, step,
+                                          self.workers, self.b_loc, self.seq))
         self.spec = None                    # FlatParamSpace (layout="flat")
         self._step = self._sync = None
         self._pending = None                # overlap: the in-flight reduce

@@ -1,12 +1,15 @@
-"""Deterministic synthetic data (port of `repro/data/synthetic.py`, vision
-stream).
+"""Deterministic synthetic data (port of `repro/data/synthetic.py`).
 
-`VisionStream` is the JAX package's numpy code copied exactly — the same
-RandomState seeds and draws — so both packages see bitwise the same
-batches; only the return type differs (CPU torch tensors here, moved to the
-run's device by the engine).  `TokenStream` and `make_train_batch` wait for
-the LM training slice; `device_batch_fn` draws from `jax.random` and has no
-twin.
+`TokenStream` (an order-1 Markov language, so the loss is learnable) and
+`VisionStream` (noisy teacher labels over random images) are the JAX
+package's numpy code copied exactly — the same RandomState seeds and draws
+— so both packages see bitwise the same batches; only the return type
+differs (CPU torch tensors here, moved to the run's device by the engine).
+`make_train_batch` stacks the W workers' token batches as the reference's
+host path does; its vlm and audio branches raise (those families are not
+ported).  The reference's `device_batch_fn` draws its batches inside the
+jitted round from `jax.random`, which has no PyTorch twin: the port runs
+the host stream only (`RoundEngine(data="host")`).
 """
 from __future__ import annotations
 
@@ -14,6 +17,37 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from repro_torch.errors import ConfigError
+
+
+@dataclasses.dataclass
+class TokenStream:
+    """Order-1 Markov LM over `vocab` symbols with `branch` likely successors."""
+    vocab: int
+    seed: int = 0
+    branch: int = 4
+
+    def __post_init__(self):
+        rng = np.random.RandomState(self.seed)
+        # sparse transition table: each symbol has `branch` likely successors
+        self.succ = rng.randint(0, self.vocab, size=(self.vocab, self.branch))
+        self.noise = 0.1
+
+    def batch(self, step: int, worker: int, batch: int, seq: int):
+        """Returns (tokens, labels) int32 [batch, seq] CPU tensors; labels =
+        next token."""
+        seed = (step * 1000003 + worker * 7919 + self.seed) % (2**31)
+        rng = np.random.RandomState(seed)
+        toks = np.empty((batch, seq + 1), np.int64)
+        toks[:, 0] = rng.randint(0, self.vocab, size=batch)
+        for t in range(seq):
+            nxt = self.succ[toks[:, t], rng.randint(0, self.branch, size=batch)]
+            flip = rng.rand(batch) < self.noise
+            nxt = np.where(flip, rng.randint(0, self.vocab, size=batch), nxt)
+            toks[:, t + 1] = nxt
+        return (torch.from_numpy(toks[:, :-1].astype(np.int32)),
+                torch.from_numpy(toks[:, 1:].astype(np.int32)))
 
 
 @dataclasses.dataclass
@@ -54,3 +88,14 @@ def vision_batch_fn(stream: VisionStream, workers: int, b_loc: int):
         xs, ys = zip(*[stream.batch(step, w, b_loc) for w in range(workers)])
         return {"images": torch.stack(xs), "labels": torch.stack(ys)}
     return batch_fn
+
+
+def make_train_batch(cfg, stream: TokenStream, step: int, w: int, b_loc: int,
+                     seq: int) -> dict:
+    """Stacked per-worker batch {"tokens", "labels"} [W, B_loc, seq] (CPU
+    int32) for the local-gradient runtime."""
+    if cfg.family in ("vlm", "audio"):
+        raise ConfigError(f"{cfg.family} training batches: not ported yet")
+    toks, labels = zip(*[stream.batch(step, k, b_loc, seq)
+                         for k in range(w)])
+    return {"tokens": torch.stack(toks), "labels": torch.stack(labels)}

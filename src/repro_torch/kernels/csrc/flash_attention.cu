@@ -83,10 +83,16 @@
 //     unrolled, the kernels were 1.1-1.15x slower (their code outgrew the
 //     instruction cache, by the look of it).
 // Tiles (rows per block x streamed rows per stage, warps sharing D):
-//   forward: 64 x 32 keys (D 64, 128); 32 x 32 (D 256, 2 warps on D).
-//   dK/dV:   64 keys (D 64), 32 (D 128, 2 on D), 16 (D 256, 4 on D), each
-//            against 32-query stages; 70 KB of shared memory at D 64.
-//   dQ:      64 queries x 32 keys of dS (D 64, 128); 32 x 32 (D 256, 2 on D).
+//   forward: 64 x 32 keys (D 32, 64, 128); 32 x 32 (D 256, 2 warps on D).
+//   dK/dV:   64 keys (D 32, 64), 32 (D 128, 2 on D), 16 (D 256, 4 on D),
+//            each against 32-query stages; 70 KB of shared memory at D 64.
+//   dQ:      64 queries x 32 keys of dS (D 32, 64, 128); 32 x 32 (D 256, 2
+//            on D).
+// D 32 (starcoder2's smoke config) is the D 64 tiling at half the width:
+// 4 column groups of 8, two kChunk steps per score product, rows padded to
+// 36 floats (144 bytes: cp.async's 16-byte copies stay aligned, and the
+// fragment loads stay free of bank conflicts: 36 g + t and 72 t + g are
+// distinct mod 32 over a warp).  It is built for correctness, not tuned.
 // Registers per thread (`-Xptxas -v`, printed by chip_smoke.py's `build`
 // phase):                       D 64   D 128   D 256
 //   forward                      128    221     221
@@ -141,7 +147,7 @@ struct Cfg {
   static constexpr int F_WD = D == 256 ? 2 : 1;
   static constexpr int F_BQ = 16 * (kWarps / F_WD);
   static constexpr int F_BK = 32;
-  static constexpr int KV_WD = D / 64;
+  static constexpr int KV_WD = D >= 64 ? D / 64 : 1;
   static constexpr int KV_BK = 16 * (kWarps / KV_WD);
   static constexpr int KV_BQ = 32;
   static constexpr int Q_WD = D == 256 ? 2 : 1;
@@ -884,7 +890,7 @@ cudaError_t launch_bwd(const float* q, const float* k, const float* v, const flo
 }  // namespace
 
 // q, o [b, sq, hq, d]; k, v [b, sk, hkv, d]; lse [b, hq, sq]: contiguous
-// fp32, 16-byte aligned, d in {64, 128, 256}, hq % hkv == 0, sq, sk >= 1.
+// fp32, 16-byte aligned, d in {32, 64, 128, 256}, hq % hkv == 0, sq, sk >= 1.
 // The wrapper checks all of this.  Launches on `stream`, allocates nothing;
 // returns the launch's cudaError_t.
 extern "C" int flash_attention_fwd_f32(const float* q, const float* k, const float* v,
@@ -894,6 +900,7 @@ extern "C" int flash_attention_fwd_f32(const float* q, const float* k, const flo
                                        void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 32: return launch_fwd<32>(q, k, v, o, lse, b, sq, sk, hq, hkv, scale, causal, window, prefix_len, q_offset, s);
     case 64: return launch_fwd<64>(q, k, v, o, lse, b, sq, sk, hq, hkv, scale, causal, window, prefix_len, q_offset, s);
     case 128: return launch_fwd<128>(q, k, v, o, lse, b, sq, sk, hq, hkv, scale, causal, window, prefix_len, q_offset, s);
     case 256: return launch_fwd<256>(q, k, v, o, lse, b, sq, sk, hq, hkv, scale, causal, window, prefix_len, q_offset, s);
@@ -921,6 +928,7 @@ extern "C" int flash_attention_bwd_f32(const float* q, const float* k, const flo
                                        int prefix_len, int q_offset, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 32: return launch_bwd<32>(q, k, v, o, lse, dout, dq, dk, dv, delta, b, sq, sk, hq, hkv, scale, causal, window, prefix_len, q_offset, s);
     case 64: return launch_bwd<64>(q, k, v, o, lse, dout, dq, dk, dv, delta, b, sq, sk, hq, hkv, scale, causal, window, prefix_len, q_offset, s);
     case 128: return launch_bwd<128>(q, k, v, o, lse, dout, dq, dk, dv, delta, b, sq, sk, hq, hkv, scale, causal, window, prefix_len, q_offset, s);
     case 256: return launch_bwd<256>(q, k, v, o, lse, dout, dq, dk, dv, delta, b, sq, sk, hq, hkv, scale, causal, window, prefix_len, q_offset, s);

@@ -34,7 +34,7 @@ from repro_torch.kernels.ref import attention as plain  # noqa: F401
 
 _MAX_G = 8          # query heads per kv head the kernel holds in registers
 _MAX_D = 1024       # head dim: one float4 column per thread of 256
-_FA_HEAD_DIMS = (64, 128, 256)   # head dims flash_attention.cu is built for
+_FA_HEAD_DIMS = (32, 64, 128, 256)  # head dims flash_attention.cu is built for
 DECODE_SPLIT_KEYS = 64   # flash_decode's split boundaries: multiples of this
 DECODE_UNITS_PER_SPLIT = 2   # a split's share of those 64-key units
 DECODE_MAX_SPLITS = 64   # blocks per (batch row, kv head) at most
@@ -284,8 +284,8 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, *, causal=True, window=0, prefix_len=0,
                     q_offset=0, scale=None):
     """q [B,Sq,Hq,D]; k, v [B,Sk,Hkv,D] -> [B,Sq,Hq,D], differentiable in q,
-    k and v.  fp32, contiguous, 16-byte aligned, D in {64, 128, 256}, on one
-    CUDA device; q_offset a Python int (the absolute position of query row
+    k and v.  fp32, contiguous, 16-byte aligned, D in {32, 64, 128, 256}, on
+    one CUDA device; q_offset a Python int (the absolute position of query row
     0).  Semantics: `ref.attention`."""
     build.require_cuda("flash_attention q", q)
     scale = float(scale) if scale is not None else q.shape[-1] ** -0.5

@@ -6,8 +6,10 @@ The port of `repro/kernels/ops.py`, without its env-var backend switch:
   * a CUDA tensor launches the hand-written CUDA kernel, or raises.
 
 There is no fallback from the kernel to the plain version: a failed build or
-launch on the card is an exception.  Models call these; they never touch a
-kernel module directly.
+launch on the card is an exception.  The `rms_norm` and `swiglu` kernels are
+forward-only: on the card they raise `ConfigError` where autograd would need
+their gradient (the plain version on the CPU is differentiated).  Models
+call these; they never touch a kernel module directly.
 """
 from __future__ import annotations
 
@@ -50,9 +52,27 @@ def _on_cuda(t: torch.Tensor, op: str) -> bool:
     raise ConfigError(f"{op}: no kernel for device {t.device}")
 
 
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _forward_only(op: str, *ts: torch.Tensor) -> None:
+    """The rms_norm and swiglu kernels have no backward yet, and their
+    outputs carry no `grad_fn`: under autograd on the card they would give
+    every operand a zero gradient without a word.  Raise instead."""
+    if _needs_grad(*ts):
+        raise ConfigError(f"{op} backward: not ported yet (the CUDA kernel "
+                          "is forward-only; run under torch.no_grad(), or "
+                          "on the CPU, where the plain version is "
+                          "differentiated)")
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
+    """On CUDA forward-only: raises `ConfigError` where autograd would need
+    its gradient."""
     if _on_cuda(x, "rms_norm"):
+        _forward_only("rms_norm", x, scale)
         return _rn.rms_norm(x, scale, eps)
     return ref.rms_norm(x, scale, eps)
 
@@ -71,9 +91,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return ref.attention(q, k, v, causal=causal, window=window,
                              prefix_len=prefix_len, q_offset=q_offset,
                              scale=scale, k_positions=k_positions)
-    needs_grad = torch.is_grad_enabled() and (
-        q.requires_grad or k.requires_grad or v.requires_grad)
-    if q.shape[1] == 1 and causal and not needs_grad:
+    if q.shape[1] == 1 and causal and not _needs_grad(q, k, v):
         return _fa.flash_decode(q, k, v, causal=causal, window=window,
                                 prefix_len=prefix_len, q_offset=q_offset,
                                 scale=scale, k_positions=k_positions)
@@ -87,8 +105,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def swiglu(x, wg, wi):
-    """Fused silu(x@wg)*(x@wi) — the MLP hot spot."""
+    """Fused silu(x@wg)*(x@wi) — the MLP hot spot.  On CUDA forward-only:
+    raises `ConfigError` where autograd would need its gradient."""
     if _on_cuda(x, "swiglu"):
+        _forward_only("swiglu", x, wg, wi)
         return _sw.swiglu(x, wg, wi)
     return ref.swiglu(x, wg, wi)
 

@@ -1,18 +1,21 @@
-"""Serving driver: the continuous-batching service loop (port of
-`repro/launch/serve.py`, `--slots N` mode).
+"""Serving driver (port of `repro/launch/serve.py`).  Two modes:
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \
-        --slots 2 --batch 4 --gen 16
+  * one-shot batched `generate`: prefill every prompt in one full-sequence
+    pass, then one `decode_step` per new token —
+      PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \
+          --batch 4 --prompt-len 32 --gen 16
+  * the continuous-batching service loop (`--slots N`): requests flow
+    through `launch/batching.py` —
+      PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \
+          --slots 2 --batch 4 --gen 16
 
-serves `--batch` requests of `--prompt-len` random tokens through
-`--slots` decode slots on the card, with weights drawn on the device from
-`--seed`.  `--smoke` takes the arch's smoke config, `--device cpu` runs the
-plain versions on the CPU (the default is CUDA, and no card is an error),
-`--swap-demo` publishes fresh weights in process mid-decode and hot-swaps
-them, and `--audit FILE` writes the swap-epoch audit trail as JSON.
-
-The one-shot batched `generate` of the reference waits for the next slice:
-its prefill is full-sequence attention, the `flash_attention` kernel.
+Both serve `--batch` requests of `--prompt-len` random tokens on the card,
+with weights drawn on the device from `--seed`.  `--smoke` takes the arch's
+smoke config, `--device cpu` runs the plain versions on the CPU (the default
+is CUDA, and no card is an error).  With `--slots`, `--swap-demo` publishes
+fresh weights in process mid-decode and hot-swaps them, and `--audit FILE`
+writes the swap-epoch audit trail as JSON.  `--window > 0` (the ring-buffer
+cache and its ring prefill) is not ported yet.
 """
 from __future__ import annotations
 
@@ -21,10 +24,54 @@ import json
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.configs import registry as R
+from repro_torch.errors import ConfigError
 from repro_torch.launch import weights as W
 from repro_torch.launch.batching import ContinuousBatcher, Request
+from repro_torch.models import api
+
+
+def generate(cfg, params, prompts, *, gen_len: int, max_len: int | None = None,
+             window_override: int = 0, temperature: float = 0.0,
+             seed: int = 0) -> torch.Tensor:
+    """prompts [B, P] int -> tokens [B, P + gen_len] (int32, on the params'
+    device).
+
+    params: the model tree (for example `ServingWeights.as_tree()`); the
+    prompts move to its device.  Greedy at temperature 0; above it, one
+    categorical draw per row and step from a `torch.Generator` seeded with
+    `seed` — the reference's distribution, not its samples (`jax.random`
+    has no twin).  Runs without autograd."""
+    if window_override > 0:
+        raise ConfigError("window_override > 0 (the ring-buffer cache and "
+                          "its ring prefill): not ported yet")
+    mod = api.get_module(cfg)
+    dev = next(iter(params["embed"].values())).device
+    prompts = torch.as_tensor(np.asarray(prompts), device=dev)
+    b, plen = prompts.shape
+    max_len = max_len or (plen + gen_len)
+    if plen + gen_len > max_len:
+        raise ValueError(
+            f"prompt ({plen}) + gen_len ({gen_len}) = {plen + gen_len} "
+            f"tokens exceed the KV cache length {max_len}; raise max_len")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = [prompts.to(torch.int32)]
+    with torch.no_grad():
+        cache = mod.init_cache(cfg, b, max_len, device=dev)
+        logits, cache = mod.prefill(cfg, params, prompts, cache)
+        for i in range(gen_len):
+            if temperature > 0:
+                probs = torch.softmax(logits / temperature, -1)
+                tok = torch.multinomial(probs, 1, generator=gen)[:, 0]
+            else:
+                tok = torch.argmax(logits, -1)
+            tok = tok.to(torch.int32)
+            out.append(tok[:, None])
+            logits, cache = mod.decode_step(cfg, params, tok, cache,
+                                            plen + i)
+    return torch.cat(out, 1)
 
 
 def run_service(cfg, weights, prompts, *, slots: int, max_new: int,
@@ -80,6 +127,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--window", type=int, default=0,
+                    help="ring-buffer KV window (not ported yet)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--slots", type=int, default=0,
@@ -90,15 +139,20 @@ def main(argv=None):
                     help="publish fresh weights in process mid-decode and "
                          "hot-swap them")
     args = ap.parse_args(argv)
-    if args.slots <= 0:
-        raise SystemExit("one-shot generate is not ported yet (its prefill "
-                         "needs the flash_attention kernel); use --slots N")
+    if args.window > 0:
+        raise ConfigError("--window (the ring-buffer cache and its ring "
+                          "prefill): not ported yet")
 
     cfg = R.get_smoke_config(args.arch) if args.smoke else R.get_config(args.arch)
     weights = W.ServingWeights.from_seed(cfg, args.seed, device=args.device)
     rng = np.random.default_rng(args.seed + 1)
     prompts = [rng.integers(0, cfg.vocab, args.prompt_len, dtype=np.int32)
                for _ in range(args.batch)]
+    if weights.device.type == "cuda":
+        from repro_torch.kernels import build
+        build.library()       # set-up: build/load the kernels before timing
+    if args.slots <= 0:
+        return _generate_main(cfg, weights, np.stack(prompts), args)
     sub = None
     hooks = []
     if args.swap_demo:
@@ -110,9 +164,6 @@ def main(argv=None):
         hooks.append((trigger, lambda b: sub.publish(1, W.ServingWeights.from_seed(
             cfg, args.seed + 17, device=weights.device).as_tree())))
 
-    if weights.device.type == "cuda":
-        from repro_torch.kernels import build
-        build.library()       # set-up: build/load the kernels before timing
     t0 = time.perf_counter()
     reqs, audit = run_service(cfg, weights, prompts, slots=args.slots,
                               max_new=args.gen, temperature=args.temperature,
@@ -135,6 +186,18 @@ def main(argv=None):
             json.dump(audit, f, indent=2)
         print(f"swap-epoch audit -> {args.audit}")
     return audit
+
+
+def _generate_main(cfg, weights, prompts, args):
+    """The one-shot entry: returns the tokens [B, P + gen] on the host."""
+    t0 = time.perf_counter()
+    toks = generate(cfg, weights.as_tree(), prompts, gen_len=args.gen,
+                    temperature=args.temperature, seed=args.seed).cpu()
+    dt = time.perf_counter() - t0
+    print(f"generated {args.batch}x{args.gen} tokens in {dt:.2f}s "
+          f"({args.batch * args.gen / dt:.1f} tok/s) on {weights.device}")
+    print("sample:", toks[0, :args.prompt_len + 8].tolist())
+    return toks
 
 
 if __name__ == "__main__":

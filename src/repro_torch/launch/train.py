@@ -1,10 +1,25 @@
 """Training loop: a thin host loop over `repro_torch.core.engine.RoundEngine`
-(port of `repro/launch/train.py` `train()`).
+(port of `repro/launch/train.py`: `train()` and the CLI `main()`).
 
 It walks the H-schedule: ask `schedules.get_h` for the next round's period,
 hand the round to the engine, log.  Both of the paper's algorithms run
 through it: Local AdamW with any H-schedule (Alg. 2) and the data-parallel
 baseline (Alg. 1 == schedule "parallel", H = 1 every round).
+
+The CLI trains an LM on the built-in token stream, on the card unless
+`--device cpu` is passed:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \
+        --smoke --device cpu --steps 30 --workers 2 --batch 2 --seq 16
+
+Its flags and defaults are the reference's, with one difference: `--data`
+defaults to `host` (the reference's `device` draws its batches from
+`jax.random` inside the jitted round, which has no twin).  `--mesh`,
+`--param-layout flat_sharded`, `--ckpt`, `--async-observer`, `--schedule
+adaptive`, `--controller-trace` and `--frontier` raise
+`ConfigError("not ported yet")`.
+
+From Python, any model the port trains (here ViT-B/16 on its image stream):
 
     from repro_torch.configs import registry as R
     from repro_torch.configs.base import RunConfig
@@ -39,13 +54,14 @@ Under sync="partial", `eng.membership_epoch([1, 1, 0, 1])` before the run
 `device="cpu"` to RoundEngine to run any of these on the CPU.
 
 Checkpoints, the async observer and the adaptive controller are not ported
-yet (they raise); the CLI `main()` waits for the LM slice, whose default
-arch it trains.
+yet (they raise).
 """
 from __future__ import annotations
 
+import argparse
 import time
 
+from repro_torch.configs import registry as R
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import schedules
 from repro_torch.core.engine import RoundEngine
@@ -111,3 +127,95 @@ def train(cfg, run_cfg: RunConfig, *, workers: int, b_loc: int, seq: int,
         if eval_fn is not None:
             eval_fn(t, eng.synced_view(state))
     return eng.flush(state), history
+
+
+def main(argv=None):
+    """The reference's training CLI.  Returns (state, history)."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="starcoder2-3b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-runnable)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--schedule", default="qsr",
+                    choices=list(schedules.SCHEDULE_KINDS))
+    ap.add_argument("--engine", default="bucketed",
+                    choices=["bucketed", "legacy"],
+                    help="kept for the reference's CLI: the port runs "
+                         "eagerly, with nothing to compile or cache")
+    ap.add_argument("--data", default="host", choices=["device", "host"],
+                    help="host: the numpy TokenStream (the port's only "
+                         "source; device is not ported)")
+    ap.add_argument("--param-layout", default="tree",
+                    choices=["tree", "flat", "flat_sharded"],
+                    help="tree: state mirrors the model tree; flat: one "
+                         "[W, N] buffer per dtype bucket, one optimizer and "
+                         "one sync launch per bucket, bitwise the tree run")
+    ap.add_argument("--sync", default="blocking",
+                    choices=["blocking", "overlap", "partial"])
+    ap.add_argument("--overlap-depth", type=int, default=0,
+                    help="local steps the next round runs on stale params "
+                         "before the deferred sync applies (--sync overlap)")
+    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--policy", default="dp", choices=["dp", "fsdp"])
+    ap.add_argument("--async-observer", action="store_true")
+    ap.add_argument("--optimizer", default="adamw", choices=["adamw", "sgd"])
+    ap.add_argument("--quantize", action="store_true",
+                    help="int8-quantized sync deltas; implied by --wire "
+                         "ring-int8")
+    ap.add_argument("--wire", default="auto", choices=["auto", "ring-int8"])
+    ap.add_argument("--controller-trace", default=None)
+    ap.add_argument("--frontier", default=None)
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--workers", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=8, help="per-worker batch")
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--peak-lr", type=float, default=3e-3)
+    ap.add_argument("--alpha", type=float, default=0.002)
+    ap.add_argument("--h-base", type=int, default=2)
+    ap.add_argument("--ckpt", default=None)
+    args = ap.parse_args(argv)
+    for bad, flag in ((args.mesh, "--mesh"),
+                      (args.param_layout == "flat_sharded",
+                       "--param-layout flat_sharded"),
+                      (args.ckpt, "--ckpt"),
+                      (args.async_observer, "--async-observer"),
+                      (args.schedule == "adaptive", "--schedule adaptive"),
+                      (args.controller_trace, "--controller-trace"),
+                      (args.frontier, "--frontier")):
+        if bad:
+            raise ConfigError(f"{flag}: not ported yet")
+
+    cfg = R.get_smoke_config(args.arch) if args.smoke else R.get_config(args.arch)
+    run_cfg = RunConfig(
+        schedule=args.schedule, optimizer=args.optimizer, sharding=args.policy,
+        total_steps=args.steps, peak_lr=args.peak_lr, alpha=args.alpha,
+        h_base=args.h_base, warmup_steps=max(args.steps // 20, 1),
+        remat=False,
+        sync_quantize=args.quantize or args.wire == "ring-int8",
+        sync_wire=args.wire)
+    eng = RoundEngine(cfg, run_cfg, workers=args.workers, b_loc=args.batch,
+                      seq=args.seq, mode=args.engine, data=args.data,
+                      layout=args.param_layout, sync=args.sync,
+                      overlap_depth=args.overlap_depth, device=args.device)
+    state, hist = train(cfg, run_cfg, workers=args.workers, b_loc=args.batch,
+                        seq=args.seq, engine=args.engine, data=args.data,
+                        layout=args.param_layout, sync=args.sync,
+                        overlap_depth=args.overlap_depth, eng=eng)
+    losses = [loss for _, _, loss, _ in hist]
+    if not losses:
+        print("nothing to do: 0 steps")
+        return state, hist
+    n_sync = len(hist)
+    # the reference ends with its XLA compile-cache stats; PyTorch compiles
+    # nothing, so the line names the device instead
+    print(f"\nfinal loss {losses[-1]:.4f}  (first {losses[0]:.4f}); "
+          f"{n_sync} communication rounds for {args.steps} steps "
+          f"(comm volume {n_sync/args.steps:.1%} of data-parallel); "
+          f"XLA round programs: not applicable (eager PyTorch on "
+          f"{eng.device}; host data {eng.data_seconds:.2f}s)")
+    return state, hist
+
+
+if __name__ == "__main__":
+    main()

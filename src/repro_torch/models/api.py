@@ -1,6 +1,14 @@
 """Uniform model protocol: family -> module dispatch (port of
-`repro/models/api.py`).  Ported so far: the dense transformer (serving) and
-the vision classifier (training)."""
+`repro/models/api.py`).
+
+Every module exposes:
+  param_defs(cfg) -> ParamDef tree
+  loss_fn(cfg, params, batch, *, remat) -> scalar loss
+  forward(cfg, params, ...) -> logits (the transformer: (logits, aux))
+  cache_spec / init_cache / prefill / decode_step   (the transformer)
+
+Ported so far: the dense transformer (training, prefill and decode) and the
+vision classifier (training)."""
 from __future__ import annotations
 
 import torch
@@ -27,3 +35,14 @@ def zero_cache_slots(cache: dict, slots) -> dict:
         idx = torch.as_tensor(slots, dtype=torch.long, device=c.device)
         c[:, idx] = 0
     return cache
+
+
+def batch_keys(cfg: ModelConfig) -> tuple[str, ...]:
+    """Input tensors a training batch must contain (besides labels)."""
+    if cfg.family == "vlm":
+        return ("tokens", "prefix_embeds")
+    if cfg.family == "audio":
+        return ("tokens", "frames")
+    if cfg.family == "vision":
+        return ("images",)
+    return ("tokens",)

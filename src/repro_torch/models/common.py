@@ -16,7 +16,7 @@ card runs in full fp32, as the reference does.
 Ported so far: rmsnorm and layernorm, rope, every branch of `attn_apply`
 (decode with a cache, full-sequence self-attention, cross-attention) and
 its `_attn_chunked` query blocking, the SwiGLU and GELU MLPs, embedding and
-the tied unembedding.  qkv_bias and `lm_loss` wait for the LM slice.
+the tied unembedding, and `lm_loss`.  qkv_bias (qwen only) is not ported.
 """
 from __future__ import annotations
 
@@ -101,9 +101,12 @@ def _attn_chunked(q, k, v, *, causal, window, prefix_len, q_offset,
                   q_block=512):
     """Block the query dim so the [Sq,Sk] score tile stays bounded: query
     blocks of the largest divisor of Sq at most `q_block`, each at its own
-    q_offset (the reference's scan, as a loop)."""
+    q_offset (the reference's scan, as a loop).  Only the plain version
+    holds that tile: the CUDA kernel streams the keys tile by tile and
+    computes each query row alone, so on the card the whole query range is
+    one launch, with the same rows as the blocks would give."""
     b, sq, hq, hd = q.shape
-    if sq <= q_block:
+    if sq <= q_block or q.device.type == "cuda":
         return kops.flash_attention(q, k, v, causal=causal, window=window,
                                     prefix_len=prefix_len, q_offset=q_offset)
     while sq % q_block:
@@ -229,6 +232,23 @@ def embed_apply(cfg: ModelConfig, p: dict, tokens: torch.Tensor) -> torch.Tensor
 def unembed_apply(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
     w = p["tok"].T if cfg.tie_embeddings else p["head"]
     return (h @ w.to(h.dtype)).float()
+
+
+# --------------------------------------------------------------------------
+# Loss
+# --------------------------------------------------------------------------
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+            mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token cross-entropy in fp32. logits [..,S,V], labels [..,S]
+    (the reference's op order: logsumexp minus the gold logit)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, -1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def stack_defs(defs, n: int):

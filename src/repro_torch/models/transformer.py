@@ -1,16 +1,20 @@
-"""Decoder-only transformer LM, serving path (port of
-`repro/models/transformer.py`).
+"""Decoder-only transformer LM (port of `repro/models/transformer.py`).
 
-Covers the dense rmsnorm + SwiGLU + GQA family (gemma3-4b).  Parameters
-keep the reference's stacked `[L, ...]` layout; the reference's `lax.scan`
-over layers becomes a Python loop over those stacked tensors, with each
-layer's sliding window as a Python int.  `forward`/`loss_fn` (training) and
-the full-sequence `prefill` wait for the training slice; the serving path
-feeds prompts through `decode_step` one token at a time.
+Covers the dense family: gemma3-4b (rmsnorm + SwiGLU, 5:1 local:global
+windows) and starcoder2-3b (layernorm + GELU, every layer windowed).
+Parameters keep the reference's stacked `[L, ...]` layout; the reference's
+`lax.scan` over layers becomes a Python loop over those stacked tensors,
+with each layer's sliding window as a Python int, and its `jax.checkpoint`
+per layer (remat) becomes `torch.utils.checkpoint`.  `forward`/`loss_fn`
+train, `prefill` fills a KV cache from the prompt in one full-sequence pass
+(on the card the `flash_attention` kernel), and `decode_step` extends it by
+one token (the `flash_decode` kernel).  MoE layers and the VLM prefix
+(`prefix_embeds`) are not ported yet.
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
@@ -48,8 +52,50 @@ def _block(cfg, p, h, *, positions, window, prefix_len, cache, cache_pos,
     return h + cm.mlp_apply(cfg, p["mlp"], hn), cache
 
 
+def _no_prefix(prefix_embeds) -> None:
+    if prefix_embeds is not None:
+        raise ConfigError("prefix_embeds (the VLM image prefix): not ported "
+                          "yet")
+
+
+def _layer(cfg, lp, h, positions, window):
+    """One layer of the full-sequence forward (no cache): the unit remat
+    recomputes."""
+    return _block(cfg, lp, h, positions=positions, window=window,
+                  prefix_len=0, cache=None, cache_pos=None)[0]
+
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            prefix_embeds=None, remat=True):
+    """Full-sequence forward. tokens [B,S] int -> (logits [B,S,V] fp32,
+    aux_loss), aux 0 for the dense family.  remat: each layer's activations
+    are recomputed in the backward (`torch.utils.checkpoint`), as the
+    reference's `jax.checkpoint` does."""
+    _no_prefix(prefix_embeds)
+    h = cm.embed_apply(cfg, params["embed"], tokens)
+    positions = torch.arange(h.shape[1], device=h.device)
+    for layer, window in enumerate(_windows(cfg)):
+        lp = T.map(lambda t: t[layer], params["layers"])
+        if remat:
+            h = torch.utils.checkpoint.checkpoint(
+                _layer, cfg, lp, h, positions, window, use_reentrant=False)
+        else:
+            h = _layer(cfg, lp, h, positions, window)
+    h = cm.norm_apply(cfg, params["final_norm"], h)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return cm.unembed_apply(cfg, params["embed"], h), aux
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *, remat=True):
+    """batch {"tokens", "labels"} [B,S] -> mean next-token loss (0-d)."""
+    logits, aux = forward(cfg, params, batch["tokens"],
+                          prefix_embeds=batch.get("prefix_embeds"),
+                          remat=remat)
+    return cm.lm_loss(logits, batch["labels"]) + cfg.router_aux_coef * aux
+
+
 # --------------------------------------------------------------------------
-# Serving: KV cache, single-token decode
+# Serving: KV cache, prefill, single-token decode
 # --------------------------------------------------------------------------
 
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int,
@@ -85,6 +131,22 @@ def _scan_cached(cfg, params, h, *, positions, prefix_len, cache, cache_pos,
                       cache={"k": cache["k"][layer], "v": cache["v"][layer]},
                       cache_pos=cache_pos, ring=ring)
     return h, cache
+
+
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            cache: dict, *, prefix_embeds=None):
+    """Run the prompt tokens [B,P] through the model, filling the cache from
+    position 0 (in place).  On CUDA tensors every attention runs the
+    full-sequence `flash_attention` kernel, every norm `rms_norm` and every
+    MLP `swiglu` (over B·P rows).  Returns (logits of the last position
+    [B,V] fp32, cache)."""
+    _no_prefix(prefix_embeds)
+    h = cm.embed_apply(cfg, params["embed"], tokens)
+    positions = torch.arange(h.shape[1], device=h.device)
+    h, cache = _scan_cached(cfg, params, h, positions=positions,
+                            prefix_len=0, cache=cache, cache_pos=0)
+    h = cm.norm_apply(cfg, params["final_norm"], h[:, -1:].contiguous())
+    return cm.unembed_apply(cfg, params["embed"], h)[:, 0], cache
 
 
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor,

@@ -27,7 +27,7 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.core import engine as teng
 from repro_torch.core import sync as tsync
 from repro_torch.data.synthetic import VisionStream, vision_batch_fn
-from repro_torch.errors import ShapeError
+from repro_torch.errors import ConfigError, ShapeError
 from repro_torch.kernels import adamw_update as t_ad
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import ops
@@ -310,7 +310,13 @@ FULL = [(2, 196, 196, 3, 1, 64, False, 0, 0, 0),
         (2, 197, 65, 2, 1, 64, False, 8, 0, 0),
         (1, 197, 197, 1, 8, 128, True, 32, 3, 0),
         (1, 1, 197, 2, 4, 256, True, 0, 0, 196),
-        (1, 65, 65, 4, 1, 64, True, 0, 0, -30)]    # rows 0-29: no allowed key
+        (1, 65, 65, 4, 1, 64, True, 0, 0, -30),    # rows 0-29: no allowed key
+        # D = 32 (starcoder2-smoke: 8 heads over 2 kv heads, window 64), and
+        # its edges: a tail tile, GQA 8, a prefix, dead rows
+        (2, 64, 64, 2, 4, 32, True, 64, 0, 0),
+        (1, 197, 197, 2, 1, 32, False, 0, 0, 0),
+        (1, 65, 130, 1, 8, 32, True, 16, 5, 65),
+        (2, 17, 17, 2, 2, 32, True, 0, 0, -4)]
 
 
 @pytest.mark.parametrize("case", FULL)
@@ -623,3 +629,64 @@ def test_overlap_depth1_on_card_keeps_local_progress_and_matches_cpu(dev):
     assert off <= b.numel() // 100, off
     assert float(d.norm()) <= 1e-3 * float(b.norm())
     assert float(d.max()) <= 4 * 6e-3
+
+
+def test_forward_only_kernels_refuse_autograd_on_card(dev):
+    """rms_norm and swiglu have no backward kernel: under autograd on the
+    card they raise instead of handing back a zero gradient, and without a
+    gradient (no_grad, or no operand that needs one) they launch."""
+    x, scale = _t(1, 4, 64), _t(2, 64)
+    wg, wi = _t(3, 64, 128, scale=0.1), _t(4, 64, 128, scale=0.1)
+    xg = x.clone().requires_grad_(True)
+    ops.reset_launch_counts()
+    with pytest.raises(ConfigError, match="rms_norm backward: not ported"):
+        ops.rms_norm(xg, scale)
+    with pytest.raises(ConfigError, match="rms_norm backward: not ported"):
+        ops.rms_norm(x, scale.clone().requires_grad_(True))
+    with pytest.raises(ConfigError, match="swiglu backward: not ported"):
+        ops.swiglu(xg, wg, wi)
+    with pytest.raises(ConfigError, match="swiglu backward: not ported"):
+        ops.swiglu(x, wg, wi.clone().requires_grad_(True))
+    assert set(ops.launch_counts().values()) == {0}
+    with torch.no_grad():
+        ops.rms_norm(xg, scale)
+        ops.swiglu(xg, wg, wi)
+    ops.rms_norm(x, scale)
+    ops.swiglu(x, wg, wi)
+    assert ops.launch_counts()["rms_norm"] == ops.launch_counts()["swiglu"] \
+        == 2
+
+
+def test_lm_local_step_on_card_matches_cpu(dev):
+    """One Local AdamW step of starcoder2-smoke (layernorm + GELU: every op
+    on the card differentiable) at W = 2 from the same weights and token
+    batch on the card and on the CPU: the loss and the grad norm within
+    1e-5 relative, the params under the 1-in-2,000 rule of
+    `tests/test_torch_train.py` (AdamW's first step flips where a gradient
+    sits at the sum-order noise), and one attention forward and backward
+    launch per layer per worker."""
+    from repro_torch.core import local_update as LU
+    from repro_torch.data.synthetic import TokenStream, make_train_batch
+    from repro_torch.models import api, param as pm
+    cfg = TR.get_smoke_config("starcoder2-3b")
+    run = RunConfig(peak_lr=3e-3, remat=False)
+    gen = torch.Generator().manual_seed(5)
+    host = pm.init_params(api.get_module(cfg).param_defs(cfg), gen)
+    batch = make_train_batch(cfg, TokenStream(vocab=cfg.vocab), 0, 2, 2, 16)
+    step = LU.make_local_step(cfg, run, with_metrics=True)
+    out = {}
+    for d in ("cuda", "cpu"):
+        st = LU.init_state(cfg, run, T.map(lambda x: x.to(d), host), 2)
+        ops.reset_launch_counts()
+        st, (loss, gn) = step(st, T.map(lambda x: x.to(d), batch), 3e-3)
+        out[d] = (st, float(loss), float(gn), ops.launch_counts())
+    (sc, lc, gc, counts), (sh, lh, gh, _) = out["cuda"], out["cpu"]
+    assert abs(lc - lh) <= 1e-5 * abs(lh) and abs(gc - gh) <= 1e-5 * abs(gh)
+    assert counts["flash_attention_fwd"] == counts["flash_attention_bwd"] \
+        == 2 * cfg.n_layers
+    assert counts["adamw_update"] == len(T.leaves(sh["params"]))
+    for a, b in zip(T.leaves(sc["params"]), T.leaves(sh["params"])):
+        d = (a.cpu() - b).abs()
+        assert int((d > 1e-5 * (1 + b.abs())).sum()) <= max(1, b.numel() //
+                                                          2000)
+        assert float(d.max()) <= 2 * 3e-3

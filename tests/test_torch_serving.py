@@ -317,5 +317,6 @@ def test_serve_cli_on_cpu_with_swap_demo(tmp_path):
     assert json.loads(path.read_text())["decode_steps"] == \
         audit["decode_steps"]
     assert set(ops.launch_counts().values()) == {0}    # CPU: plain versions
-    with pytest.raises(SystemExit, match="not ported yet"):
-        tserve.main(["--smoke", "--device", "cpu"])
+    with pytest.raises(ConfigError, match="not ported yet"):
+        tserve.main(["--smoke", "--device", "cpu", "--slots", "2",
+                     "--window", "8"])
