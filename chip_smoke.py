@@ -6,7 +6,8 @@
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/` and
 holds each against its plain PyTorch version at its path's full-width
 shapes, with an empty kernel's launch timed as the floor under them (the
-serving kernels also at a long serving shape: 8 slots of a 4096-row cache).
+serving kernels also at a long serving shape: 8 slots of a 4096-row cache;
+`swiglu` also at 16 to 4096 rows, where its tensor-core tiles run).
 Then it drives both of the port's paths on the card:
 
 * serving: gemma3-4b at full width (random weights drawn on the card from
@@ -204,10 +205,11 @@ def bound_ms(nbytes: float, flops: float,
 
 
 def tensor_core_bound(row) -> None:
-    """The attention kernels run every product in 3xTF32 on the tensor cores
-    (three TF32 products for each fp32 one), so their bound is that
-    arithmetic's against the same bytes.  The fp32 CUDA-core bound the
-    kernels had before stays beside it as `bound_fp32_ms`."""
+    """The attention kernels and swiglu's tile path run every product in
+    3xTF32 on the tensor cores (three TF32 products for each fp32 one), so
+    their bound is that arithmetic's against the same bytes.  The fp32
+    CUDA-core bound the kernels had before stays beside it as
+    `bound_fp32_ms`."""
     row["bound_fp32_ms"], row["bound_fp32_by"] = row["bound_ms"], row["bound_by"]
     row["bound_ms"], row["bound_by"] = bound_ms(
         row["bytes"], 3.0 * row["flops"], PEAK_TF32_FLOP_PER_S)
@@ -236,11 +238,15 @@ def kernel_cases(torch, main_len: int):
                     (PREFILL_B * PREFILL_LEN, False), (8192, False)):
         cases.append(("rms_norm", f"[{n},{d}]",
                       dict(x=rnd(n, d), scale=rnd(d)), main, True))
-    for n, main in ((4, False), (SLOTS, True), (256, False),
-                    (PREFILL_B * PREFILL_LEN, False)):
+
+    def sw(n, d, f, main=False, timed=True):
         cases.append(("swiglu", f"[{n},{d}]x[{d},{f}]",
                       dict(x=rnd(n, d), wg=rnd(d, f, std=d ** -0.5),
-                           wi=rnd(d, f, std=d ** -0.5)), main, True))
+                           wi=rnd(d, f, std=d ** -0.5)), main, timed))
+
+    for n, main in ((4, False), (SLOTS, True), (256, False),
+                    (PREFILL_B * PREFILL_LEN, False)):
+        sw(n, d, f, main)
 
     def fd(b, sk, *, window, prefix_len=0, ring=False, main=False, timed=True,
            qoff=None, note=""):
@@ -280,6 +286,15 @@ def kernel_cases(torch, main_len: int):
     fd(4, 1089, window=0, ring=True, timed=False, qoff=[1388, 900, 100, 310],
        note=" dead row")
     fd(SLOTS, main_len, window=1024, main=True)
+    # swiglu's tile path (from 9 rows): prefills of 16 to 128 rows, timed;
+    # edges one past a tile (9, 129, 4097 rows), and D = 98, a k-tail that
+    # is neither a multiple of the 32-wide chunk nor of 4
+    for n in (16, 48, 128):
+        sw(n, d, f)
+    for n in (9, 129, 4097):
+        sw(n, d, f, timed=False)
+    for n in (9, 129):
+        sw(n, 98, 516, timed=False)
     return cases
 
 
@@ -374,10 +389,11 @@ def launch_floor_ms(torch, timer) -> float:
 def phase_kernels(torch, main_len):
     """Returns (the main path's rows by kernel, every timed row by (kernel,
     shape))."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import build, ops, ref
     timer = Timer(torch)
     floor = launch_floor_ms(torch, timer)
     emit("launch_floor", launch_floor_ms=floor)
+    tile_rows = build.library().swiglu_tile_min_rows()
     summary, rows = {}, {}
     for name, label, a, main, timed in kernel_cases(torch, main_len):
         plain = {"rms_norm": ref.rms_norm, "swiglu": ref.swiglu,
@@ -387,6 +403,9 @@ def phase_kernels(torch, main_len):
         torch.cuda.synchronize()
         row = check_row(name, label, float((got - want).abs().max()),
                         float(want.abs().max()), main)
+        tiles = name == "swiglu" and a["x"].shape[0] >= tile_rows
+        if name == "swiglu":
+            row["path"] = "tiles" if tiles else "rows"
         if timed:
             lib = library_call(torch, name, a)
             row["library_max_abs_err"] = float((lib() - want).abs().max())
@@ -395,6 +414,8 @@ def phase_kernels(torch, main_len):
                       lambda: run_kernel(torch, {name: plain}, name, a),
                       lib, *work(torch, name, a))
             row["launch_floor_ms"] = floor
+            if tiles:
+                tensor_core_bound(row)
             rows[name, label] = row
             if main:
                 summary[name] = row
@@ -1947,7 +1968,8 @@ def main() -> int:
     # the LM path's shapes, beside each kernel's main-path row
     lm_shapes = {
         "rms_norm": [f"[{PREFILL_B * PREFILL_LEN},2560]"],
-        "swiglu": [f"[{PREFILL_B * PREFILL_LEN},2560]x[2560,10240]"],
+        "swiglu": [f"[{n},2560]x[2560,10240]"
+                   for n in (16, 48, 128, 256, PREFILL_B * PREFILL_LEN)],
         "flash_attention_fwd": [LM_TRAIN_ATTN, *PREFILL_ATTN],
         "flash_attention_bwd": [LM_TRAIN_ATTN]}
     kernels = []
@@ -1959,7 +1981,8 @@ def main() -> int:
             extra["lm_path"] = [
                 {key: rows[name, label][key] for key in (
                     "shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                    "bound_by", "max_abs_err")}
+                    "bound_by", "bound_fp32_ms", "max_abs_err")
+                 if key in rows[name, label]}
                 for label in lm_shapes[name]]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],

@@ -119,6 +119,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     `cudaError_t` of its launch (0 = success)."""
     lib.rmsnorm_f32.argtypes = [_P, _P, _P, _I, _I, _F, _P]
     lib.swiglu_f32.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
+    lib.swiglu_tile_min_rows.argtypes = []
+    lib.swiglu_tile_min_rows.restype = _I
     lib.flash_decode_f32.argtypes = [_P] * 7 + [_I] * 7 + [_F, _I, _P]
     lib.flash_attention_fwd_f32.argtypes = [_P] * 5 + [_I] * 6 + [_F] + \
         [_I] * 4 + [_P]

@@ -4,7 +4,15 @@ Replaces the Pallas `_swiglu_kernel` of `repro/kernels/swiglu.py`: both
 products x@wg and x@wi and the silu·mul are computed inside the kernel.
 `swiglu` launches it on CUDA tensors and raises on anything else; `plain` is
 its plain PyTorch version (`kernels/ref.py`), which CPU tensors take through
-`kernels/ops.py`.  `swiglu.launches` counts launches.
+`kernels/ops.py`.  `swiglu.launches` counts launches: one per call.
+
+The C entry picks the path from the row count N: up to 8 rows (decode) the
+fp32 row kernel, which reads the weights once per tile of 1, 2, 4 or 8
+rows; from 9 rows (`kTileMinRows` in the source; prefill) the 3xTF32
+tensor-core tiles, which read them once per tile of up to 128 rows.  The
+tiles win from 9 rows on, where the row kernel reads the weights twice
+(times in PERF.md, `tools/kernel_variants.py`).  Within one path a row's
+output does not depend on N.
 """
 from __future__ import annotations
 
@@ -14,7 +22,7 @@ from repro_torch.errors import ShapeError
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import swiglu as plain  # noqa: F401
 
-_MAX_ROWS = 65535 * 8          # grid.y limit times the largest row tile
+_MAX_ROWS = 65535 * 8          # the rows the wrapper takes: 65535 tiles of 8
 
 
 def swiglu(x: torch.Tensor, wg: torch.Tensor,

@@ -58,15 +58,58 @@ def _t(seed, *shape, scale=1.0, dev="cuda"):
     return torch.from_numpy(a.astype(np.float32)).to(dev)
 
 
-@pytest.mark.parametrize("n", [1, 2, 5, 300])
-def test_swiglu_and_rms_norm_match_plain(dev, n):
-    x = _t(1, n, 256)
-    wg, wi = _t(2, 256, 96, scale=1 / 16), _t(3, 256, 96, scale=1 / 16)
-    sc = _t(4, 256)
+# swiglu: rows 1-8 take the row kernel, 9 and up the tensor-core tiles (16,
+# 32, 64 or 128 rows a tile; 127 / 129 / 4097 sit one off a tile's edge).
+# D = 98 leaves a k-tail that is neither a multiple of the 32-wide chunk nor
+# of 4, so x's rows are not 16-byte aligned; F = 516 a partial column tile.
+@pytest.mark.parametrize("f", [96, 516])
+@pytest.mark.parametrize("d", [64, 98, 256])
+@pytest.mark.parametrize("n", [1, 2, 5, 9, 16, 127, 129, 300, 4097])
+def test_swiglu_and_rms_norm_match_plain(dev, n, d, f):
+    x = _t(1, n, d)
+    wg, wi = _t(2, d, f, scale=d ** -0.5), _t(3, d, f, scale=d ** -0.5)
+    sc = _t(4, d)
     torch.testing.assert_close(t_sw.swiglu(x, wg, wi), tref.swiglu(x, wg, wi),
                                rtol=PROD_TOL, atol=PROD_TOL)
     torch.testing.assert_close(t_rn.rms_norm(x, sc), tref.rms_norm(x, sc),
                                rtol=RMS_TOL, atol=RMS_TOL)
+
+
+@pytest.mark.parametrize("d,f", [(98, 516), (2560, 1024)])
+def test_swiglu_tile_rows_are_bitwise_independent_of_n(dev, d, f):
+    """A row's output from the tile path has the same bits whatever the
+    call's row count (so whatever its tile) and wherever the row sits in
+    it: greedy generate's prefill and a smaller prefill agree bitwise."""
+    x = _t(5, 4097, d)
+    wg, wi = _t(6, d, f, scale=d ** -0.5), _t(7, d, f, scale=d ** -0.5)
+    full = t_sw.swiglu(x, wg, wi)             # 128-row tiles at F = 1024
+    torch.testing.assert_close(full, tref.swiglu(x, wg, wi), rtol=PROD_TOL,
+                               atol=PROD_TOL)
+    big = t_sw.swiglu(x[:300], wg, wi)
+    assert torch.equal(big, full[:300])
+    for lo, hi in ((0, 9), (0, 16), (200, 225), (68, 100), (36, 84),
+                   (100, 229), (254, 300)):
+        assert torch.equal(t_sw.swiglu(x[lo:hi], wg, wi), big[lo:hi]), (lo, hi)
+
+
+# sha256 (first 16 hex digits) of the row kernel's outputs at N <= 8, taken
+# on an NVIDIA H100 80GB HBM3 (CUDA 12.8) from `csrc/swiglu.cu` as it was
+# before the tile path was added, and equal from the source with it: the
+# row kernel is unchanged, so decode keeps these bits
+ROW_KERNEL_DIGESTS = {1: "10058d1ca7f4a3c3", 2: "2c314736ff290639",
+                      4: "6de4830c458dc090", 5: "1f845f59684d3315",
+                      8: "ba1206bd46c907f9"}
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 5, 8])
+def test_swiglu_decode_rows_keep_the_row_kernels_bits(dev, n):
+    import hashlib
+    d, f = 2560, 1024
+    x = _t(31, n, d)
+    wg, wi = _t(32, d, f, scale=d ** -0.5), _t(33, d, f, scale=d ** -0.5)
+    got = t_sw.swiglu(x, wg, wi).cpu().numpy()
+    assert hashlib.sha256(got.tobytes()).hexdigest()[:16] \
+        == ROW_KERNEL_DIGESTS[n]
 
 
 # (B, Sk, Hkv, g, D, window, prefix_len, q_offset, ring shift | None)

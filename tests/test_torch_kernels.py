@@ -70,7 +70,8 @@ def test_rms_norm_matches_jax_ref_and_pallas(shape):
 # ------------------------------------------------------------------ swiglu --
 
 @pytest.mark.parametrize("n,d,f", [(4, 64, 128), (7, 96, 64), (256, 64, 96),
-                                   (2, 256, 512)])
+                                   (2, 256, 512), (9, 98, 96), (129, 64, 128),
+                                   (129, 98, 516)])
 def test_swiglu_matches_jax_ref_and_pallas(n, d, f):
     x = _np(3, n, d)
     wg, wi = _np(4, d, f, scale=d ** -0.5), _np(5, d, f, scale=d ** -0.5)

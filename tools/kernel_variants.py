@@ -1,24 +1,27 @@
 #!/usr/bin/env python3
-"""Build variants of the serving kernels (`flash_decode`, `rms_norm`) and time
-them side by side with the source.
+"""Build variants of the serving kernels (`flash_decode`, `rms_norm`,
+`swiglu`) and time them side by side with the source.
 
-    python3 tools/kernel_variants.py [--step] [VARIANT | file:PATH[,PATH] ...]
+    python3 tools/kernel_variants.py [--step] [--only=KERNEL] \
+        [VARIANT | file:PATH[,PATH] ...]
 
-A variant is `src/repro_torch/kernels/csrc/flash_decode.cu` or `rmsnorm.cu`
-with a few regex substitutions (`VARIANTS` below), or `file:PATH`, whole
-other sources of either kernel (which one: the C function a source
-defines; several joined by commas form one variant), such as an earlier
-commit's, written out first with `git show REV:src/repro_torch/kernels/
-csrc/flash_decode.cu > _dev/fd.cu` (a copy of the tree without `.git`
-cannot run it).  A `flash_decode_f32` from before split-K (no
+A variant is `src/repro_torch/kernels/csrc/flash_decode.cu`, `rmsnorm.cu` or
+`swiglu.cu` with a few regex substitutions (`VARIANTS` below), or
+`file:PATH`, whole other sources of these kernels (which one: the C
+function a source defines; several joined by commas form one variant), such
+as an earlier commit's, written out first with `git show REV:src/
+repro_torch/kernels/csrc/flash_decode.cu > _dev/fd.cu` (a copy of the tree
+without `.git` cannot run it).  A `flash_decode_f32` from before split-K (no
 `flash_decode_scratch_floats` beside it) is called with its own interface.  The
 patterns match the source's text: after an edit of a kernel a variant that
 no longer matches stops the run with its pattern.  Each variant is compiled
 by its own `nvcc` into `src/repro_torch/kernels/_build/variants/` (git
-ignores it), all at once, and loaded with ctypes beside the unchanged
-library (`base`).
+ignores it), all at once, with the source's headers beside it, and loaded
+with ctypes beside the unchanged library (`base`).
 
-For every `rms_norm` and `flash_decode` case of chip_smoke.py each variant
+For every `rms_norm`, `swiglu` and `flash_decode` case of chip_smoke.py, and
+`swiglu` at gemma3-4b's widths at the row counts where its row and tile
+paths meet (`SWIGLU_ROWS`), each variant
 is held against the plain version at chip_smoke's tolerance; at every case
 chip_smoke times, the variants and the source are timed in turns (each
 variant, the source, the source, each variant again) with chip_smoke's
@@ -29,8 +32,9 @@ read from `torch.profiler`.  With `--step`, the device ms of one
 full-width gemma3-4b decode step (chip_smoke's `device_step_ms`, a CUDA
 graph) at the main path's 2 slots x 64 and at the long 8 slots x 4096 is
 taken with each variant's kernels in the wrappers' place, in the same
-turns.  One JSON line per variant, then the library times and the card's
-name and power limit.  Needs one CUDA card.
+turns.  `--only=KERNEL` (`rms_norm`, `swiglu` or `flash_decode`) keeps
+that kernel's cases alone.  One JSON line per variant, then the library
+times and the card's name and power limit.  Needs one CUDA card.
 """
 import ctypes
 import json
@@ -46,7 +50,80 @@ sys.path.insert(0, ROOT)
 
 CSRC = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc")
 OUT = os.path.join(ROOT, "src", "repro_torch", "kernels", "_build", "variants")
-FD, RN = "flash_decode.cu", "rmsnorm.cu"
+FD, RN, SW = "flash_decode.cu", "rmsnorm.cu", "swiglu.cu"
+# C function of each kernel file, and the kernel chip_smoke names it by
+ENTRY = {FD: "flash_decode_f32", RN: "rmsnorm_f32", SW: "swiglu_f32"}
+KERNEL = {"flash_decode": FD, "rms_norm": RN, "swiglu": SW}
+# swiglu row counts timed beside chip_smoke's (16, 48, 128, 256, 4096): the
+# threshold between the row kernel and the tiles lies among them
+SWIGLU_ROWS = (9, 12, 32, 64)
+SW_CVT_SPLIT = """
+__device__ __forceinline__ void split_cvt(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  const float rest = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
+}
+__device__ __forceinline__ repro::FragA frag_a_cvt(float a0, float a1, float a2,
+                                                   float a3) {
+  repro::FragA f;
+  split_cvt(a0, f.hi[0], f.lo[0]);
+  split_cvt(a1, f.hi[1], f.lo[1]);
+  split_cvt(a2, f.hi[2], f.lo[2]);
+  split_cvt(a3, f.hi[3], f.lo[3]);
+  return f;
+}
+__device__ __forceinline__ repro::FragB frag_b_cvt(float b0, float b1) {
+  repro::FragB f;
+  split_cvt(b0, f.hi[0], f.lo[0]);
+  split_cvt(b1, f.hi[1], f.lo[1]);
+  return f;
+}
+"""
+SW_SUM2_HELPER = """
+__device__ __forceinline__ void mma3_acc(float (&d)[4], const repro::FragA& a,
+                                         const repro::FragB& b) {
+  repro::mma_tf32(d, a.lo, b.hi);
+  repro::mma_tf32(d, a.hi, b.lo);
+  repro::mma_tf32(d, a.hi, b.hi);
+}
+"""
+SW_SUM2_BODY = """#pragma unroll
+    for (int ks = 0; ks < kK / 8; ks += 2) {
+      repro::FragA a[2][MT];
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          if (FULL || i < mt_act) {
+            const float* ap = xs + (wrow + 16 * i + g) * LDX + 8 * (ks + s) + t;
+            a[s][i] = repro::frag_a(ap[0], ap[8 * LDX], ap[4], ap[8 * LDX + 4]);
+          }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        repro::FragB bg[2], bu[2];
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const int bo = (8 * (ks + s) + t) * LDW + wcol + 8 * j + g;
+          bg[s] = repro::frag_b(gs[bo], gs[bo + 4 * LDW]);
+          bu[s] = repro::frag_b(us[bo], us[bo + 4 * LDW]);
+        }
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          if (FULL || i < mt_act) {
+            float p[4];
+            repro::mma3_zero(p, a[0][i], bg[0]);
+            mma3_acc(p, a[1][i], bg[1]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) cg[i][j][e] += p[e];
+            repro::mma3_zero(p, a[0][i], bu[0]);
+            mma3_acc(p, a[1][i], bu[1]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) cu[i][j][e] += p[e];
+          }
+      }
+    }
+  };
+"""
 VARIANTS = {
     "base": {},
     # the split policy: units of 64 keys per split
@@ -65,6 +142,44 @@ VARIANTS = {
     # rms_norm: rows (warps) per block
     "rms_2_rows": {RN: {r"kRows = 4;": "kRows = 2;"}},
     "rms_8_rows": {RN: {r"kRows = 4;": "kRows = 8;"}},
+    # swiglu's tile path: the rings' depth; the k-steps of a chunk not
+    # unrolled; both parts split by cvt.rna; 64 x 128 tiles in the middle
+    # rows; 128 x 128 tiles from one wave of blocks
+    "sw_stages2": {SW: {r"(using Tile\d+ = Tile<\d, \d, \d, \d, )3,":
+                        r"\g<1>2,"}},
+    "sw_stages4": {SW: {r"(using Tile\d+ = Tile<\d, \d, \d, \d, )3,":
+                        r"\g<1>4,"}},
+    "sw_rolled": {SW: {r"#pragma unroll\n    for \(int ks":
+                       "#pragma unroll 1\n    for (int ks"}},
+    "sw_cvt_split": {SW: {
+        r"repro::frag_a\(": "frag_a_cvt(", r"repro::frag_b\(": "frag_b_cvt(",
+        r"// Tag: every m16 tile": SW_CVT_SPLIT + "// Tag: every m16 tile"}},
+    "sw_mid_64x128": {SW: {r"using Tile64 = Tile<2, 2, 2, 4, 3, 2>;":
+                           "using Tile64 = Tile<2, 2, 4, 4, 3, 1>;"}},
+    "sw_big_sooner": {SW: {r"big < 2 \* 132\)": "big < 132)"}},
+    "sw_mid_tile32": {SW: {r"if \(n <= 32\) return": "if (n <= 128) return"}},
+    "sw_tile64_1blk": {SW: {r"using Tile64 = Tile<2, 2, 2, 4, 3, 2>;":
+                            "using Tile64 = Tile<2, 2, 2, 4, 3, 1>;"}},
+    # two k-steps (six products) in each zero-started sum: half the adds
+    "sw_sum2": {SW: {
+        r"(?s)#pragma unroll\n    for \(int ks = 0; ks < kK / 8; \+\+ks\) \{.*?\n  \};\n":
+        SW_SUM2_BODY,
+        r"// Tag: every m16 tile": SW_SUM2_HELPER + "// Tag: every m16 tile"}},
+    # diagnostics (the output is wrong): one chained accumulator, no fp32
+    # adds; the ring streams, no products; the products, no loads
+    "sw_chain": {SW: {
+        r"repro::mma3_zero\(p, a\[i\], (b[gu])\);\n#pragma unroll\n"
+        r"            for \(int e = 0; e < 4; \+\+e\) (c[gu])\[i\]\[j\]\[e\]"
+        r" \+= p\[e\];":
+        r"repro::mma_tf32(\2[i][j], a[i].lo, \1.hi); "
+        r"repro::mma_tf32(\2[i][j], a[i].hi, \1.lo); "
+        r"repro::mma_tf32(\2[i][j], a[i].hi, \1.hi);"}},
+    "sw_no_compute": {SW: {r"    if \(mt_act == MT\)\n      chunk\(Full<true>\{\}, xs\);\n"
+                           r"    else if \(mt_act > 0\)":
+                           "    if (mt_act < 0)\n      chunk(Full<true>{}, xs);\n"
+                           "    else if (mt_act < 0)"}},
+    "sw_no_load": {SW: {r"    if \(kc < nk\) \{\n      float\* xs":
+                        "    if (kc < 0) {\n      float* xs"}},
 }
 
 
@@ -81,7 +196,7 @@ def variant_sources(name: str) -> dict[str, str]:
         for path in name[5:].split(","):
             with open(path) as f:
                 src = f.read()
-            out[FD if "flash_decode_f32" in src else RN] = src
+            out[next(k for k, fn in ENTRY.items() if fn in src)] = src
         return out
     out = {}
     for fname, subs in VARIANTS[name].items():
@@ -104,7 +219,9 @@ def build(names):
             continue
         d = os.path.join(OUT, re.sub(r"\W", "_", name))
         os.makedirs(d, exist_ok=True)
-        shutil.copy(os.path.join(CSRC, "common.cuh"), d)
+        for h in os.listdir(CSRC):
+            if h.endswith(".cuh"):
+                shutil.copy(os.path.join(CSRC, h), d)
         files = []
         for fname, src in variant_sources(name).items():
             with open(os.path.join(d, fname), "w") as f:
@@ -129,19 +246,22 @@ def build(names):
 
 
 class Kernels:
-    """The wrappers' library with a variant's `rmsnorm_f32` and
-    `flash_decode_f32` in place of the source's, called with the wrappers'
-    arguments (the scratch the wrapper sized from the base is left unused):
-    a split-K variant gets the scratch its own split count needs, an older
-    one the interface it had."""
+    """The wrappers' library with a variant's `rmsnorm_f32`, `swiglu_f32`
+    and `flash_decode_f32` in place of the source's, called with the
+    wrappers' arguments (the scratch the wrapper sized from the base is left
+    unused): a split-K variant gets the scratch its own split count needs,
+    an older one the interface it had."""
 
     def __init__(self, base, lib):
         self.base, self.lib, self.keep = base, lib, None
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         self.has_rn = hasattr(lib, "rmsnorm_f32")
+        self.has_sw = hasattr(lib, "swiglu_f32")
         self.has_fd = lib.interface is not None
         if self.has_rn:
             lib.rmsnorm_f32.argtypes = [P, P, P, I, I, F, P]
+        if self.has_sw:
+            lib.swiglu_f32.argtypes = [P, P, P, P, I, I, I, P]
         if lib.interface == "split":
             lib.flash_decode_scratch_floats.argtypes = [I] * 4
             lib.flash_decode_scratch_floats.restype = ctypes.c_longlong
@@ -154,6 +274,13 @@ class Kernels:
 
     def rmsnorm_f32(self, *args):
         return (self.lib if self.has_rn else self.base).rmsnorm_f32(*args)
+
+    def swiglu_f32(self, *args):
+        return (self.lib if self.has_sw else self.base).swiglu_f32(*args)
+
+    def has(self, kernel: str) -> bool:
+        return {"rms_norm": self.has_rn, "swiglu": self.has_sw,
+                "flash_decode": self.has_fd}[kernel]
 
     def flash_decode_f32(self, q, k, v, out, part, qoff, kpos, b, sk, hq, hkv,
                          d, window, prefix_len, scale, causal, stream):
@@ -173,6 +300,18 @@ class Kernels:
             q, k, v, out, part, qoff, kpos, b, sk, hq, hkv, d, *mask, stream)
 
 
+def swiglu_cases(torch):
+    """chip_smoke.kernel_cases' tuples for swiglu at gemma3-4b's widths at
+    SWIGLU_ROWS rows, timed."""
+    g = torch.Generator(device="cuda").manual_seed(99)
+    d, f = 2560, 10240
+    wg, wi = (torch.randn(d, f, generator=g, device="cuda") * d ** -0.5
+              for _ in range(2))
+    return [("swiglu", f"[{n},{d}]x[{d},{f}]",
+             dict(x=torch.randn(n, d, generator=g, device="cuda"), wg=wg,
+                  wi=wi), False, True) for n in SWIGLU_ROWS]
+
+
 def using(kernels):
     """Point the wrappers at `kernels` (a Kernels or the base library)."""
     from repro_torch.kernels import build as kb
@@ -189,11 +328,13 @@ def main(argv) -> int:
     from repro_torch.kernels import flash_attention as _fa
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as _rn
+    from repro_torch.kernels import swiglu as _sw
     from repro_torch.models import common  # noqa: F401  (turns TF32 off)
     from torch.profiler import ProfilerActivity, profile
 
     step = "--step" in argv
-    argv = [a for a in argv if a != "--step"]
+    only = [a.split("=", 1)[1] for a in argv if a.startswith("--only=")]
+    argv = [a for a in argv if a != "--step" and not a.startswith("--only=")]
     names = ["base"] + [n for n in (argv or VARIANTS) if n != "base"]
     base = kb.library()
     libs = build(names)
@@ -210,16 +351,18 @@ def main(argv) -> int:
     x = torch.ones(16 * 1024 * 1024, device="cuda")
     res["base"]["sum_64MiB_ms"] = timer(x.sum)
     del x
-    plain = {"rms_norm": ref.rms_norm, "flash_decode": ref.attention}
-    wrap = {"rms_norm": _rn.rms_norm, "flash_decode": _fa.flash_decode}
+    plain = {"rms_norm": ref.rms_norm, "swiglu": ref.swiglu,
+             "flash_decode": ref.attention}
+    wrap = {"rms_norm": _rn.rms_norm, "swiglu": _sw.swiglu,
+            "flash_decode": _fa.flash_decode}
     library = {}
-    for name, label, a, main_shape, timed in cs.kernel_cases(torch, 64):
-        if name not in wrap:
+    for name, label, a, main_shape, timed in (
+            cs.kernel_cases(torch, 64) + swiglu_cases(torch)):
+        if name not in wrap or (only and name not in only):
             continue
         want = cs.run_kernel(torch, plain, name, a)
         tol = cs.TOL[name] * max(float(want.abs().max()), 1.0)
-        users = [n for n in names if n == "base"
-                 or (kern[n].has_rn if name == "rms_norm" else kern[n].has_fd)]
+        users = [n for n in names if n == "base" or kern[n].has(name)]
         for n in users:
             using(kern[n])
             got = cs.run_kernel(torch, wrap, name, a)
