@@ -7,14 +7,17 @@ Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/` and
 holds each against its plain PyTorch version at its path's full-width
 shapes, with an empty kernel's launch timed as the floor under them (the
 serving kernels also at a long serving shape: 8 slots of a 4096-row cache;
-`swiglu` also at 16 to 4096 rows, where its tensor-core tiles run).
+`swiglu` also at 16 to 4096 rows, where its tensor-core tiles run;
+`flash_decode` also at starcoder2-3b's 12-head GQA groups).
 Then it drives both of the port's paths on the card:
 
 * serving: gemma3-4b at full width (random weights drawn on the card from
   a seed) through the continuous-batching loop, the device time of one
   decode step there and at 8 slots x 4096 (a second `service` line, beside
   its bytes floor), the card against the CPU at 2 layers, and a hot weight
-  swap;
+  swap; then starcoder2-3b at full width and all 30 layers through the
+  same loop and one-shot `generate` (equal tokens), its decode step's
+  device time and kernels, and its card against the CPU at 2 layers;
 * training: ViT-B/16 at full width with Local AdamW under the QSR schedule
   through `train()` (W = 4 workers, 32 images each, 10 rounds), the flat
   layout with the quantized sync for 2 rounds, and the card against the
@@ -33,7 +36,14 @@ Then it drives both of the port's paths on the card:
   x 4 sequences of 1024 tokens from the built-in token stream, the training
   CLI's recipe, 8 steps), at its full 30 layers (W = 1, remat) for 2 steps,
   and the card against the CPU at 2 layers; on the card `rms_norm` and
-  `swiglu` refuse autograd (they have no backward kernel).
+  `swiglu` refuse autograd (they have no backward kernel);
+* checkpoints: ViT-B/16's W = 4 state saved in the tree layout after 2
+  rounds and resumed in the flat layout, bitwise the run without the
+  checkpoint, with save and restore rates; and train to serve: starcoder2-3b
+  at 2 layers trained with the async observer, which checkpoints and
+  publishes the consensus into a directory a live server watches; the
+  server swaps it in mid-sequence, and its tokens equal a restart's.  The
+  checkpoint directories live under `_ckpt/` and are deleted after.
 
 Each path runs with the kernels' launch counters set to 0 just before it
 and read just after, and fails unless every kernel of the path ran.  One
@@ -47,8 +57,10 @@ before printing a result.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -131,6 +143,21 @@ LM_RUN = dict(schedule="qsr", optimizer="adamw", total_steps=LM_STEPS,
 LM_TRACE = [(t, 2) for t in range(0, LM_STEPS, 2)]
 LM_PARAMS = {2: 342_915_072, 30: 3_029_710_848}
 LM_LEAVES = 13                  # tree leaves: the AdamW launches per step
+# starcoder2-3b's decode attention (GQA 12: 24 query heads over 2 kv heads
+# of 128, every layer windowed at 4096) at the main serving step and the
+# long one, as flash_decode kernel rows
+SC2_HEADS, SC2_KV, SC2_HD, SC2_WINDOW = 24, 2, 128, 4096
+SC2_DECODE = (
+    f"starcoder2-3b q[{SLOTS},1,24,128] kv[{SLOTS},64,2,128] w4096 p0",
+    f"starcoder2-3b q[{LONG_SLOTS},1,24,128] kv[{LONG_SLOTS},{LONG_LEN},2,"
+    "128] w4096 p0 q_offset (s+1)512-1")
+# train to serve: starcoder2-3b at 2 layers trained W = 2 x 1 x 256 for 4
+# steps (2 rounds, a checkpoint and a publish at each), served from a watch
+# directory by 2 slots
+T2S_W, T2S_B, T2S_SEQ, T2S_STEPS = 2, 1, 256, 4
+# checkpoint directories: under the checkout, listed in .gitignore, deleted
+# after the run
+CKPT_ROOT = os.path.join(ROOT, "_ckpt")
 # one-shot generate (gemma3-4b): prompts x prompt tokens, new tokens; and
 # the timed prefill
 GEN_B, GEN_PLEN, GEN_NEW = 4, 32, 16
@@ -249,18 +276,19 @@ def kernel_cases(torch, main_len: int):
         sw(n, d, f, main)
 
     def fd(b, sk, *, window, prefix_len=0, ring=False, main=False, timed=True,
-           qoff=None, note=""):
+           qoff=None, note="", heads=(hq, hkv, hd), arch=""):
+        nq, nkv, dh = heads
         kpos = None
         if ring:        # a ring after wrap-around, with empty (-1) slots
             kpos = torch.arange(sk, device="cuda", dtype=torch.int32) + 300
             kpos[: sk // 8] = -1
-        label = (f"q[{b},1,{hq},{hd}] kv[{b},{sk},{hkv},{hd}] w{window}"
+        label = (f"{arch}q[{b},1,{nq},{dh}] kv[{b},{sk},{nkv},{dh}] w{window}"
                  f" p{prefix_len}{' ring' if ring else ''}{note}")
         hi = sk + 300 if ring else sk
         qo = ragged(b, hi) if qoff is None else torch.tensor(
             qoff, dtype=torch.int32, device="cuda")
-        args = dict(q=rnd(b, 1, hq, hd), k=rnd(b, sk, hkv, hd),
-                    v=rnd(b, sk, hkv, hd), window=window,
+        args = dict(q=rnd(b, 1, nq, dh), k=rnd(b, sk, nkv, dh),
+                    v=rnd(b, sk, nkv, dh), window=window,
                     prefix_len=prefix_len, q_offset=qo, k_positions=kpos)
         cases.append(("flash_decode", label, args, main, timed))
 
@@ -286,6 +314,15 @@ def kernel_cases(torch, main_len: int):
     fd(4, 1089, window=0, ring=True, timed=False, qoff=[1388, 900, 100, 310],
        note=" dead row")
     fd(SLOTS, main_len, window=1024, main=True)
+    # starcoder2-3b (g = 12, the G = 16 instance): its serving step and the
+    # long step, timed; g = 12 past the split cap and through a ring, not
+    sc2 = dict(heads=(SC2_HEADS, SC2_KV, SC2_HD), arch="starcoder2-3b ")
+    fd(SLOTS, main_len, window=SC2_WINDOW, **sc2)
+    fd(LONG_SLOTS, LONG_LEN, window=SC2_WINDOW, qoff=LONG_POS,
+       note=" q_offset (s+1)512-1", **sc2)
+    fd(4, 4097, window=1000, prefix_len=7, timed=False,
+       qoff=[4096, 2000, -1, 3], **sc2)
+    fd(4, 700, window=300, ring=True, timed=False, **sc2)
     # swiglu's tile path (from 9 rows): prefills of 16 to 128 rows, timed;
     # edges one past a tile (9, 129, 4097 rows), and D = 98, a k-tail that
     # is neither a multiple of the 32-wide chunk nor of 4
@@ -935,14 +972,14 @@ def device_step_ms(torch, cfg, weights, slots, max_len, positions,
     return ev[0].elapsed_time(ev[1]) / reps
 
 
-def phase_card_vs_cpu(torch, np):
-    """gemma3-4b widths at 2 layers: same weights on the card (kernels) and
+def phase_card_vs_cpu(torch, np, arch=ARCH):
+    """`arch`'s widths at 2 layers: same weights on the card (kernels) and
     on the CPU (plain versions), teacher-forced decode steps."""
     from repro_torch.configs import registry as R
     from repro_torch.launch import weights as W
     from repro_torch.models import api
 
-    cfg = dataclasses.replace(R.get_config(ARCH), n_layers=2)
+    cfg = dataclasses.replace(R.get_config(arch), n_layers=2)
     mod = api.get_module(cfg)
     card = W.ServingWeights.from_seed(cfg, 3, device="cuda")
     host = card.spec.unflatten({b: v.cpu() for b, v in card.bufs.items()})
@@ -972,7 +1009,8 @@ def phase_card_vs_cpu(torch, np):
             agree += int((same & sure).sum())
     check(worst <= tol, f"card vs CPU logits differ by {worst} > {tol}")
     check(agree == decided, f"greedy tokens differ: {agree}/{decided}")
-    emit("card_vs_cpu", layers=cfg.n_layers, d_model=cfg.d_model,
+    emit("card_vs_cpu", arch=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model,
          vocab=cfg.vocab, steps=n_steps, batch=b, max_abs_logit_err=worst,
          tol=tol, greedy_agree=agree, greedy_decided=decided)
     del card, cpu, caches
@@ -1012,6 +1050,297 @@ def phase_hot_swap(torch, np):
           f"post-swap {req.out[3:]} != restart {rref.out}")
     emit("hot_swap", arch=cfg.name, tokens=req.out, epochs=req.epochs,
          restart_tokens=rref.out, match=True)
+
+
+def phase_service_starcoder2(torch, np):
+    """starcoder2-3b at full width and all 30 layers (random weights from
+    seed 0 on the card) through the continuous-batching loop: 2 slots, the
+    4 requests of PROMPT_LENS, MAX_NEW new tokens each, with the launch
+    counts at 0 just before and read just after; then one-shot `generate`
+    of GEN_B prompts, its tokens equal to the `--slots 2` service's; then
+    the device time of one decode step (a CUDA graph) beside its bytes
+    floor and its launches: flash_decode once a layer (g = 12, the G = 16
+    instance), no rms_norm or swiglu (LayerNorm and GELU).  Returns (the
+    service's counts, generate's counts)."""
+    from repro_torch.configs import registry as R
+    from repro_torch.kernels import ops
+    from repro_torch.launch import weights as W
+    from repro_torch.launch.serve import generate, run_service
+    from repro_torch.models import api
+
+    cfg = R.get_config(LM_ARCH)
+    n_l = cfg.n_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    weights = W.ServingWeights.from_seed(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(b.numel() for b in weights.bufs.values())
+    check(n_params == LM_PARAMS[30], f"starcoder2-3b has {n_params} params")
+    prompts = prompts_for(cfg, np)
+    max_len = max(PROMPT_LENS) + MAX_NEW
+
+    ops.reset_launch_counts()             # the path: counts at 0 ...
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs, audit = run_service(cfg, weights, prompts, slots=SLOTS,
+                              max_new=MAX_NEW, max_len=max_len)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()          # ... read just after
+    steps = audit["decode_steps"]
+    check(all(r.done and len(r.out) == MAX_NEW for r in reqs),
+          "starcoder2 service: not every request finished with its tokens")
+    want = {k: 0 for k in counts}
+    want.update(flash_decode=n_l * steps)
+    check(counts == want, f"starcoder2 service: launches {counts} != {want}")
+
+    rng = np.random.default_rng(13)
+    gp = rng.integers(0, cfg.vocab, (GEN_B, GEN_PLEN), dtype=np.int32)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = generate(cfg, weights.as_tree(), gp, gen_len=GEN_NEW)
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    gen_counts = ops.launch_counts()
+    want = {k: 0 for k in gen_counts}
+    want.update(flash_attention_fwd=n_l, flash_decode=n_l * GEN_NEW)
+    check(gen_counts == want,
+          f"starcoder2 generate: launches {gen_counts} != {want}")
+    got = toks[:, GEN_PLEN:].cpu().tolist()
+    check(tuple(toks.shape) == (GEN_B, GEN_PLEN + GEN_NEW),
+          f"starcoder2 generate: tokens of shape {tuple(toks.shape)}")
+    sreqs, _ = run_service(cfg, weights, list(gp), slots=SLOTS,
+                           max_new=GEN_NEW, max_len=GEN_PLEN + GEN_NEW)
+    for r in sreqs:
+        check(r.out == got[r.rid], f"starcoder2 generate row {r.rid}: "
+              f"{got[r.rid]} != the --slots {SLOTS} service's {r.out}")
+
+    ops.reset_launch_counts()
+    device_ms = device_step_ms(torch, cfg, weights, SLOTS, max_len,
+                               [max_len // 2, max_len - 1], count=True)
+    step_counts = {k: v for k, v in ops.launch_counts().items() if v}
+    check(step_counts == dict(flash_decode=n_l),
+          f"starcoder2 decode step launches {step_counts}")
+    # one eager decode step's kernels by name (torch.profiler)
+    mod = api.get_module(cfg)
+    cache = mod.init_cache(cfg, SLOTS, max_len, device="cuda")
+    tok = torch.zeros(SLOTS, dtype=torch.long, device="cuda")
+    pos = torch.tensor([max_len // 2, max_len - 1], dtype=torch.int32,
+                       device="cuda")
+    with torch.no_grad():
+        mod.decode_step(cfg, weights.as_tree(), tok, cache, pos)
+        prof = profile_device_ms(torch, lambda: mod.decode_step(
+            cfg, weights.as_tree(), tok, cache, pos), top=16)
+    del cache
+    w_bytes = sum(b.numel() * b.element_size() for b in weights.bufs.values())
+    kv_bytes = 2 * n_l * SLOTS * max_len * cfg.n_kv_heads * cfg.hd * 4
+    floor_ms = (w_bytes + kv_bytes) / PEAK_BYTES_PER_S * 1e3
+    tokens = audit["tokens_emitted"]
+    emit("service_starcoder2", arch=cfg.name, layers=n_l,
+         d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+         head_dim=cfg.hd, params=n_params, weight_bytes=w_bytes,
+         weight_init_s=init_s, slots=SLOTS, requests=len(reqs),
+         prompt_lens=list(PROMPT_LENS), max_new=MAX_NEW, decode_steps=steps,
+         tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+         ms_per_step=wall / steps * 1e3, device_ms_per_step=device_ms,
+         device_busy_share=device_ms / (wall / steps * 1e3),
+         step_bytes=w_bytes + kv_bytes, floor_ms_datasheet=floor_ms,
+         floor_share=floor_ms / device_ms, launches=counts,
+         launches_per_step=step_counts, profiled_step=prof,
+         generate_wall_s=gen_wall,
+         generate_tokens_per_s=GEN_B * GEN_NEW / gen_wall,
+         generate_launches=gen_counts, generate_equals_slots_service=True,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del weights, reqs, sreqs, toks
+    torch.cuda.empty_cache()
+    return counts, gen_counts
+
+
+def ckpt_path(name: str) -> str:
+    """A fresh checkpoint directory under CKPT_ROOT."""
+    path = os.path.join(CKPT_ROOT, name)
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
+def tensor_bytes(torch, tree) -> int:
+    from repro_torch import tree as T
+    return sum(x.numel() * x.element_size() for x in T.leaves(tree)
+               if isinstance(x, torch.Tensor))
+
+
+def phase_ckpt_resume(torch, np):
+    """ViT-B/16 at full width (slice 2's recipe, W = 4): 2 QSR rounds in
+    the tree layout, saved (`RoundEngine.save`, fsyncs included), restored
+    into a flat engine (the cross-layout route), 1 more round; its state
+    bitwise equal to the same 3 rounds without the checkpoint (the tree
+    state converted to the flat layout in memory).  Save and restore
+    rates in GB/s of the state's bytes; the restore reads a file the save
+    just wrote (the page cache may hold it)."""
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.core import flat, schedules
+    from repro_torch.optim.lr import make_lr_fn
+
+    cfg, run, _, _, tree_eng = train_setup(torch)
+    lr_fn = make_lr_fn(run)
+    state, t = tree_eng.init_state(), 0
+    for _ in range(2):
+        h = schedules.get_h(run, t, lr_fn)
+        state, _ = tree_eng.run_round(state, t, h, lr_fn)
+        t += h
+    path = ckpt_path("vit")
+    nbytes = tensor_bytes(torch, state)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree_eng.save(path, state, step=t)
+        save_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(os.path.join(path, "state.msgpack"))
+        check(ckpt_io.read_meta(path)[1]["layout"] == "tree",
+              "ckpt_resume: the checkpoint is not in the tree layout")
+        # without the checkpoint: the live state converted in memory
+        _, _, _, _, eng_a = train_setup(torch, layout="flat")
+        st_a = flat.to_flat_state(eng_a._ensure_spec(
+            T.map(lambda x: x[0], state["params"])), state)
+        eng_a.h_trace = list(tree_eng.h_trace)
+        del state
+        _, _, _, _, eng_b = train_setup(torch, layout="flat")
+        like = eng_b.init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st_b, step = eng_b.restore(path, like)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del like
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    check(step == t and eng_b.h_trace == tree_eng.h_trace,
+          f"ckpt_resume: restored at {step}, trace {eng_b.h_trace}")
+    check(states_equal(torch, st_a, st_b),
+          "ckpt_resume: the restored state is not bitwise the saved one")
+    h = schedules.get_h(run, t, lr_fn)
+    st_a, m_a = eng_a.run_round(st_a, t, h, lr_fn)
+    st_b, m_b = eng_b.run_round(st_b, t, h, lr_fn)
+    check(states_equal(torch, st_a, st_b)
+          and all(bool(torch.equal(m_a[k], m_b[k])) for k in m_a),
+          "ckpt_resume: the resumed round is not bitwise the uninterrupted")
+    emit("ckpt_resume", arch=cfg.name, workers=W, params=VIT_PARAMS,
+         rounds=[list(r) for r in eng_b.h_trace], saved_at=t,
+         state_bytes=nbytes, file_bytes=file_bytes, save_s=save_s,
+         save_gb_per_s=nbytes / save_s / 1e9, restore_s=restore_s,
+         restore_gb_per_s=nbytes / restore_s / 1e9,
+         layouts="tree -> flat", resumed_bitwise=True,
+         loss_round3=float(m_b["loss"]))
+    del st_a, st_b, eng_a, eng_b, tree_eng
+    torch.cuda.empty_cache()
+
+
+def phase_train_to_serve(torch, np):
+    """The train-to-serve contract at starcoder2-3b's full width, 2 layers.
+    A server (2 slots, weights from seed 5) decodes a request until it has
+    3 tokens; then `train()` (W = 2 x 1 x 256, 4 steps, the LM recipe)
+    runs with `async_observer`: its observer thread `fanout`s the
+    checkpoint writer and, as `eval_fn`, `publish_weights` of the
+    consensus into the server's watch directory, after every round.  The
+    server goes on: it polls the directory, swaps the newest weights in
+    mid-sequence, and its post-swap tokens equal a server restarted from
+    `load_weights` of that directory.  The written checkpoint restores
+    bitwise to the run's final state.  Publish and load rates in GB/s of
+    the weights."""
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import io as ckpt_io
+    from repro_torch.kernels import ops
+    from repro_torch.launch import weights as W_
+    from repro_torch.launch.batching import ContinuousBatcher, Request
+    from repro_torch.launch.train import train
+
+    cfg, run, eng = lm_engine(n_layers=2, workers=T2S_W, b_loc=T2S_B,
+                              seq=T2S_SEQ, total_steps=T2S_STEPS)
+    watch, ckpt = ckpt_path("watch"), ckpt_path("train")
+    publish_s, published = [], []
+
+    def publish(t, state):                # on the observer's thread
+        t0 = time.perf_counter()
+        W_.publish_weights(watch, T.map(lambda x: x[0], state["params"]),
+                           step=t)
+        publish_s.append(time.perf_counter() - t0)
+        published.append(t)
+
+    try:
+        like = W_.params_like(cfg)
+        sub = W_.WeightSubscriber(watch_dir=watch, like=like)
+        server = ContinuousBatcher(
+            cfg, W_.ServingWeights.from_seed(cfg, 5, device="cuda"),
+            slots=SLOTS, max_len=48, subscriber=sub)
+        prompt = np.random.default_rng(21).integers(0, cfg.vocab, 8,
+                                                    dtype=np.int32)
+        req = Request(rid=0, prompt=prompt, max_new=12)
+        server.submit(req)
+        while len(req.out) < 3:
+            server.step()
+        check(server.swaps == 0, "train_to_serve: swapped before training")
+
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, hist = train(cfg, run, workers=T2S_W, b_loc=T2S_B,
+                            seq=T2S_SEQ, data="host", eng=eng,
+                            ckpt_dir=ckpt, async_observer=True,
+                            eval_fn=publish, log_every=0)
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        check(hist[-1][0] == T2S_STEPS and published[-1] == T2S_STEPS,
+              f"train_to_serve: rounds {hist}, published {published}")
+
+        server.run()
+        check(req.done and server.swaps == 1,
+              f"train_to_serve: {server.swaps} swaps")
+        ep = server.weights.epochs[-1]
+        check(ep.step == T2S_STEPS and ep.source == f"watch:{watch}"
+              and req.epochs == [0] * 3 + [1] * (len(req.out) - 3),
+              f"train_to_serve: swap {ep}, epochs {req.epochs}")
+        t0 = time.perf_counter()
+        params, step, extra = W_.load_weights(watch, like)
+        load_s = time.perf_counter() - t0
+        check(step == T2S_STEPS and extra["kind"] == W_.WEIGHTS_KIND,
+              f"train_to_serve: published step {step}, extra {extra}")
+        restart = ContinuousBatcher(
+            cfg, W_.ServingWeights(cfg, params, step=step, device="cuda"),
+            slots=SLOTS, max_len=48)
+        rref = Request(rid=0, prompt=np.concatenate(
+            [prompt, np.asarray(req.out[:3], np.int32)]),
+            max_new=len(req.out) - 3)
+        restart.submit(rref)
+        restart.run()
+        check(rref.out == req.out[3:],
+              f"train_to_serve: post-swap {req.out[3:]} != restart "
+              f"{rref.out}")
+        back, ck_step = eng.restore(ckpt, state)
+        check(ck_step == T2S_STEPS and states_equal(torch, back, state),
+              "train_to_serve: the observer's checkpoint does not restore "
+              "to the final state")
+        w_bytes = tensor_bytes(torch, params)
+        ck_bytes = os.path.getsize(os.path.join(ckpt, "state.msgpack"))
+    finally:
+        shutil.rmtree(watch, ignore_errors=True)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    emit("train_to_serve", arch=cfg.name, layers=cfg.n_layers,
+         params=LM_PARAMS[2], workers=T2S_W, b_loc=T2S_B, seq=T2S_SEQ,
+         steps=T2S_STEPS, rounds=[list(r) for r in eng.h_trace],
+         train_wall_s=train_wall, launches=counts, published_steps=published,
+         weight_bytes=w_bytes, publish_s=publish_s,
+         publish_gb_per_s=[w_bytes / x / 1e9 for x in publish_s],
+         load_s=load_s, load_gb_per_s=w_bytes / load_s / 1e9,
+         checkpoint_file_bytes=ck_bytes, tokens=req.out, epochs=req.epochs,
+         restart_tokens=rref.out, post_swap_equals_restart=True,
+         checkpoint_restores_final_state=True)
+    del state, back, params, server, restart, eng
+    torch.cuda.empty_cache()
+    return counts
 
 
 # ---------------------------------------------------------- training -------
@@ -1902,11 +2231,14 @@ def main() -> int:
     from repro_torch.models import common  # noqa: F401  (turns TF32 off)
 
     smi = nvidia_smi()
+    # whether this machine has msgpack: nothing uses it (the checkpoints
+    # are read and written by repro_torch/checkpoint/wire.py)
     emit("env", gpu=smi, torch=torch.__version__, cuda=torch.version.cuda,
          device_name=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count(),
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
-         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+         msgpack_importable=importlib.util.find_spec("msgpack") is not None)
 
     t0 = time.perf_counter()
     build.library()
@@ -1939,6 +2271,10 @@ def main() -> int:
     add(gen, SERVING_KERNELS + ("flash_attention_fwd",))
     phase_card_vs_cpu(torch, np)
     phase_hot_swap(torch, np)
+    serve, gen = phase_service_starcoder2(torch, np)
+    add(serve, ("flash_decode",))
+    add(gen, ("flash_decode", "flash_attention_fwd"))
+    phase_card_vs_cpu(torch, np, LM_ARCH)
     add(phase_train(torch, np), TRAINING_KERNELS[:3])
     flat, flat_state = phase_train_flat_quantized(torch, np)
     add(flat, ("sync_flat_update",))
@@ -1954,6 +2290,12 @@ def main() -> int:
     add(phase_train_lm(torch, np), TRAINING_KERNELS[:3])
     phase_train_lm_full_depth(torch, np)
     phase_train_lm_card_vs_cpu(torch, np)
+    # checkpoints: resume across layouts, and train to serve
+    try:
+        phase_ckpt_resume(torch, np)
+        add(phase_train_to_serve(torch, np), TRAINING_KERNELS[:3])
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     check(all(counts[k] > 0 for k in SOURCES),
           f"a kernel of a path never launched: {counts}")
 
@@ -1970,6 +2312,7 @@ def main() -> int:
         "rms_norm": [f"[{PREFILL_B * PREFILL_LEN},2560]"],
         "swiglu": [f"[{n},2560]x[2560,10240]"
                    for n in (16, 48, 128, 256, PREFILL_B * PREFILL_LEN)],
+        "flash_decode": list(SC2_DECODE),
         "flash_attention_fwd": [LM_TRAIN_ATTN, *PREFILL_ATTN],
         "flash_attention_bwd": [LM_TRAIN_ATTN]}
     kernels = []

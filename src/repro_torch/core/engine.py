@@ -38,9 +38,16 @@ The ring-int8 wire (`RunConfig.sync_wire`) composes with blocking and
 overlap on the flat layout.  `membership_epoch` also resizes the worker
 axis (lanes leave or join) through the tree layout.
 
+Checkpoints (`save` / `restore`) are the reference's files
+(`checkpoint/io.py`): the state, its step and `checkpoint_extra()` (the
+H-trace, W and the layout record), so a resumed run lands on the next round
+boundary, and `restore` converts a checkpoint written under the other
+layout through the tree layout.
+
 Anything else of the reference — device data (drawn from `jax.random`
 inside the jitted round: no twin), flat_sharded, meshes, adaptive batch,
-checkpoints — raises `ConfigError("not ported yet")`.
+`save_sharded` / `restore_elastic` — raises `ConfigError("not ported
+yet")`.
 """
 from __future__ import annotations
 
@@ -52,6 +59,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.core import flat
 from repro_torch.core import local_update as LU
 from repro_torch.core.sync import (make_sync, make_sync_apply,
@@ -66,7 +74,8 @@ Tree = Any
 
 class PendingSyncError(RuntimeError):
     """An overlap-mode sync is still in flight where a synced state is
-    required (a real exception: asserts vanish under `python -O`)."""
+    required: a checkpoint or readout must never hold pre-consensus params
+    (a real exception: asserts vanish under `python -O`)."""
 
 
 class MembershipError(RuntimeError):
@@ -377,3 +386,87 @@ class RoundEngine:
         params_single = T.map(lambda x: x[0], tree_state["params"])
         return flat.to_flat_state(self._ensure_spec(params_single),
                                   tree_state)
+
+    # -- checkpointing ----------------------------------------------------
+
+    def checkpoint_extra(self) -> dict:
+        """The engine's checkpoint metadata: the H-trace (resume lands on a
+        round boundary), W and the param-layout record for cross-layout
+        restore.  The async observer captures it on the round loop's
+        thread at snapshot time: the trace keeps advancing while the
+        background writer runs."""
+        spec = self._ensure_spec() if self.layout != "tree" else None
+        return {"h_trace": [[t, h] for t, h in self.h_trace],
+                "workers": self.workers,
+                **ckpt_io.layout_meta(self.layout, spec)}
+
+    def save(self, path: str, state: Tree, *, step: int,
+             flush_pending: bool = False) -> None:
+        """Checkpoint the state with the engine's step and H-trace.  The
+        flat layout writes its buffers directly, one entry per dtype
+        bucket, with the layout recorded for cross-layout restore.
+
+        With an overlap sync in flight this raises PendingSyncError unless
+        `flush_pending=True`, which writes the synced view of `state` (the
+        consensus a blocking round would have produced) without consuming
+        the pending sync; `flush()` + save is the forced sync point."""
+        if self._pending is not None:
+            if not flush_pending:
+                raise PendingSyncError(
+                    "overlap sync in flight: save(flush_pending=True) "
+                    "writes the synced consensus without disturbing the "
+                    "pipeline, or flush() first for a forced sync point")
+            state = self.synced_view(state)
+        ckpt_io.save(path, state, step=step, extra=self.checkpoint_extra())
+
+    def restore(self, path: str, like_state: Tree) -> tuple[Tree, int]:
+        """Restore into this engine's layout, on `like_state`'s devices.
+        A checkpoint written under the other layout (tree <-> flat) is
+        converted on the way in through the tree layout; flatten and
+        unflatten are exact, so the resumed run stays bitwise.  Adopts the
+        checkpoint's H-trace and returns (state, step).
+
+        Refuses a live in-flight sync (it would orphan a round's reduce):
+        flush() first."""
+        if self._pending is not None:
+            raise PendingSyncError(
+                "restore() with an overlap sync in flight would orphan the "
+                "pending reduce: flush() the current state first")
+        _, meta = ckpt_io.read_meta(path)
+        ck_layout = meta.get("layout", "tree")
+        if ck_layout not in ("tree", "flat") or meta.get("shards"):
+            raise ConfigError(f"restoring a {ck_layout!r} checkpoint: not "
+                              "ported yet")
+        convert = ck_layout != self.layout
+        ck_spec = None
+        if convert:
+            tree_state = (like_state if self.layout == "tree"
+                          else flat.to_tree_state(self._ensure_spec(),
+                                                  like_state))
+            if ck_layout == "tree":
+                like = tree_state
+            else:
+                ck_spec = flat.FlatParamSpace(
+                    T.map(lambda x: x[0], tree_state["params"]))
+                like = flat.to_flat_state(ck_spec, tree_state)
+        else:
+            like = like_state
+        state, step, extra = ckpt_io.restore_with_meta(path, like)
+        if convert:
+            if ck_spec is not None:
+                state = flat.to_tree_state(ck_spec, state)
+            if self.layout != "tree":
+                state = flat.to_flat_state(self._ensure_spec(), state)
+        return state, self._adopt_trace(extra, step)
+
+    def _adopt_trace(self, extra: dict, step) -> int:
+        trace = [(int(t), int(h)) for t, h in extra.get("h_trace", [])]
+        step = int(step or 0)
+        if trace:
+            done = trace[-1][0] + trace[-1][1]
+            if done != step:
+                raise ValueError(
+                    f"checkpoint step {step} is not the round boundary "
+                    f"implied by its H-trace (ends at {done})")
+        self.h_trace = trace
+        return step

@@ -32,7 +32,7 @@ from repro_torch.errors import ShapeError
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import attention as plain  # noqa: F401
 
-_MAX_G = 8          # query heads per kv head the kernel holds in registers
+_MAX_G = 16         # query heads per kv head (csrc/flash_decode.cu kMaxG)
 _MAX_D = 1024       # head dim: one float4 column per thread of 256
 _FA_HEAD_DIMS = (32, 64, 128, 256)  # head dims flash_attention.cu is built for
 DECODE_SPLIT_KEYS = 64   # flash_decode's split boundaries: multiples of this

@@ -97,13 +97,14 @@ class ContinuousBatcher:
     # -- hot weight swap ----------------------------------------------------
 
     def maybe_swap(self) -> bool:
-        """The swap point, between decode steps.  Takes the newest published
-        weights (if any) from the subscriber, swaps the flat buckets in
-        place, and REFRESHES every in-flight sequence: cursor and cache lane
-        reset so the known tokens replay through the slot-local prefill
-        under the new weights."""
+        """The swap point, between decode steps.  Polls the subscriber's
+        watch dir, takes the newest published weights (if any), swaps the
+        flat buckets in place, and REFRESHES every in-flight sequence:
+        cursor and cache lane reset so the known tokens replay through the
+        slot-local prefill under the new weights."""
         if self.subscriber is None:
             return False
+        self.subscriber.poll()
         got = self.subscriber.take()
         if got is None:
             return False

@@ -12,15 +12,20 @@
 Both serve `--batch` requests of `--prompt-len` random tokens on the card,
 with weights drawn on the device from `--seed`.  `--smoke` takes the arch's
 smoke config, `--device cpu` runs the plain versions on the CPU (the default
-is CUDA, and no card is an error).  With `--slots`, `--swap-demo` publishes
-fresh weights in process mid-decode and hot-swaps them, and `--audit FILE`
-writes the swap-epoch audit trail as JSON.  `--window > 0` (the ring-buffer
-cache and its ring prefill) is not ported yet.
+is CUDA, and no card is an error).  With `--slots`: `--watch DIR` polls DIR
+between decode steps for weights a training run published there
+(`launch/weights.py publish_weights`, for example from `train(...,
+async_observer=True)`) and hot-swaps them; `--swap-demo` publishes fresh
+weights into the watch dir (a temporary one without `--watch`) mid-decode;
+`--audit FILE` writes the swap-epoch audit trail as JSON.  `--window > 0`
+(the ring-buffer cache and its ring prefill) is not ported yet.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import shutil
+import tempfile
 import time
 
 import numpy as np
@@ -133,11 +138,14 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--slots", type=int, default=0,
                     help="decode slots of the continuous-batching loop")
+    ap.add_argument("--watch", default=None,
+                    help="poll this dir for published serving checkpoints "
+                         "and hot-swap them between decode steps")
     ap.add_argument("--audit", default=None,
                     help="write the swap-epoch audit JSON here")
     ap.add_argument("--swap-demo", action="store_true",
-                    help="publish fresh weights in process mid-decode and "
-                         "hot-swap them")
+                    help="publish fresh weights into the watch dir "
+                         "mid-decode and hot-swap them")
     args = ap.parse_args(argv)
     if args.window > 0:
         raise ConfigError("--window (the ring-buffer cache and its ring "
@@ -153,23 +161,14 @@ def main(argv=None):
         build.library()       # set-up: build/load the kernels before timing
     if args.slots <= 0:
         return _generate_main(cfg, weights, np.stack(prompts), args)
-    sub = None
-    hooks = []
-    if args.swap_demo:
-        sub = W.WeightSubscriber()
-        # fire after the first requests have cleared slot-local prefill and
-        # emitted a few tokens, so the swap lands mid-sequence and the audit
-        # shows tokens on both sides of it
-        trigger = args.prompt_len + max(2, args.gen // 2)
-        hooks.append((trigger, lambda b: sub.publish(1, W.ServingWeights.from_seed(
-            cfg, args.seed + 17, device=weights.device).as_tree())))
-
-    t0 = time.perf_counter()
-    reqs, audit = run_service(cfg, weights, prompts, slots=args.slots,
-                              max_new=args.gen, temperature=args.temperature,
-                              seed=args.seed, subscriber=sub, hooks=hooks)
-    dt = time.perf_counter() - t0
-    audit["wall_seconds"] = dt
+    watch, own_watch = args.watch, False
+    if args.swap_demo and watch is None:
+        watch, own_watch = tempfile.mkdtemp(prefix="repro-serve-watch-"), True
+    try:
+        reqs, audit, dt = _service(cfg, weights, prompts, watch, args)
+    finally:
+        if own_watch:
+            shutil.rmtree(watch, ignore_errors=True)
     done = sum(r.done for r in reqs)
     toks = sum(len(r.out) for r in reqs)
     print(f"served {done}/{len(reqs)} requests, {toks} tokens in {dt:.2f}s "
@@ -186,6 +185,30 @@ def main(argv=None):
             json.dump(audit, f, indent=2)
         print(f"swap-epoch audit -> {args.audit}")
     return audit
+
+
+def _service(cfg, weights, prompts, watch, args):
+    """The --slots loop, subscribed to `watch` (if any); with --swap-demo a
+    hook publishes fresh weights there mid-decode, as a training run
+    would.  Returns (requests, audit, wall seconds)."""
+    sub = None
+    hooks = []
+    if watch is not None:
+        sub = W.WeightSubscriber(watch_dir=watch, like=W.params_like(cfg))
+    if args.swap_demo:
+        fresh = W.ServingWeights.from_seed(cfg, args.seed + 17,
+                                           device=weights.device).as_tree()
+        # fire after the first requests have cleared slot-local prefill and
+        # emitted a few tokens, so the swap lands mid-sequence and the audit
+        # shows tokens on both sides of it
+        trigger = args.prompt_len + max(2, args.gen // 2)
+        hooks.append((trigger, lambda b: W.publish_weights(
+            watch, fresh, step=1, extra={"demo": True})))
+    t0 = time.perf_counter()
+    reqs, audit = run_service(cfg, weights, prompts, slots=args.slots,
+                              max_new=args.gen, temperature=args.temperature,
+                              seed=args.seed, subscriber=sub, hooks=hooks)
+    return reqs, audit, time.perf_counter() - t0
 
 
 def _generate_main(cfg, weights, prompts, args):

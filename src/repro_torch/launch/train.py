@@ -14,9 +14,12 @@ The CLI trains an LM on the built-in token stream, on the card unless
 
 Its flags and defaults are the reference's, with one difference: `--data`
 defaults to `host` (the reference's `device` draws its batches from
-`jax.random` inside the jitted round, which has no twin).  `--mesh`,
-`--param-layout flat_sharded`, `--ckpt`, `--async-observer`, `--schedule
-adaptive`, `--controller-trace` and `--frontier` raise
+`jax.random` inside the jitted round, which has no twin).  `--ckpt DIR`
+checkpoints the run into DIR (every `steps // 4` steps and at the end) and
+resumes from it when it holds one, in either layout; `--async-observer`
+writes the mid-run checkpoints from a background thread
+(`core/observer.py`).  `--mesh`, `--param-layout flat_sharded`,
+`--schedule adaptive`, `--controller-trace` and `--frontier` raise
 `ConfigError("not ported yet")`.
 
 From Python, any model the port trains (here ViT-B/16 on its image stream):
@@ -53,14 +56,23 @@ Under sync="partial", `eng.membership_epoch([1, 1, 0, 1])` before the run
 (or between rounds) sets which lanes the boundary mean takes.  Pass
 `device="cpu"` to RoundEngine to run any of these on the CPU.
 
-Checkpoints, the async observer and the adaptive controller are not ported
-yet (they raise).
+Train to serve: with `async_observer=True` an `eval_fn` runs on the
+observer's thread with the staged host state, so it can publish the
+consensus weights to a directory a server watches (`launch/weights.py`):
+
+    def publish(t, state):            # the worker-0 params of the snapshot
+        publish_weights(watch, T.map(lambda x: x[0], state["params"]),
+                        step=t)
+    train(cfg, run, ..., ckpt_dir=ckpt, async_observer=True, eval_fn=publish)
+
+The adaptive controller is not ported yet (it raises).
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.configs import registry as R
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import schedules
@@ -84,13 +96,22 @@ def train(cfg, run_cfg: RunConfig, *, workers: int, b_loc: int, seq: int,
     `device`.  `eval_fn(t, state)` runs after every round on the synced
     state (`eng.synced_view`: under overlap, the consensus of the pending
     sync, without consuming it).  The returned state is `eng.flush(state)`:
-    fully synced in every sync mode."""
-    for bad, what in ((ckpt_dir, "checkpoints"),
-                      (async_observer, "the async observer"),
-                      (run_cfg.schedule == "adaptive" or controller_trace
-                       or frontier, "the adaptive controller")):
-        if bad:
-            raise ConfigError(f"{what}: not ported yet")
+    fully synced in every sync mode.
+
+    `ckpt_dir`: the run resumes from the checkpoint there, if any (at its
+    round boundary, in either layout), writes one every
+    `total_steps // 4` steps (at the round boundaries that land on a
+    multiple) and the final state at the end.  Inline, a mid-run
+    checkpoint is a forced sync point under overlap (`flush`).
+
+    `async_observer=True` moves eval and the mid-run checkpoints off the
+    round loop: the synced view is submitted to an `AsyncObserver`, which
+    clones it on the device and hands it to its thread, where `eval_fn`
+    (with the host state) and the checkpoint writer run in that order
+    (`fanout`); a superseded snapshot's checkpoint request rides the newer
+    one.  The final checkpoint is written after the run's flush."""
+    if run_cfg.schedule == "adaptive" or controller_trace or frontier:
+        raise ConfigError("the adaptive controller: not ported yet")
     if eng is None:
         eng = RoundEngine(cfg, run_cfg, workers=workers, b_loc=b_loc,
                           seq=seq, seed=seed, mode=engine, data=data,
@@ -110,23 +131,72 @@ def train(cfg, run_cfg: RunConfig, *, workers: int, b_loc: int, seq: int,
     state = eng.init_state()
     lr_fn = make_lr_fn(run_cfg)
 
+    step0 = 0
+    if ckpt_dir and ckpt_io.exists(ckpt_dir):
+        state, step0 = eng.restore(ckpt_dir, state)
+        print(f"restored checkpoint at round boundary {step0} "
+              f"({len(eng.h_trace)} rounds done)")
+
+    observer = None
+    if async_observer and (eval_fn is not None or ckpt_dir):
+        from repro_torch.core.observer import AsyncObserver, fanout
+
+        def evaluate(step, snap):
+            if eval_fn is not None:
+                eval_fn(step, snap["state"])
+
+        def write(step, snap):
+            if snap.get("save"):
+                ckpt_io.save(ckpt_dir, snap["state"], step=step,
+                             extra=snap["extra"])
+        # a superseded snapshot's checkpoint request rides the newer one
+        # (the newer consensus is a strictly better checkpoint)
+        observer = AsyncObserver(
+            fanout(evaluate, write),
+            merge=lambda old, new: ({**new, "save": True}
+                                    if old.get("save") else new))
+
     history = []
     t_start = time.time()
-    t = 0
-    while t < run_cfg.total_steps:
-        h = schedules.get_h(run_cfg, t, lr_fn)
-        state, m = eng.run_round(state, t, h, lr_fn)
-        t += h
-        loss = float(m["loss"])
-        history.append((t, h, loss, lr_fn(t - 1)))
-        if log_every and (len(history) % log_every == 0):
-            print(f"step {t:6d}  H {h:4d}  lr {lr_fn(t-1):.5f}  "
-                  f"loss {loss:.4f}  |g| {float(m['grad_norm']):.3f}  "
-                  f"div {float(m['divergence']):.4f}  "
-                  f"({time.time()-t_start:.1f}s)")
-        if eval_fn is not None:
-            eval_fn(t, eng.synced_view(state))
-    return eng.flush(state), history
+    t = saved_at = step0
+    try:
+        while t < run_cfg.total_steps:
+            h = schedules.get_h(run_cfg, t, lr_fn)
+            state, m = eng.run_round(state, t, h, lr_fn)
+            t += h
+            loss = float(m["loss"])
+            history.append((t, h, loss, lr_fn(t - 1)))
+            if log_every and (len(history) % log_every == 0):
+                print(f"step {t:6d}  H {h:4d}  lr {lr_fn(t-1):.5f}  "
+                      f"loss {loss:.4f}  |g| {float(m['grad_norm']):.3f}  "
+                      f"div {float(m['divergence']):.4f}  "
+                      f"({time.time()-t_start:.1f}s)")
+            want_ckpt = bool(ckpt_dir) and \
+                t % max(run_cfg.total_steps // 4, 1) == 0
+            if observer is not None:
+                if eval_fn is not None or want_ckpt:
+                    # the synced consensus (pure view: the pending sync is
+                    # untouched), cloned on the device by submit
+                    observer.submit(t, {"state": eng.synced_view(state),
+                                        "save": want_ckpt,
+                                        "extra": eng.checkpoint_extra()})
+                    if want_ckpt:
+                        saved_at = t
+            else:
+                if eval_fn is not None:
+                    eval_fn(t, eng.synced_view(state))
+                if want_ckpt:
+                    # under overlap a checkpoint is a forced sync point
+                    state = eng.flush(state)
+                    eng.save(ckpt_dir, state, step=t)
+                    saved_at = t
+        state = eng.flush(state)
+    finally:
+        if observer is not None:
+            observer.close()
+    if ckpt_dir and saved_at != t:
+        eng.save(ckpt_dir, state, step=t)
+    return state, history
 
 
 def main(argv=None):
@@ -158,7 +228,9 @@ def main(argv=None):
                          "before the deferred sync applies (--sync overlap)")
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--policy", default="dp", choices=["dp", "fsdp"])
-    ap.add_argument("--async-observer", action="store_true")
+    ap.add_argument("--async-observer", action="store_true",
+                    help="mid-run checkpoints (and eval) on a background "
+                         "thread fed by the engine's synced_view")
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "sgd"])
     ap.add_argument("--quantize", action="store_true",
                     help="int8-quantized sync deltas; implied by --wire "
@@ -173,13 +245,13 @@ def main(argv=None):
     ap.add_argument("--peak-lr", type=float, default=3e-3)
     ap.add_argument("--alpha", type=float, default=0.002)
     ap.add_argument("--h-base", type=int, default=2)
-    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint directory: resumed from when it holds "
+                         "a checkpoint (either layout)")
     args = ap.parse_args(argv)
     for bad, flag in ((args.mesh, "--mesh"),
                       (args.param_layout == "flat_sharded",
                        "--param-layout flat_sharded"),
-                      (args.ckpt, "--ckpt"),
-                      (args.async_observer, "--async-observer"),
                       (args.schedule == "adaptive", "--schedule adaptive"),
                       (args.controller_trace, "--controller-trace"),
                       (args.frontier, "--frontier")):
@@ -199,12 +271,14 @@ def main(argv=None):
                       layout=args.param_layout, sync=args.sync,
                       overlap_depth=args.overlap_depth, device=args.device)
     state, hist = train(cfg, run_cfg, workers=args.workers, b_loc=args.batch,
-                        seq=args.seq, engine=args.engine, data=args.data,
-                        layout=args.param_layout, sync=args.sync,
-                        overlap_depth=args.overlap_depth, eng=eng)
+                        seq=args.seq, ckpt_dir=args.ckpt, engine=args.engine,
+                        data=args.data, layout=args.param_layout,
+                        sync=args.sync, overlap_depth=args.overlap_depth,
+                        async_observer=args.async_observer, eng=eng)
     losses = [loss for _, _, loss, _ in hist]
     if not losses:
-        print("nothing to do: 0 steps")
+        print("nothing to do: checkpoint already at "
+              f"step {run_cfg.total_steps}")
         return state, hist
     n_sync = len(hist)
     # the reference ends with its XLA compile-cache stats; PyTorch compiles

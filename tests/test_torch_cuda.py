@@ -138,6 +138,92 @@ def test_flash_decode_matches_plain(dev, case):
                                rtol=PROD_TOL, atol=PROD_TOL)
 
 
+# GQA groups of 9-16 query heads per kv head (the G = 16 instance; 12 is
+# starcoder2-3b's), through a window, a prefix and a ring cache, at Sk of
+# one key, one past two split units and one past the 64-split cap
+@pytest.mark.parametrize("sk", [1, 129, 4097])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("g", [9, 12, 16])
+def test_flash_decode_wide_groups_match_plain(dev, g, d, sk):
+    b, hkv = 3, 2
+    q, k, v = _t(60, b, 1, hkv * g, d), _t(61, b, sk, hkv, d), \
+        _t(62, b, sk, hkv, d)
+    ring = torch.arange(sk, dtype=torch.int32, device=dev) + 200
+    ring[2::5] = -1
+    for window, prefix, kpos, qoff in (
+            (100, 0, None, [sk - 1, sk // 2, 0]),
+            (0, 7, None, [sk - 1, sk // 3, -1]),
+            (300, 0, ring, [sk + 199, sk // 2 + 200, 150])):
+        kw = dict(window=window, prefix_len=prefix, k_positions=kpos,
+                  q_offset=torch.tensor(qoff, dtype=torch.int32, device=dev))
+        torch.testing.assert_close(t_fa.flash_decode(q, k, v, **kw),
+                                   tref.attention(q, k, v, **kw),
+                                   rtol=PROD_TOL, atol=PROD_TOL)
+
+
+# flash_decode at g <= 8 keeps the bits it had before the G = 16 instance
+# was added: sha256 (first 16 hex digits) of its outputs on the cases of
+# `decode_digest_cases`, taken on an NVIDIA H100 80GB HBM3 (CUDA 12.8) with
+# `python3 tools/decode_digests.py DIR` from the sources before that change
+# and equal from these (the instances for g <= 8 are not edited)
+DECODE_DIGESTS = {
+    (1, 64, 40): "f616c702b03c57a6",
+    (1, 64, 4097): "b8742c51f209b57d",
+    (1, 128, 40): "5cfd7c1852747f29",
+    (1, 128, 4097): "b1febe74bfe0fba2",
+    (1, 256, 40): "4b3f8c8bcafa11b0",
+    (1, 256, 4097): "dd1d641fc0d81464",
+    (2, 64, 40): "a0ead27ccb1d1629",
+    (2, 64, 4097): "2d68c7b2dff1a65b",
+    (2, 128, 40): "76ac57ae49ad95c4",
+    (2, 128, 4097): "d6a4a3acc8ae65c1",
+    (2, 256, 40): "d905c7bb11280a04",
+    (2, 256, 4097): "83fe3113c40e6a7b",
+    (4, 64, 40): "0c9aac6dcd3206c6",
+    (4, 64, 4097): "fcff50a83e87ce63",
+    (4, 128, 40): "4450d6fbe69470a5",
+    (4, 128, 4097): "63d515cf2d680c91",
+    (4, 256, 40): "192ba7876a89b337",
+    (4, 256, 4097): "48ed14c227b7a5f0",
+    (8, 64, 40): "922b61631ad28f16",
+    (8, 64, 4097): "77276d10a32f98b1",
+    (8, 128, 40): "689120bfc871feed",
+    (8, 128, 4097): "51778895feac6a91",
+    (8, 256, 40): "c2c849b23c78b230",
+    (8, 256, 4097): "df4ec6741ef1f868"}
+
+
+def decode_digest_cases():
+    """(g, d, sk) -> the flash_decode arguments whose output is digested."""
+    cases = {}
+    for g in (1, 2, 4, 8):
+        for d in (64, 128, 256):
+            for sk, window, prefix in ((40, 0, 0), (4097, 1000, 7)):
+                b, hkv = 3, 2
+                q, k, v = _t(40 + g, b, 1, hkv * g, d), \
+                    _t(41, b, sk, hkv, d), _t(42, b, sk, hkv, d)
+                qoff = torch.tensor([sk - 1, sk // 2, sk // 3],
+                                    dtype=torch.int32, device="cuda")
+                cases[g, d, sk] = (q, k, v, dict(window=window,
+                                                 prefix_len=prefix,
+                                                 q_offset=qoff))
+    return cases
+
+
+def decode_digest(q, k, v, kw) -> str:
+    import hashlib
+    out = t_fa.flash_decode(q, k, v, **kw).cpu().numpy()
+    return hashlib.sha256(out.tobytes()).hexdigest()[:16]
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_flash_decode_narrow_groups_keep_their_bits(dev, g):
+    for (cg, d, sk), (q, k, v, kw) in decode_digest_cases().items():
+        if cg == g:
+            assert decode_digest(q, k, v, kw) == DECODE_DIGESTS[g, d, sk], \
+                (d, sk)
+
+
 def test_flash_decode_no_valid_key_gives_mean_of_v(dev):
     q, k, v = _t(1, 2, 1, 4, 64), _t(2, 2, 37, 2, 64), _t(3, 2, 37, 2, 64)
     kpos = torch.full((37,), -1, dtype=torch.int32, device=dev)
@@ -194,7 +280,7 @@ def test_flash_decode_across_splits_matches_plain(dev, sk, mask):
                                rtol=PROD_TOL, atol=PROD_TOL)
 
 
-@pytest.mark.parametrize("g", [2, 8])
+@pytest.mark.parametrize("g", [2, 8, 12])
 @pytest.mark.parametrize("sk", [64, 257, 4097])
 def test_flash_decode_row_is_bitwise_independent_of_the_batch(dev, sk, g):
     """Each row of a batch of 8 (live, windowed, prefix and dead rows) gives
@@ -215,7 +301,7 @@ def test_flash_decode_row_is_bitwise_independent_of_the_batch(dev, sk, g):
             assert torch.equal(batched[i:i + 1], alone), (window, prefix, i)
 
 
-@pytest.mark.parametrize("g", [2, 8])
+@pytest.mark.parametrize("g", [2, 8, 12])
 @pytest.mark.parametrize("sk", [65, 257, 4097])
 @pytest.mark.parametrize("window,prefix", [(0, 0), (100, 0), (64, 30)])
 def test_flash_decode_never_reads_masked_tiles(dev, sk, window, prefix, g):
@@ -330,7 +416,7 @@ def test_wrappers_reject_bad_operands(dev):
         t_fa.flash_decode(_t(1, 1, 2, 2, 16), _t(2, 1, 3, 1, 16),
                           _t(3, 1, 3, 1, 16))
     with pytest.raises(ShapeError, match="query heads"):
-        t_fa.flash_decode(_t(1, 1, 1, 16, 16), _t(2, 1, 3, 1, 16),
+        t_fa.flash_decode(_t(1, 1, 1, 17, 16), _t(2, 1, 3, 1, 16),
                           _t(3, 1, 3, 1, 16))
 
 
@@ -733,3 +819,56 @@ def test_lm_local_step_on_card_matches_cpu(dev):
         assert int((d > 1e-5 * (1 + b.abs())).sum()) <= max(1, b.numel() //
                                                           2000)
         assert float(d.max()) <= 2 * 3e-3
+
+
+def test_checkpoint_round_trip_of_card_tensors(dev, tmp_path):
+    """Card tensors of every dtype the checkpoints carry go to the file
+    and back onto the card (or the host, as the `like` says) bitwise."""
+    from repro_torch.checkpoint import io as ckpt_io
+    tree = {"a": _t(1, 3, 5),
+            "b": {"i": torch.arange(7, dtype=torch.int32, device=dev) - 3,
+                  "l": torch.tensor(2**40, dtype=torch.int64, device=dev)},
+            "q": torch.arange(-4, 4, dtype=torch.int8, device=dev),
+            "u": torch.arange(9, dtype=torch.uint8, device=dev)}
+    ckpt_io.save(str(tmp_path), tree, step=3, extra={"x": [1, 2]})
+    for like in (T.map(torch.zeros_like, tree),
+                 T.map(lambda x: torch.zeros_like(x, device="cpu"), tree)):
+        got, step, extra = ckpt_io.restore_with_meta(str(tmp_path), like)
+        assert step == 3 and extra == {"x": [1, 2]}
+        for a, b, w in zip(T.leaves(tree), T.leaves(got), T.leaves(like)):
+            assert b.device == w.device and b.dtype == a.dtype
+            assert torch.equal(a.cpu(), b.cpu())
+
+
+def test_observer_snapshot_on_card_does_not_alias_the_next_round(dev):
+    """On the card the AdamW kernel updates the state in place: a snapshot
+    submitted after round r still holds round r's values when the worker
+    stages it after round r+1 has run."""
+    import threading
+
+    from repro_torch.core.observer import AsyncObserver
+    from repro_torch.optim.lr import make_lr_fn
+    cfg = TR.get_smoke_config("starcoder2-3b")
+    run = RunConfig(total_steps=8, peak_lr=3e-3, h_base=2, warmup_steps=1,
+                    remat=False)
+    eng = teng.RoundEngine(cfg, run, workers=2, b_loc=2, seq=8, data="host",
+                           layout="flat")
+    lr_fn = make_lr_fn(run)
+    state, _ = eng.run_round(eng.init_state(), 0, 2, lr_fn)
+    want = T.map(lambda x: x.cpu(), state)
+    gate, seen = threading.Event(), []
+
+    def handler(step, snap):
+        gate.wait(30)
+        seen.append(snap)
+
+    obs = AsyncObserver(handler)
+    obs.submit(2, state)
+    state, _ = eng.run_round(state, 2, 2, lr_fn)
+    moved = not all(torch.equal(a, b.cpu()) for a, b in
+                    zip(T.leaves(want), T.leaves(state)))
+    gate.set()
+    obs.close()
+    assert moved                     # round r+1 moved the state
+    for a, b in zip(T.leaves(want), T.leaves(seen[0])):
+        assert b.device.type == "cpu" and torch.equal(a, b)

@@ -224,6 +224,7 @@ EMU_CASES = [
     ("no-valid-key", 3, 130, 2, 2, 16, 64, 0, [-1, 260, 50], None),
     ("d256-long", 2, 700, 1, 2, 256, 0, 0, [699, 333], None),
     ("d1024", 2, 140, 1, 2, 1024, 20, 3, [139, 70], None),
+    ("gqa12", 2, 300, 2, 12, 32, 64, 5, [299, 100], None),
 ]
 
 

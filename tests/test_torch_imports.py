@@ -1,5 +1,6 @@
 """The port stands alone: no file of `src/repro_torch/`, and not
-`chip_smoke.py`, imports jax, jaxlib or the JAX package `repro`."""
+`chip_smoke.py`, imports jax, jaxlib, the JAX package `repro` or msgpack
+(the checkpoint files are read and written by `checkpoint/wire.py`)."""
 import ast
 import os
 import pathlib
@@ -11,7 +12,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 
 
 def _port_files():

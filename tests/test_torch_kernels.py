@@ -37,6 +37,7 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rmsnorm as t_rn
 from repro_torch.kernels import swiglu as t_sw
 from repro_torch.kernels import sync_update as t_su
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 RMS_TOL = 1e-5       # relative; fp32 mean-of-squares in another order
 PROD_TOL = 2e-5      # swiglu / attention: fp32 contractions in another order
@@ -102,6 +103,7 @@ DECODE_CASES = [
     ("ring", 2, 24, 2, 2, 16, 10, 0, [60, 45], 40),
     ("ring-prefix", 2, 29, 1, 4, 16, 10, 3, [70, 40], 0),
     ("scalar-offset", 2, 21, 2, 2, 16, 0, 0, 20, None),
+    ("gqa12-window", 2, 40, 2, 12, 32, 16, 3, [39, 20], None),
 ]
 
 

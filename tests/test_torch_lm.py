@@ -54,6 +54,7 @@ from repro_torch.models import common as tcm
 from repro_torch.models import param as tpm
 from repro_torch.models import transformer as ttf
 from repro_torch.optim import lr as tlr
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 LOGIT_TOL = 1e-5
 GRAD_TOL = 2e-5
@@ -394,7 +395,7 @@ def test_train_cli_equals_train(capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--mesh", "4x2"], ["--param-layout", "flat_sharded"],
-    ["--ckpt", "ckpt_dir"], ["--async-observer"], ["--schedule", "adaptive"],
+    ["--schedule", "adaptive"],
     ["--controller-trace", "trace.json"], ["--frontier", "f.json"]])
 def test_train_cli_unported_flags_raise(flags):
     with pytest.raises(ConfigError, match="not ported yet"):

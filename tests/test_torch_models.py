@@ -25,6 +25,7 @@ from repro_torch.launch.weights import ServingWeights
 from repro_torch.models import api as tapi
 from repro_torch.models import common as tcm
 from repro_torch.models import param as tpm
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 LOGIT_TOL = 1e-4
 ARCH = "gemma3-4b"

@@ -29,6 +29,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.launch import weights as W
 from repro_torch.launch.batching import ContinuousBatcher, Request
 from repro_torch.models import param as tpm
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ARCH = "gemma3-4b"
 

@@ -74,6 +74,7 @@ from repro_torch.kernels import sync_update as t_su
 from repro_torch.launch import train as ttrain
 from repro_torch.models import param as tpm
 from repro_torch.optim import lr as tlr
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 W, B_LOC, N_CLASSES = 4, 4, 16
 ELEM_TOL = 1e-6

@@ -60,6 +60,7 @@ from repro_torch.launch import train as ttrain
 from repro_torch.models import param as tpm
 from repro_torch.optim import lr as tlr
 from repro_torch.optim import optimizers as topt
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 W, B_LOC, N_CLASSES = 4, 8, 16
 STEP_TOL = 1e-5
@@ -342,9 +343,9 @@ def test_unported_training_options_raise():
     with pytest.raises(ConfigError, match="not ported yet"):
         tsync.make_sync(TRun(sync_quantize=True),
                         spec=types.SimpleNamespace(mesh=object()))
-    with pytest.raises(ConfigError, match="not ported yet"):
+    with pytest.raises(ConfigError, match="controller: not ported yet"):
         ttrain.train(tcfg, run, workers=2, b_loc=2, seq=1, data="host",
-                     ckpt_dir="/nonexistent", device="cpu")
+                     controller_trace="trace.json", device="cpu")
 
 
 def test_engine_refuses_to_run_on_cpu_unasked(monkeypatch):

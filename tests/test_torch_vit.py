@@ -26,6 +26,7 @@ from repro_torch.models import api as tapi
 from repro_torch.models import common as tcm
 from repro_torch.models import param as tpm
 from repro_torch.models import vit as tvit
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 LOGIT_TOL = 1e-5
 GRAD_TOL = 2e-5
