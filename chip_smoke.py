@@ -86,7 +86,8 @@ PROMPT_LENS = (16, 48, 32, 24)        # 4 requests, 16-48 tokens: slots recycle
 # tolerances x max(|plain|, 1): fp32 sums in another order (the attention
 # gradients go through two more contractions); AdamW's bias-correction pow
 # may differ by an ulp; the quantized sync is held bitwise
-# (the unquantized sync sums fp32 deltas in another order: 1e-6); the
+# (the unquantized sync sums fp32 deltas in another order: 1e-6, and is
+# held bitwise against its ops in lane order); the
 # split sync's apply and the ring's combine and quantize are held bitwise
 TOL = {"rms_norm": 1e-5, "swiglu": 2e-5, "flash_decode": 2e-5,
        "flash_attention_fwd": 2e-5, "flash_attention_bwd": 5e-5,
@@ -205,12 +206,16 @@ class Timer:
         self.flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
                                  device="cuda")
 
-    def __call__(self, fn) -> float:
+    def __call__(self, fn, setup=None) -> float:
+        """`setup`, when given, runs before each timed launch's flush,
+        outside the events (an in-place kernel's inputs restored)."""
         torch = self.torch
         for _ in range(3):
             fn()
         pairs = []
         for _ in range(self.iters):
+            if setup is not None:
+                setup()
             self.flush.zero_()
             torch.cuda._sleep(2_000_000)          # ~1 ms of GPU clock cycles
             s = torch.cuda.Event(enable_timing=True)
@@ -676,35 +681,45 @@ def phase_training_kernels(torch):
     p = anchor[None] + rnd(W, n, std=1e-3)
     scale = (rnd(n).abs_() + 0.1) * 3e-3
     mu0 = rnd(n, std=1e-4)
-    for quantize, momentum in ((True, 0.0), (False, 0.0), (True, 0.9),
-                               (False, 0.9)):
+    # the four modes at W = 4, and the main mode at W = 2 (its own instance)
+    for w, quantize, momentum in ((W, True, 0.0), (W, False, 0.0),
+                                  (W, True, 0.9), (W, False, 0.9),
+                                  (2, True, 0.0)):
+        pw = p[:w]
         kw = dict(scale=scale if quantize else None,
                   mu=mu0 if momentum else None, momentum=momentum)
-        label = (f"[{W},{n}] quantize {'on' if quantize else 'off'} "
+        label = (f"[{w},{n}] quantize {'on' if quantize else 'off'} "
                  f"momentum {momentum}")
-        want = ref.sync_flat_update(p, anchor, **kw)
+        want = ref.sync_flat_update(pw, anchor, **kw)
         got = _su.sync_flat_update(
-            p.clone(), anchor.clone(), scale=kw["scale"],
+            pw.clone(), anchor.clone(), scale=kw["scale"],
             mu=None if kw["mu"] is None else mu0.clone(), momentum=momentum)
+        # the same ops lane by lane in the kernel's order 0..W-1: bitwise
+        in_order = ref.sync_flat_update_lane_order(pw, anchor, **kw)
         torch.cuda.synchronize()
         err = max(float((x - y).abs().max()) for x, y in zip(got, want)
                   if y is not None)
         if quantize:        # integer codes, no FMA: bitwise
             check(err == 0.0, f"sync_flat_update {label}: not bitwise "
                   f"({err})")
+        lane_order = all(x is None or torch.equal(x, y)
+                         for x, y in zip(got, in_order))
+        check(lane_order, f"sync_flat_update {label}: not bitwise its ops "
+              "in lane order")
         row = check_row("sync_flat_update", label, err,
-                        float(want[0].abs().max()), quantize and not momentum,
-                        bitwise=err == 0.0)
-        del want, got
-        pk, ak = p.clone(), anchor.clone()
+                        float(want[0].abs().max()),
+                        w == W and quantize and not momentum,
+                        bitwise=err == 0.0, bitwise_lane_order=lane_order)
+        del want, got, in_order
+        pk, ak = pw.clone(), anchor.clone()
         muk = None if kw["mu"] is None else mu0.clone()
-        words = 2 * W + 2 + quantize + 2 * (momentum > 0)
+        words = 2 * w + 2 + quantize + 2 * (momentum > 0)
         timed_row(row, timer,
                   lambda: _su.sync_flat_update(pk, ak, scale=kw["scale"],
                                                mu=muk, momentum=momentum),
-                  lambda: ref.sync_flat_update(p, anchor, **kw), None,
-                  4.0 * n * words, n * (W * (5.0 if quantize else 2.0) + 6))
-        if quantize and not momentum:
+                  lambda: ref.sync_flat_update(pw, anchor, **kw), None,
+                  4.0 * n * words, n * (w * (5.0 if quantize else 2.0) + 6))
+        if row["main_path_shape"]:
             summary["sync_flat_update"] = row
         emit("kernel_check", **row)
         del pk, ak, muk
@@ -1513,13 +1528,18 @@ def phase_train_flat_quantized(torch, np):
     scratch = T.map(torch.clone, state)     # the fused sync works in place
     with torch.no_grad():
         ms = sync_ms(torch, lambda: sync(scratch))
+        # where one blocking int8 sync's device time goes: the per-tensor
+        # scales (core/sync.py flat_delta_scales: the [W, N] delta, abs,
+        # amax over the lanes, segment_max per leaf, spread) and the kernel
+        profile = profile_device_ms(torch, lambda: sync(scratch), top=16,
+                                    by_op=True)
     emit("train_flat_quantized", arch=eng.cfg.name, layout="flat",
          buckets=list(eng.spec.sizes.items()), sync_quantize=True,
          rounds=[dict(t_end=t, h=h, loss=loss,
                       divergence=float(m["divergence"]))
                  for (t, h, loss, _), m in zip(hist, eng.round_metrics)],
          wall_s=wall, launches=counts, lanes_equal_anchor=True,
-         sync_wall_ms=ms[0], sync_device_ms=ms[1])
+         sync_wall_ms=ms[0], sync_device_ms=ms[1], sync_profile=profile)
     del eng, scratch
     torch.cuda.empty_cache()
     return counts, state
@@ -1862,23 +1882,46 @@ def lm_step_flops(cfg, seqs: int, seq: int) -> float:
     return 3.0 * lm_forward_flops(cfg, seqs, seq)
 
 
-def profile_device_ms(torch, fn, top: int = 12) -> dict:
+def profile_device_ms(torch, fn, top: int = 12, by_op: bool = False) -> dict:
     """Device time by kernel name over one call of `fn`, from
     torch.profiler's CUDA activity: the sum over every kernel and the `top`
-    names by time."""
+    names by time.  With `by_op` also the device time of the kernels each
+    aten op launched itself (not through a nested op), and the device span
+    from the first kernel's start to the last one's end (kernels and the
+    gaps between), over a second call after one profiled as warm-up: a
+    profile that starts with the call can miss its first kernels."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+                 if by_op else None) as prof:
+        for _ in range(2 if by_op else 1):
+            fn()
+            torch.cuda.synchronize()
+            if by_op:
+                prof.step()
+    averages = prof.key_averages()
+    # with a schedule the step's own range shows as a device row: skip it
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
+                   for e in averages
                    if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), key=lambda r: -r[1])
-    return {"kernel_ms": sum(r[1] for r in rows),
-            "top": [dict(name=n[:100], ms=ms, calls=c)
-                    for n, ms, c in rows[:top]]}
+                   and e.self_device_time_total > 0
+                   and not e.key.startswith("ProfilerStep")),
+                  key=lambda r: -r[1])
+    out = {"kernel_ms": sum(r[1] for r in rows),
+           "top": [dict(name=n[:100], ms=ms, calls=c)
+                   for n, ms, c in rows[:top]]}
+    if by_op:
+        spans = [e.time_range for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        out["span_ms"] = (max(s.end for s in spans)
+                          - min(s.start for s in spans)) / 1e3
+        out["ops"] = {e.key: dict(ms=e.self_device_time_total / 1e3,
+                                  calls=e.count)
+                      for e in averages
+                      if e.device_type == DeviceType.CPU
+                      and e.self_device_time_total > 0}
+    return out
 
 
 def lm_setup(n_layers, **run_overrides):

@@ -14,15 +14,28 @@
 // 3) x 4 bytes quantized without momentum, against a handful of FLOPs per
 // lane, so it is bound by device-memory bytes.  At ViT-B (86.3 M elements, W
 // = 4) that is 3.80 GB, 1.13 ms at 3.35 TB/s.
-// Design: one grid-stride pass; thread i owns element i of every lane, so it
-// reads the W lanes (coalesced across the warp), reduces them in registers in
-// the fixed order 0..W-1, and writes the new anchor to all W lanes: every
-// byte moves once and nothing is allocated.  Quantized, the codes
-// clip(rint(d / s * 127)) are integers, so their sum is exact in any order;
-// rintf rounds halves to even as torch.round and jnp.round do.  Every op is
-// rounded on its own (__fsub_rn / __fdiv_rn / __fmul_rn / __fadd_rn) so nvcc
-// contracts nothing into an FMA: the quantized sync is then bitwise equal to
-// its plain version (repro_torch/kernels/ref.py sync_flat_update).
+// Design: thread v owns vector v of every operand (a float4 when n % 4 ==
+// 0 and every pointer is 16-byte aligned, one float otherwise), so a warp's
+// accesses are coalesced and every byte moves once.  W is a template
+// argument (one instance each for W = 1..8): a thread issues the anchor's,
+// the scale's, mu's and every lane's load before any arithmetic, W + 2 (W +
+// 3 with mu) 16-byte loads in flight.  W > 8 takes one instance that walks
+// the lanes in groups of 8, loads first within each group.  One block of
+// 256 threads per 256 vectors, no grid-stride loop: blocks retire and new
+// ones start as the memory system drains them.  A resident grid walking the
+// buffer in a grid-stride loop streamed slower on an H100 80GB HBM3 at 700 W
+// (1.52 against 1.28 ms at ViT-B W = 4, PERF.md), and no cache hint won
+// (tools/kernel_variants.py).  The op sequence is
+// fixed: per lane __fsub_rn, then (when quantized) __fdiv_rn by the scale,
+// __fmul_rn by 127, rintf and the clip, then __fadd_rn into the lane sum in
+// the order 0..W-1, __fdiv_rn by W, and apply_one below, which
+// sync_apply_kernel runs too.  Every op is rounded on its own, so nvcc
+// contracts nothing into an FMA: the quantized sync is bitwise its plain
+// version (repro_torch/kernels/ref.py sync_flat_update; the codes are
+// integers, so their sum is exact in any order, and rintf rounds halves to
+// even as torch.round and jnp.round do), and the unquantized one bitwise
+// the same ops taken lane by lane in that order (ref.py
+// sync_flat_update_lane_order).
 //
 // 2. sync_apply_update_f32, out of place: the gather-leg apply of the split
 // sync (overlap, partial and ring-int8): dequantize the worker-mean codes,
@@ -53,39 +66,6 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void __launch_bounds__(kThreads)
-sync_flat_kernel(float* __restrict__ p, float* __restrict__ anchor,
-                 const float* __restrict__ scale, float* __restrict__ mu,
-                 long long n, int w, float momentum) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const float wf = static_cast<float>(w);
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const float a = anchor[i];
-    float acc = 0.f, step;
-    if (scale != nullptr) {
-      const float s = scale[i];
-      for (int lane = 0; lane < w; ++lane) {
-        const float d = __fsub_rn(p[static_cast<size_t>(lane) * n + i], a);
-        const float code = fminf(fmaxf(rintf(__fmul_rn(__fdiv_rn(d, s), 127.f)), -127.f), 127.f);
-        acc = __fadd_rn(acc, code);
-      }
-      step = __fmul_rn(__fdiv_rn(acc, wf), __fdiv_rn(s, 127.f));
-    } else {
-      for (int lane = 0; lane < w; ++lane)
-        acc = __fadd_rn(acc, __fsub_rn(p[static_cast<size_t>(lane) * n + i], a));
-      step = __fdiv_rn(acc, wf);
-    }
-    if (mu != nullptr) {
-      const float mu1 = __fadd_rn(__fmul_rn(momentum, mu[i]), step);
-      mu[i] = mu1;
-      step = __fadd_rn(__fmul_rn(momentum, mu1), step);     // Nesterov
-    }
-    const float a1 = __fadd_rn(a, step);
-    anchor[i] = a1;
-    for (int lane = 0; lane < w; ++lane) p[static_cast<size_t>(lane) * n + i] = a1;
-  }
-}
-
 template <bool kQuant, bool kMom>
 __device__ __forceinline__ float apply_one(float step, float a, float s, float mu,
                                            float& mu1, float momentum) {
@@ -95,6 +75,99 @@ __device__ __forceinline__ float apply_one(float step, float a, float s, float m
     step = __fadd_rn(__fmul_rn(momentum, mu1), step);     // Nesterov
   }
   return __fadd_rn(a, step);
+}
+
+constexpr int kFlatThreads = 256;
+constexpr int kLaneGroup = 8;       // lanes a W > 8 instance loads at once
+
+// Every global access of the flat sync goes through these two (the cache
+// hints tools/kernel_variants.py times are edits of them).
+template <typename T>
+__device__ __forceinline__ T ld_global(const T* p) { return *p; }
+template <typename T>
+__device__ __forceinline__ void st_global(T* p, T v) { *p = v; }
+
+// V = 4 floats of one operand as a float4, or V = 1 as a float.
+template <int V>
+__device__ __forceinline__ void load(const float* src, float (&x)[V]) {
+  if constexpr (V == 4) {
+    const float4 v = ld_global(reinterpret_cast<const float4*>(src));
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  } else {
+    x[0] = ld_global(src);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store(float* dst, const float (&x)[V]) {
+  if constexpr (V == 4)
+    st_global(reinterpret_cast<float4*>(dst), make_float4(x[0], x[1], x[2], x[3]));
+  else
+    st_global(dst, x[0]);
+}
+
+struct FlatArgs {
+  float* p;                 // [w, n]
+  float* anchor;            // [n]
+  const float* scale;       // [n] or null
+  float* mu;                // [n] or null
+  long long n;
+  int w;
+  float momentum;
+};
+
+// W lanes (W = 0: args.w, in groups of kLaneGroup), V floats an access;
+// thread v owns floats [v V, v V + V) of every operand.
+template <int W, int V, bool kQuant, bool kMom>
+__global__ void __launch_bounds__(kFlatThreads)
+sync_flat_kernel(const FlatArgs args) {
+  constexpr int G = W > 0 ? W : kLaneGroup;
+  float* __restrict__ p = args.p;
+  float* __restrict__ anchor = args.anchor;
+  const float* __restrict__ scale = args.scale;
+  float* __restrict__ mu = args.mu;
+  const long long n = args.n;
+  const int w = W > 0 ? W : args.w;
+  const float wf = static_cast<float>(w);
+  const long long v = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (v < n / V) {
+    const long long i = v * V;
+    float a[V], s[V] = {}, m[V] = {}, acc[V] = {};
+    load<V>(anchor + i, a);
+    if (kQuant) load<V>(scale + i, s);
+    if (kMom) load<V>(mu + i, m);
+    for (int l0 = 0; l0 < w; l0 += G) {
+      float x[G][V];
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+        if (W > 0 || l0 + j < w) load<V>(p + (l0 + j) * n + i, x[j]);
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+        if (W > 0 || l0 + j < w) {
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            float d = __fsub_rn(x[j][k], a[k]);
+            if (kQuant)
+              d = fminf(fmaxf(rintf(__fmul_rn(__fdiv_rn(d, s[k]), 127.f)), -127.f), 127.f);
+            acc[k] = __fadd_rn(acc[k], d);
+          }
+        }
+    }
+    float a1[V], m1[V] = {};
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      a1[k] = apply_one<kQuant, kMom>(__fdiv_rn(acc[k], wf), a[k], s[k], m[k], m1[k],
+                                      args.momentum);
+    store<V>(anchor + i, a1);
+    if (kMom) store<V>(mu + i, m1);
+    for (int l0 = 0; l0 < w; l0 += G)
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+        if (W > 0 || l0 + j < w) store<V>(p + (l0 + j) * n + i, a1);
+  }
 }
 
 template <bool kQuant, bool kMom>
@@ -126,21 +199,55 @@ sync_apply_kernel(const float* __restrict__ step, const float* __restrict__ anch
   }
 }
 
+template <int W, int V, bool kQuant, bool kMom>
+int launch_flat(const FlatArgs& args, cudaStream_t stream) {
+  const long long blocks = (args.n / V + kFlatThreads - 1) / kFlatThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  sync_flat_kernel<W, V, kQuant, kMom>
+      <<<static_cast<unsigned>(blocks), kFlatThreads, 0, stream>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int W, int V>
+int launch_mode(const FlatArgs& args, cudaStream_t stream) {
+  const bool quant = args.scale != nullptr, mom = args.mu != nullptr;
+  if (quant && mom) return launch_flat<W, V, true, true>(args, stream);
+  if (quant) return launch_flat<W, V, true, false>(args, stream);
+  if (mom) return launch_flat<W, V, false, true>(args, stream);
+  return launch_flat<W, V, false, false>(args, stream);
+}
+
+template <int V>
+int launch_w(const FlatArgs& args, cudaStream_t stream) {
+  switch (args.w) {
+    case 1: return launch_mode<1, V>(args, stream);
+    case 2: return launch_mode<2, V>(args, stream);
+    case 3: return launch_mode<3, V>(args, stream);
+    case 4: return launch_mode<4, V>(args, stream);
+    case 5: return launch_mode<5, V>(args, stream);
+    case 6: return launch_mode<6, V>(args, stream);
+    case 7: return launch_mode<7, V>(args, stream);
+    case 8: return launch_mode<8, V>(args, stream);
+    default: return launch_mode<0, V>(args, stream);
+  }
+}
+
 }  // namespace
 
 // p [w, n], anchor [n]: contiguous fp32.  scale [n] fp32 or null (no
 // quantization); mu [n] fp32 or null (no outer momentum; momentum > 0 iff mu
 // is given).  Updates p, anchor and mu in place on `stream`, allocates
-// nothing; returns the launch's cudaError_t.
+// nothing; returns the launch's cudaError_t.  Lane l starts at p + l * n,
+// so the float4 pass needs n % 4 == 0 as well as aligned pointers.
 extern "C" int sync_flat_update_f32(float* p, float* anchor, const float* scale,
                                     float* mu, long long n, int w, float momentum,
                                     void* stream) {
   if (n <= 0 || w <= 0) return 0;
-  const long long want = (n + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  sync_flat_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, anchor, scale, mu, n, w, momentum);
-  return static_cast<int>(cudaGetLastError());
+  const FlatArgs args{p, anchor, scale, mu, n, w, momentum};
+  auto s = static_cast<cudaStream_t>(stream);
+  const bool vec = n % 4 == 0 && repro::aligned(p, 16) && repro::aligned(anchor, 16) &&
+                   repro::aligned(scale, 16) && repro::aligned(mu, 16);
+  return vec ? launch_w<4>(args, s) : launch_w<1>(args, s);
 }
 
 // step_in, anchor [n] fp32, contiguous; scale [n] fp32 or null (step_in is

@@ -139,6 +139,27 @@ def sync_flat_update(p, anchor, *, scale=None, mu=None, momentum=0.0):
     return new_p, new_anchor, new_mu
 
 
+def sync_flat_update_lane_order(p, anchor, *, scale=None, mu=None,
+                                momentum=0.0):
+    """`sync_flat_update` with the worker sum taken lane by lane in the order
+    0..W-1, one tensor op at a time: the CUDA kernel's order.  The
+    unquantized mean sums fp32 deltas, whose bits depend on that order
+    (`sync_flat_update` sums in torch's); on the card the kernel is bitwise
+    this in every mode."""
+    acc = None
+    for lane in range(p.shape[0]):
+        d = p[lane].float() - anchor.float()
+        if scale is not None:
+            d = quantize_codes(d, scale)
+        acc = d if acc is None else acc + d
+    step = true_div(acc, float(p.shape[0]))
+    if scale is not None:
+        step = step * true_div(scale, 127.0)
+    new_anchor, new_mu = _outer_step(step, anchor, mu, momentum)
+    new_p = new_anchor[None].expand(p.shape).to(p.dtype).contiguous()
+    return new_p, new_anchor, new_mu
+
+
 def sync_apply_update(step_in, anchor, *, scale=None, mu=None, momentum=0.0):
     """The gather-leg apply: dequantize the worker-mean codes (when `scale`
     is given), outer Nesterov, anchor update.  Returns (new_anchor,

@@ -12,7 +12,8 @@ more contractions).  AdamW runs the plain version's op order with every op
 rounded on its own, but its bias correction's pow may differ by an ulp:
 1e-6.  The quantized sync, the split sync's apply and the ring's combine
 and quantize are held bitwise (integer codes, every op rounded on its own,
-no FMA).  Training on the card against the CPU: see
+no FMA); the unquantized sync bitwise too, against its ops taken lane by
+lane in the kernel's order.  Training on the card against the CPU: see
 `test_overlap_depth1_on_card_keeps_local_progress_and_matches_cpu`.
 """
 import dataclasses
@@ -564,6 +565,46 @@ def test_sync_flat_update_matches_plain(dev, w, n, quantize, momentum):
             assert torch.equal(x, y)
         else:               # the fp32 delta sum runs in another order
             torch.testing.assert_close(x, y, rtol=ELEM_TOL, atol=ELEM_TOL)
+
+
+
+# Every instance of the flat sync's kernel: W = 1..8 each its own, 9 and 16
+# the one that loads lanes in groups of 8; n % 4 = 0 takes the float4 pass
+# and 1..3 the scalar one, as does p at a storage offset of one float; n is
+# large enough that the resident grid walks the buffer more than once.
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5, 6, 7, 8, 9, 16])
+@pytest.mark.parametrize("r", [0, 1, 2, 3])
+@pytest.mark.parametrize("quantize,momentum", [(False, 0.0), (True, 0.0),
+                                               (False, 0.9), (True, 0.9)])
+def test_sync_flat_update_every_instance_keeps_its_bits(dev, w, r, quantize,
+                                                        momentum):
+    """Quantized: bitwise the plain version.  Unquantized: bitwise the same
+    ops taken lane by lane in the order 0..W-1 (`sync_flat_update_lane_order`,
+    each op its own torch kernel).  Two calls on equal inputs: equal bits."""
+    n = 1_200_000 + r
+    g = torch.Generator(device=dev).manual_seed(w * 10 + r)
+    anchor = torch.randn(n, generator=g, device=dev) * 0.02
+    p0 = anchor + torch.randn(w, n, generator=g, device=dev) * 1e-3
+    scale = ((torch.randn(n, generator=g, device=dev).abs() + 0.1) * 3e-3
+             if quantize else None)
+    mu = torch.randn(n, generator=g, device=dev) * 1e-4 if momentum else None
+    kw = dict(scale=scale, mu=mu, momentum=momentum)
+    plain = tref.sync_flat_update if quantize else \
+        tref.sync_flat_update_lane_order
+    want = plain(p0, anchor, **kw)
+    for off in (0, 1):
+        runs = []
+        for _ in range(2):
+            p = torch.empty(w * n + off, device=dev)[off:].view(w, n)
+            p.copy_(p0)
+            runs.append(t_su.sync_flat_update(
+                p, anchor.clone(), scale=scale,
+                mu=None if mu is None else mu.clone(), momentum=momentum))
+        for got in runs:
+            for x, y in zip(got, want):
+                assert (x is None and y is None) or torch.equal(x, y)
+        for x, y in zip(*runs):
+            assert (x is None and y is None) or torch.equal(x, y)
 
 
 def test_new_wrappers_reject_bad_operands(dev):

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Build variants of the serving kernels (`flash_decode`, `rms_norm`,
-`swiglu`) and time them side by side with the source.
+`swiglu`) and of the flat sync (`sync_flat_update`) and time them side by
+side with the source.
 
     python3 tools/kernel_variants.py [--step] [--only=KERNEL] \
         [VARIANT | file:PATH[,PATH] ...]
 
-A variant is `src/repro_torch/kernels/csrc/flash_decode.cu`, `rmsnorm.cu` or
-`swiglu.cu` with a few regex substitutions (`VARIANTS` below), or
-`file:PATH`, whole other sources of these kernels (which one: the C
+A variant is `src/repro_torch/kernels/csrc/flash_decode.cu`, `rmsnorm.cu`,
+`swiglu.cu` or `sync_update.cu` with a few regex substitutions (`VARIANTS`
+below), or `file:PATH`, whole other sources of these kernels (which one: the C
 function a source defines; several joined by commas form one variant), such
 as an earlier commit's, written out first with `git show REV:src/
 repro_torch/kernels/csrc/flash_decode.cu > _dev/fd.cu` (a copy of the tree
@@ -32,9 +33,18 @@ read from `torch.profiler`.  With `--step`, the device ms of one
 full-width gemma3-4b decode step (chip_smoke's `device_step_ms`, a CUDA
 graph) at the main path's 2 slots x 64 and at the long 8 slots x 4096 is
 taken with each variant's kernels in the wrappers' place, in the same
-turns.  `--only=KERNEL` (`rms_norm`, `swiglu` or `flash_decode`) keeps
-that kernel's cases alone.  One JSON line per variant, then the library
-times and the card's name and power limit.  Needs one CUDA card.
+turns.  `sync_flat_update` is held and timed at chip_smoke's rows (the four
+modes at [4, 86,332,648] and the quantized one at W = 2): quantized
+bitwise against the plain version, unquantized bitwise against its ops in
+lane order (`ref.sync_flat_update_lane_order`), timed in the same turns as
+chip_smoke times it (`ms`: the lanes already equal to the anchor after the
+first call) and on fresh deltas (`fresh_ms`: the lanes and anchor restored
+before each launch, outside the events), beside a copy of as many bytes
+(half read, half written) with the same `Timer`: the streaming rate this
+card reaches.  `--only=KERNEL` (`rms_norm`, `swiglu`, `flash_decode` or
+`sync_flat_update`) keeps that kernel's cases alone.  One JSON line per
+variant, then the library and copy times and the card's name and power
+limit.  Needs one CUDA card.
 """
 import ctypes
 import json
@@ -50,10 +60,16 @@ sys.path.insert(0, ROOT)
 
 CSRC = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc")
 OUT = os.path.join(ROOT, "src", "repro_torch", "kernels", "_build", "variants")
-FD, RN, SW = "flash_decode.cu", "rmsnorm.cu", "swiglu.cu"
+FD, RN, SW, SU = ("flash_decode.cu", "rmsnorm.cu", "swiglu.cu",
+                  "sync_update.cu")
 # C function of each kernel file, and the kernel chip_smoke names it by
-ENTRY = {FD: "flash_decode_f32", RN: "rmsnorm_f32", SW: "swiglu_f32"}
-KERNEL = {"flash_decode": FD, "rms_norm": RN, "swiglu": SW}
+ENTRY = {FD: "flash_decode_f32", RN: "rmsnorm_f32", SW: "swiglu_f32",
+         SU: "sync_flat_update_f32"}
+KERNEL = {"flash_decode": FD, "rms_norm": RN, "swiglu": SW,
+          "sync_flat_update": SU}
+# sync_flat_update's rows: (W, quantize, momentum) at chip_smoke's N
+SYNC_ROWS = ((4, True, 0.0), (4, False, 0.0), (4, True, 0.9),
+             (4, False, 0.9), (2, True, 0.0))
 # swiglu row counts timed beside chip_smoke's (16, 48, 128, 256, 4096): the
 # threshold between the row kernel and the tiles lies among them
 SWIGLU_ROWS = (9, 12, 32, 64)
@@ -79,6 +95,21 @@ __device__ __forceinline__ repro::FragB frag_b_cvt(float b0, float b1) {
   return f;
 }
 """
+SU_LD = r"T ld_global\(const T\* p\) \{ return \*p; \}"
+SU_ST = r"void st_global\(T\* p, T v\) \{ \*p = v; \}"
+# loads that allocate no L1 line (inline PTX; the template's overloads)
+SU_NO_ALLOCATE = """\
+__device__ __forceinline__ float4 ld_global(const float4* p) {
+  float4 r;
+  asm("ld.global.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+      : "=f"(r.x), "=f"(r.y), "=f"(r.z), "=f"(r.w) : "l"(p));
+  return r;
+}
+__device__ __forceinline__ float ld_global(const float* p) {
+  float r;
+  asm("ld.global.L1::no_allocate.f32 %0, [%1];" : "=f"(r) : "l"(p));
+  return r;
+}"""
 SW_SUM2_HELPER = """
 __device__ __forceinline__ void mma3_acc(float (&d)[4], const repro::FragA& a,
                                          const repro::FragB& b) {
@@ -180,6 +211,29 @@ VARIANTS = {
                            "    else if (mt_act < 0)"}},
     "sw_no_load": {SW: {r"    if \(kc < nk\) \{\n      float\* xs":
                         "    if (kc < 0) {\n      float* xs"}},
+    # sync_flat_update: streaming cache hints on its loads (__ldcs: evict
+    # first; __ldlu: last use; no L1 line), its stores (__stcs) or both;
+    # 128 or 512 threads a block; a grid-stride loop over 132 x 5 blocks
+    # (the main row's instance resident at once, 46 registers) in place of
+    # one block per 256 vectors
+    "su_ldcs": {SU: {SU_LD: "T ld_global(const T* p) { return __ldcs(p); }"}},
+    "su_ldlu": {SU: {SU_LD: "T ld_global(const T* p) { return __ldlu(p); }"}},
+    "su_no_allocate": {SU: {
+        r"template <typename T>\n__device__ __forceinline__ " + SU_LD:
+        SU_NO_ALLOCATE}},
+    "su_stcs": {SU: {SU_ST: "void st_global(T* p, T v) { __stcs(p, v); }"}},
+    "su_cs": {SU: {
+        SU_LD: "T ld_global(const T* p) { return __ldcs(p); }",
+        SU_ST: "void st_global(T* p, T v) { __stcs(p, v); }"}},
+    "su_threads128": {SU: {r"kFlatThreads = 256;": "kFlatThreads = 128;"}},
+    "su_threads512": {SU: {r"kFlatThreads = 256;": "kFlatThreads = 512;"}},
+    "su_grid_stride": {SU: {
+        r"const long long v = (.*);\n  if \(v < n / V\) \{":
+        r"for (long long v = \1; v < n / V;\n"
+        r"       v += static_cast<long long>(gridDim.x) * blockDim.x) {",
+        r"const long long blocks = (.*);":
+        r"const long long want = \1,\n"
+        r"                  blocks = want < 132 * 5 ? want : 132 * 5;"}},
 }
 
 
@@ -257,11 +311,15 @@ class Kernels:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         self.has_rn = hasattr(lib, "rmsnorm_f32")
         self.has_sw = hasattr(lib, "swiglu_f32")
+        self.has_su = hasattr(lib, "sync_flat_update_f32")
         self.has_fd = lib.interface is not None
         if self.has_rn:
             lib.rmsnorm_f32.argtypes = [P, P, P, I, I, F, P]
         if self.has_sw:
             lib.swiglu_f32.argtypes = [P, P, P, P, I, I, I, P]
+        if self.has_su:
+            lib.sync_flat_update_f32.argtypes = [P] * 4 + [
+                ctypes.c_longlong, I, F, P]
         if lib.interface == "split":
             lib.flash_decode_scratch_floats.argtypes = [I] * 4
             lib.flash_decode_scratch_floats.restype = ctypes.c_longlong
@@ -278,9 +336,14 @@ class Kernels:
     def swiglu_f32(self, *args):
         return (self.lib if self.has_sw else self.base).swiglu_f32(*args)
 
+    def sync_flat_update_f32(self, *args):
+        return (self.lib if self.has_su else self.base).sync_flat_update_f32(
+            *args)
+
     def has(self, kernel: str) -> bool:
         return {"rms_norm": self.has_rn, "swiglu": self.has_sw,
-                "flash_decode": self.has_fd}[kernel]
+                "flash_decode": self.has_fd,
+                "sync_flat_update": self.has_su}[kernel]
 
     def flash_decode_f32(self, q, k, v, out, part, qoff, kpos, b, sk, hq, hkv,
                          d, window, prefix_len, scale, causal, stream):
@@ -310,6 +373,71 @@ def swiglu_cases(torch):
     return [("swiglu", f"[{n},{d}]x[{d},{f}]",
              dict(x=torch.randn(n, d, generator=g, device="cuda"), wg=wg,
                   wi=wi), False, True) for n in SWIGLU_ROWS]
+
+
+def sync_flat_rows(torch, cs, names, kern, turns, timer, res) -> dict:
+    """sync_flat_update's SYNC_ROWS held and timed per variant (into `res`);
+    returns {row: the copy ceiling's ms and the bytes bound}."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sync_update as _su
+    g = torch.Generator(device="cuda").manual_seed(4321)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * std
+    n = cs.VIT_PARAMS
+    anchor = rnd(n, std=0.02)
+    p = anchor[None] + rnd(4, n, std=1e-3)
+    scale = (rnd(n).abs_() + 0.1) * 3e-3
+    mu0 = rnd(n, std=1e-4)
+    users = [v for v in names
+             if v == "base" or kern[v].has("sync_flat_update")]
+    base = kern["base"]
+    ceiling = {}
+    for w, quantize, momentum in SYNC_ROWS:
+        pw = p[:w]
+        kw = dict(scale=scale if quantize else None,
+                  mu=mu0 if momentum else None, momentum=momentum)
+        key = (f"sync_flat_update [{w},{n}] quantize "
+               f"{'on' if quantize else 'off'} momentum {momentum}")
+        plain = ref.sync_flat_update if quantize else \
+            ref.sync_flat_update_lane_order
+        want = plain(pw, anchor, **kw)
+        for v in users:
+            using(kern[v])
+            got = _su.sync_flat_update(
+                pw.clone(), anchor.clone(), scale=kw["scale"],
+                mu=None if kw["mu"] is None else mu0.clone(),
+                momentum=momentum)
+            torch.cuda.synchronize()
+            res[v]["cases"][key] = dict(
+                bitwise=all(x is None or torch.equal(x, y)
+                            for x, y in zip(got, want)), ms=[], fresh_ms=[])
+            del got
+        del want
+        pk, ak = pw.clone(), anchor.clone()
+        muk = None if kw["mu"] is None else mu0.clone()
+
+        def call():
+            _su.sync_flat_update(pk, ak, scale=kw["scale"], mu=muk,
+                                 momentum=momentum)
+
+        def restore():
+            pk.copy_(pw)
+            ak.copy_(anchor)
+        for v in turns:
+            if v in users:
+                using(kern[v])
+                res[v]["cases"][key]["ms"].append(timer(call))
+                res[v]["cases"][key]["fresh_ms"].append(
+                    timer(call, setup=restore))
+        using(base)
+        words = 2 * w + 2 + quantize + 2 * (momentum > 0)
+        src = torch.empty(words * n // 2, device="cuda")
+        dst = torch.empty_like(src)
+        ceiling[key] = dict(copy_ms=timer(lambda: dst.copy_(src)),
+                            bound_ms=cs.bound_ms(4.0 * n * words, 0.0)[0])
+        del pk, ak, muk, src, dst
+    return ceiling
 
 
 def using(kernels):
@@ -356,9 +484,11 @@ def main(argv) -> int:
     wrap = {"rms_norm": _rn.rms_norm, "swiglu": _sw.swiglu,
             "flash_decode": _fa.flash_decode}
     library = {}
-    for name, label, a, main_shape, timed in (
-            cs.kernel_cases(torch, 64) + swiglu_cases(torch)):
-        if name not in wrap or (only and name not in only):
+    serving = [k for k in wrap if not only or k in only]
+    cases = (cs.kernel_cases(torch, 64) + swiglu_cases(torch)
+             if serving else [])
+    for name, label, a, main_shape, timed in cases:
+        if name not in serving:
             continue
         want = cs.run_kernel(torch, plain, name, a)
         tol = cs.TOL[name] * max(float(want.abs().max()), 1.0)
@@ -390,6 +520,10 @@ def main(argv) -> int:
                         for e in prof.key_averages()
                         if e.device_time_total > 0}
         using(base)
+    del cases
+    ceiling = {}
+    if not only or "sync_flat_update" in only:
+        ceiling = sync_flat_rows(torch, cs, names, kern, turns, timer, res)
     if step:
         from repro_torch.configs import registry as R
         from repro_torch.launch import weights as W
@@ -408,7 +542,7 @@ def main(argv) -> int:
         del weights
     for n in names:
         print(json.dumps(res[n]), flush=True)
-    print(json.dumps({"library_ms": library}))
+    print(json.dumps({"library_ms": library, "copy_ceiling": ceiling}))
     print(cs.nvidia_smi())
     return 0
 
