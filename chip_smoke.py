@@ -8,7 +8,9 @@ holds each against its plain PyTorch version at its path's full-width
 shapes, with an empty kernel's launch timed as the floor under them (the
 serving kernels also at a long serving shape: 8 slots of a 4096-row cache;
 `swiglu` also at 16 to 4096 rows, where its tensor-core tiles run;
-`flash_decode` also at starcoder2-3b's 12-head GQA groups).
+`flash_decode` also at starcoder2-3b's 12-head GQA groups), and the two
+backward kernels, `rms_norm_bwd` and `swiglu_bwd`, at gemma3-4b's
+training rows (`rms_norm_bwd` also at phi3's d = 5120).
 Then it drives both of the port's paths on the card:
 
 * serving: gemma3-4b at full width (random weights drawn on the card from
@@ -35,8 +37,11 @@ Then it drives both of the port's paths on the card:
   tokens; starcoder2-3b Local AdamW under QSR at full width (2 layers, W = 4
   x 4 sequences of 1024 tokens from the built-in token stream, the training
   CLI's recipe, 8 steps), at its full 30 layers (W = 1, remat) for 2 steps,
-  and the card against the CPU at 2 layers; on the card `rms_norm` and
-  `swiglu` refuse autograd (they have no backward kernel);
+  and the card against the CPU at 2 layers; gemma3-4b Local AdamW under
+  QSR at full width (2 layers, W = 4 x 1 sequence of 1024 tokens, the
+  same recipe, 8 steps: every norm and MLP through the `rms_norm` /
+  `swiglu` autograd Functions and their backward kernels), and its card
+  against the CPU at 2 layers;
 * checkpoints: ViT-B/16's W = 4 state saved in the tree layout after 2
   rounds and resumed in the flat layout, bitwise the run without the
   checkpoint, with save and restore rates; and train to serve: starcoder2-3b
@@ -56,7 +61,9 @@ before printing a result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import importlib.util
 import json
 import os
@@ -88,14 +95,23 @@ PROMPT_LENS = (16, 48, 32, 24)        # 4 requests, 16-48 tokens: slots recycle
 # may differ by an ulp; the quantized sync is held bitwise
 # (the unquantized sync sums fp32 deltas in another order: 1e-6, and is
 # held bitwise against its ops in lane order); the
-# split sync's apply and the ring's combine and quantize are held bitwise
-TOL = {"rms_norm": 1e-5, "swiglu": 2e-5, "flash_decode": 2e-5,
+# split sync's apply and the ring's combine and quantize are held bitwise;
+# rms_norm_bwd's dx like the forward (a row's sums over D in another
+# order), its dscale, a sum over the n rows, to the worst case of two
+# n-term fp32 sums in different orders, 2 n 2^-24 of the largest column
+# sum of |dy x r| (`dscale_tol`); swiglu_bwd's gradients like the products
+# (its dwg and dwi sum over the N rows in cuBLAS on both sides, from dg
+# and du within 2e-5)
+TOL = {"rms_norm": 1e-5, "swiglu": 2e-5, "rms_norm_bwd": 1e-5,
+       "swiglu_bwd": 2e-5, "flash_decode": 2e-5,
        "flash_attention_fwd": 2e-5, "flash_attention_bwd": 5e-5,
        "adamw_update": 1e-6, "sync_flat_update": 1e-6,
        "sync_apply_update": 0.0, "ring_combine": 0.0, "ring_quantize": 0.0}
 REPLACES = {
     "rms_norm": "src/repro/kernels/rmsnorm.py:36",
     "swiglu": "src/repro/kernels/swiglu.py:44",
+    "rms_norm_bwd": "the port's own: JAX has none",
+    "swiglu_bwd": "the port's own: JAX has none",
     "flash_decode": "src/repro/kernels/flash_attention.py:239",
     "flash_attention_fwd": "src/repro/kernels/flash_attention.py:128",
     "flash_attention_bwd": "src/repro/kernels/flash_attention.py:128",
@@ -109,6 +125,8 @@ CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
     "rms_norm": CSRC + "rmsnorm.cu",
     "swiglu": CSRC + "swiglu.cu",
+    "rms_norm_bwd": CSRC + "rmsnorm_bwd.cu",
+    "swiglu_bwd": CSRC + "swiglu.cu",
     "flash_decode": CSRC + "flash_decode.cu",
     "flash_attention_fwd": CSRC + "flash_attention.cu",
     "flash_attention_bwd": CSRC + "flash_attention.cu",
@@ -122,6 +140,7 @@ SERVING_KERNELS = ("flash_decode", "rms_norm", "swiglu")
 TRAINING_KERNELS = ("flash_attention_fwd", "flash_attention_bwd",
                     "adamw_update", "sync_flat_update")
 SYNC_KERNELS = ("sync_apply_update", "ring_combine", "ring_quantize")
+BACKWARD_KERNELS = ("rms_norm_bwd", "swiglu_bwd")
 
 # the training main path: examples/vit_local_adamw.py's recipe at full width
 TRAIN_ARCH = "vit-b16"
@@ -144,6 +163,14 @@ LM_RUN = dict(schedule="qsr", optimizer="adamw", total_steps=LM_STEPS,
 LM_TRACE = [(t, 2) for t in range(0, LM_STEPS, 2)]
 LM_PARAMS = {2: 342_915_072, 30: 3_029_710_848}
 LM_LEAVES = 13                  # tree leaves: the AdamW launches per step
+# gemma3-4b training: the same recipe at full width cut to 2 layers, W = 4
+# workers x 1 sequence of 1024 tokens: 55.0 GB of params, m, v and grad,
+# a 65.8 GB peak (PERF.md)
+G3_ARCH = "gemma3-4b"
+G3_W, G3_B, G3_SEQ, G3_LAYERS = 4, 1, 1024, 2
+G3_PARAMS, G3_LEAVES = 859_845_120, 11
+# the backward kernels' rows: one lane's 1 x 1024 tokens of gemma3-4b
+BWD_ROWS = G3_B * G3_SEQ
 # starcoder2-3b's decode attention (GQA 12: 24 query heads over 2 kv heads
 # of 128, every layer windowed at 4096) at the main serving step and the
 # long one, as flash_decode kernel rows
@@ -817,6 +844,134 @@ def phase_sync_kernels(torch):
         emit("kernel_check", **row)
         del want, got, got_off, want_off
     del buf, acc, q
+    torch.cuda.empty_cache()
+    return summary
+
+
+# ------------------------------------------------ backward kernels --------
+
+def dscale_tol(torch, x, dy, eps: float = 1e-6) -> float:
+    """The absolute bound dscale is held to: 2 n 2^-24 of the largest
+    column sum of |dy x r| over the n rows, the worst case of two n-term
+    fp32 sums in different orders (the kernel's block partials against
+    torch's sum)."""
+    d = x.shape[-1]
+    x2, g2 = x.reshape(-1, d).double(), dy.reshape(-1, d).double()
+    r = torch.rsqrt(torch.mean(x2 * x2, -1, keepdim=True) + eps)
+    return 2 * x2.shape[0] * 2.0 ** -24 * float((g2 * x2 * r).abs().sum(0)
+                                                  .max())
+
+
+def swiglu_bwd_row(torch, timer, rnd, n, d, f) -> dict:
+    """swiglu_bwd at x [n, d], wg / wi [d, f] (the main path's shape):
+    held, repeated, timed."""
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import swiglu as _sw
+    F = torch.nn.functional
+    x, dh = rnd(n, d), rnd(n, f)
+    wg, wi = rnd(d, f, std=d ** -0.5), rnd(d, f, std=d ** -0.5)
+    got = _sw.swiglu_bwd(x, wg, wi, dh)
+    got2 = _sw.swiglu_bwd(x, wg, wi, dh)
+    want = ref.swiglu_bwd(x, wg, wi, dh)
+    torch.cuda.synchronize()
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, got2))
+    label = f"[{n},{d}]x[{d},{f}]"
+    check(same, f"swiglu_bwd {label}: a second run differs")
+    errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
+            for a, b in zip(got, want)]
+    worst = max(range(3), key=lambda i: errs[i])
+    row = check_row("swiglu_bwd", label,
+                    float((got[worst] - want[worst]).abs().max()),
+                    float(want[worst].abs().max()), True, bitwise_repeat=same,
+                    rel_errs_dx_dwg_dwi=errs)
+    del got, got2, want
+    xr, gr, ir = (t.clone().requires_grad_(True) for t in (x, wg, wi))
+    lib_out = F.silu(xr @ gr) * (xr @ ir)
+    ops_tc, ops_fp32 = 4.0 * n * d * f, 8.0 * n * d * f
+    timed_row(row, timer, lambda: _sw.swiglu_bwd(x, wg, wi, dh),
+              lambda: ref.swiglu_bwd(x, wg, wi, dh),
+              lambda: torch.autograd.grad(lib_out, (xr, gr, ir), dh,
+                                          retain_graph=True),
+              4.0 * (2 * n * d + 4 * d * f + n * f), ops_tc + ops_fp32)
+    # the recompute in 3xTF32 on the tensor cores, the products in fp32
+    tc_ms = 3.0 * ops_tc / PEAK_TF32_FLOP_PER_S * 1e3
+    fp32_ms = ops_fp32 / PEAK_FP32_FLOP_PER_S * 1e3
+    row["bound_fp32_ms"], row["bound_fp32_by"] = row["bound_ms"], \
+        row["bound_by"]
+    row["bound_ms"], row["bound_by"] = max(tc_ms + fp32_ms, row["bytes"]
+                                           / PEAK_BYTES_PER_S * 1e3), \
+        "operations"
+    row.update(bound_recompute_ms=tc_ms, bound_products_ms=fp32_ms,
+               bound_share=row["bound_ms"] / row["ms"])
+    dg, du = torch.empty(n, f, device="cuda"), torch.empty(n, f, device="cuda")
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def gate():
+        build.check(lib.swiglu_bwd_gate_f32(
+            x.data_ptr(), wg.data_ptr(), wi.data_ptr(), dh.data_ptr(),
+            dg.data_ptr(), du.data_ptr(), n, d, f, stream), "swiglu_bwd gate")
+    row["gate_ms"] = timer(gate)
+    row["gate_bound_ms"] = max(tc_ms, 4.0 * (n * d + 2 * d * f + 3 * n * f)
+                               / PEAK_BYTES_PER_S * 1e3)
+    row["forward_ms"] = timer(lambda: _sw.swiglu(x, wg, wi))
+    emit("kernel_check", **row)
+    del x, dh, wg, wi, xr, gr, ir, lib_out, dg, du
+    return row
+
+
+def phase_backward_kernels(torch):
+    """rms_norm_bwd and swiglu_bwd against their plain versions at gemma3-4b's
+    training rows (one lane: 1 x 1024 tokens), rms_norm_bwd also at phi3's
+    d = 5120 (its strided path), each twice on the same inputs (bitwise),
+    with kernel / plain / library / bound times.  The library: autograd.grad
+    through `F.rms_norm` and through the composed `F.silu(x@wg) * (x@wi)`
+    (graphs built once, outside the timing).  swiglu_bwd's bound adds the
+    recompute's 4 N D F operations in 3xTF32 and the four products' 8 N D F
+    in fp32; its gate kernel alone is timed beside it (`gate_ms`).  Returns
+    the main path's rows by kernel."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as _rn
+    F = torch.nn.functional
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(1357)
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * std
+
+    summary = {}
+    for n, d, main in ((BWD_ROWS, 2560, True), (BWD_ROWS, 5120, False)):
+        x, sc, dy = rnd(n, d), rnd(d), rnd(n, d)
+        dx, ds = _rn.rms_norm_bwd(x, sc, dy)
+        dx2, ds2 = _rn.rms_norm_bwd(x, sc, dy)
+        wdx, wds = ref.rms_norm_bwd(x, sc, dy)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(dx, dx2) and torch.equal(ds, ds2))
+        label = f"[{n},{d}]"
+        check(same, f"rms_norm_bwd {label}: a second run differs")
+        ds_err, ds_tol = float((ds - wds).abs().max()), dscale_tol(torch, x,
+                                                                    dy)
+        check(ds_err <= ds_tol, f"rms_norm_bwd {label}: dscale err {ds_err} "
+              f"> {ds_tol}")
+        row = check_row("rms_norm_bwd", label, float((dx - wdx).abs().max()),
+                        float(wdx.abs().max()), main, bitwise_repeat=same,
+                        dscale_max_abs_err=ds_err, dscale_tol=ds_tol,
+                        path="registers" if d <= 3072 else "strided")
+        row["max_abs_err"] = max(row["max_abs_err"], ds_err)
+        xr, sr = x.clone().requires_grad_(True), sc.clone().requires_grad_(True)
+        lib_out = F.rms_norm(xr, (d,), sr, 1e-6)
+        timed_row(row, timer, lambda: _rn.rms_norm_bwd(x, sc, dy),
+                  lambda: ref.rms_norm_bwd(x, sc, dy),
+                  lambda: torch.autograd.grad(lib_out, (xr, sr), dy,
+                                              retain_graph=True),
+                  4.0 * (3 * n * d + 2 * d), 10.0 * n * d)
+        if main:
+            summary["rms_norm_bwd"] = row
+        emit("kernel_check", **row)
+        del x, sc, dy, dx, ds, dx2, ds2, wdx, wds, xr, sr, lib_out
+
+    summary["swiglu_bwd"] = swiglu_bwd_row(torch, timer, rnd, BWD_ROWS, 2560,
+                                           10240)
     torch.cuda.empty_cache()
     return summary
 
@@ -1924,26 +2079,27 @@ def profile_device_ms(torch, fn, top: int = 12, by_op: bool = False) -> dict:
     return out
 
 
-def lm_setup(n_layers, **run_overrides):
-    """(cfg, run config) of the LM recipe: starcoder2-3b at full width cut
-    to `n_layers`."""
+def lm_setup(n_layers, arch=LM_ARCH, **run_overrides):
+    """(cfg, run config) of the LM recipe: `arch` (starcoder2-3b by
+    default) at full width cut to `n_layers`."""
     from repro_torch.configs import registry as R
     from repro_torch.configs.base import RunConfig
-    cfg = dataclasses.replace(R.get_config(LM_ARCH), n_layers=n_layers)
+    cfg = dataclasses.replace(R.get_config(arch), n_layers=n_layers)
     return cfg, RunConfig(**{**LM_RUN, **run_overrides})
 
 
-def lm_engine(*, n_layers, workers, b_loc, seq, **run_overrides):
+def lm_engine(*, n_layers, workers, b_loc, seq, arch=LM_ARCH,
+              **run_overrides):
     """(cfg, run config, engine on the card) of the LM recipe, the engine
     drawing from its built-in token stream."""
     from repro_torch.core.engine import RoundEngine
-    cfg, run = lm_setup(n_layers, **run_overrides)
+    cfg, run = lm_setup(n_layers, arch, **run_overrides)
     eng = RoundEngine(cfg, run, workers=workers, b_loc=b_loc, seq=seq,
                       data="host")
     return cfg, run, eng
 
 
-def run_lm(torch, np, phase, cfg, run, eng, trace):
+def run_lm(torch, np, phase, cfg, run, eng, trace, n_params=None):
     """`train()` on the engine with the launch counts at 0 just before and
     read just after, every lane equal after every sync.  Returns (state,
     rounds, counts, wall s, peak GB); the wall holds the state's init on
@@ -1951,8 +2107,9 @@ def run_lm(torch, np, phase, cfg, run, eng, trace):
     from repro_torch.kernels import ops
     from repro_torch.launch.train import train
     from repro_torch.models import api, param as pm
+    n_params = LM_PARAMS[cfg.n_layers] if n_params is None else n_params
     check(pm.count_params(api.get_module(cfg).param_defs(cfg))
-          == LM_PARAMS[cfg.n_layers], f"{phase}: parameter count")
+          == n_params, f"{phase}: parameter count")
     check_s = [0.0]
 
     def eval_fn(t, state):              # after each round's sync
@@ -1961,6 +2118,10 @@ def run_lm(torch, np, phase, cfg, run, eng, trace):
               f"{phase}: lanes differ after the sync at {t}")
         check_s[0] += time.perf_counter() - t0
 
+    # what a previous phase left in reference cycles (an engine refers to
+    # itself through its batch function) waits for the garbage collector:
+    # collect it, so this peak is this path's
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()             # the path: counts at 0 ...
@@ -1989,25 +2150,54 @@ def phase_train_lm(torch, np):
     tokens from the built-in token stream, 8 steps.  Then the device time
     of one local step (CUDA events, the batch already on the card) and its
     kernels by name (torch.profiler)."""
+    attn = LM_LAYERS * LM_W * LM_STEPS    # one call per layer per worker
+    return train_lm_path(
+        torch, np, "train_lm", LM_ARCH, LM_W, LM_B, LM_SEQ, LM_PARAMS[2],
+        dict(flash_attention_fwd=attn, flash_attention_bwd=attn,
+             adamw_update=LM_LEAVES * LM_STEPS))
+
+
+def phase_train_gemma3(torch, np):
+    """gemma3-4b training on the card: full width cut to 2 layers
+    (859,845,120 parameters, 11 leaves), Local AdamW under QSR through
+    `train()` with the LM recipe, W = 4 x 1 sequence of 1024 tokens, 8
+    steps, tree layout, blocking sync.  Every norm and MLP runs through the
+    `_RmsNorm` / `_SwiGLU` autograd Functions: per step 5 rms_norm and
+    rms_norm_bwd launches a worker (two a layer, the final norm), one
+    swiglu and swiglu_bwd and one attention forward and backward a layer a
+    worker.  Then the device time of one local step and its kernels, as
+    `train_lm`."""
+    per_w = G3_W * LM_STEPS
+    norms, layers = (2 * G3_LAYERS + 1) * per_w, G3_LAYERS * per_w
+    return train_lm_path(
+        torch, np, "train_gemma3", G3_ARCH, G3_W, G3_B, G3_SEQ, G3_PARAMS,
+        dict(rms_norm=norms, rms_norm_bwd=norms, swiglu=layers,
+             swiglu_bwd=layers, flash_attention_fwd=layers,
+             flash_attention_bwd=layers, adamw_update=G3_LEAVES * LM_STEPS))
+
+
+def train_lm_path(torch, np, phase, arch, w, b, seq, n_params, launches):
+    """`arch` at full width cut to 2 layers through `train()` (W = w x b
+    sequences of `seq` tokens, LM_STEPS steps of the LM recipe), its launch
+    counts exactly `launches` (every other kernel 0), then one local step's
+    device time and profile.  Returns the counts."""
     from repro_torch import tree as T
     from repro_torch.core import local_update as LU
     from repro_torch.data.synthetic import make_train_batch
 
-    cfg, run, eng = lm_engine(n_layers=LM_LAYERS, workers=LM_W, b_loc=LM_B,
-                              seq=LM_SEQ)
+    cfg, run, eng = lm_engine(n_layers=2, workers=w, b_loc=b, seq=seq,
+                              arch=arch)
     state, rounds, counts, wall, peak_gb = run_lm(
-        torch, np, "train_lm", cfg, run, eng, LM_TRACE)
-    attn = cfg.n_layers * LM_W * LM_STEPS  # one call per layer per worker
+        torch, np, phase, cfg, run, eng, LM_TRACE, n_params)
     want = {k: 0 for k in counts}
-    want.update(flash_attention_fwd=attn, flash_attention_bwd=attn,
-                adamw_update=LM_LEAVES * LM_STEPS)
-    check(counts == want, f"train_lm: launch counts {counts} != {want}")
+    want.update(launches)
+    check(counts == want, f"{phase}: launch counts {counts} != {want}")
     for r in rounds:
-        emit("train_lm_round", **r)
+        emit(f"{phase}_round", **r)
 
     step_fn = LU.make_local_step(cfg, run, with_metrics=True)
     batch = T.map(lambda x: x.cuda(), make_train_batch(
-        cfg, eng.stream, 0, LM_W, LM_B, LM_SEQ))
+        cfg, eng.stream, 0, w, b, seq))
     state, _ = step_fn(state, batch, 1e-6)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     torch.cuda.synchronize()
@@ -2019,14 +2209,13 @@ def phase_train_lm(torch, np):
     device_ms = ev[0].elapsed_time(ev[1]) / 2
     prof = profile_device_ms(torch, lambda: step_fn(state, batch, 1e-6))
 
-    tokens = LM_W * LM_B * LM_SEQ
-    flops = lm_step_flops(cfg, LM_W * LM_B, LM_SEQ)
+    tokens = w * b * seq
+    flops = lm_step_flops(cfg, w * b, seq)
     wall_ms = wall / LM_STEPS * 1e3
-    emit("train_lm", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-         params=LM_PARAMS[cfg.n_layers], workers=LM_W, b_loc=LM_B,
-         seq=LM_SEQ, steps=LM_STEPS, rounds=len(rounds), h_trace=eng.h_trace,
-         layout="tree", sync="blocking", wall_s=wall,
-         wall_ms_per_step=wall_ms,
+    emit(phase, arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         params=n_params, workers=w, b_loc=b, seq=seq, steps=LM_STEPS,
+         rounds=len(rounds), h_trace=eng.h_trace, layout="tree",
+         sync="blocking", wall_s=wall, wall_ms_per_step=wall_ms,
          data_ms_per_step=eng.data_seconds / LM_STEPS * 1e3,
          device_ms_per_step=device_ms,
          device_busy_share=device_ms / wall_ms,
@@ -2035,8 +2224,8 @@ def phase_train_lm(torch, np):
          achieved_tflop_s=flops / device_ms / 1e9,
          profiled_step=prof, launches=counts,
          launches_per_step={k: v / LM_STEPS for k, v in counts.items()},
-         peak_mem_gb=peak_gb, final_loss=rounds[-1]["loss"],
-         lanes_equal_after_sync=True)
+         peak_mem_gb=peak_gb, state_gb_p_m_v_grad=16.0 * n_params * w / 1e9,
+         final_loss=rounds[-1]["loss"], lanes_equal_after_sync=True)
     del state, batch, eng
     torch.cuda.empty_cache()
     return counts
@@ -2073,68 +2262,141 @@ def phase_train_lm_full_depth(torch, np):
     torch.cuda.empty_cache()
 
 
-def phase_train_lm_card_vs_cpu(torch, np):
-    """starcoder2-3b widths at 2 layers, W = 2, 1 sequence of 128 tokens
-    each, one round of H = 2 at the recipe's peak lr: the same weights and
-    token batches on the card (kernels) and on the CPU (plain versions).
-    Loss and grad norm within 1e-4 relative; params: at most 1 element in
-    2,000 of each leaf beyond 1e-5 (AdamW's first steps flip where a
-    gradient sits at the sum-order noise), none beyond 4 lr."""
+def host_available_gb() -> float:
+    """The machine's available host memory (MemAvailable), GB."""
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+@contextlib.contextmanager
+def plain_versions_on_card():
+    """ops' rms_norm and swiglu, and the full-sequence attention, take their
+    plain versions on the card (autograd of `kernels/ref.py`, cuBLAS for
+    the products) while inside: the sum order of the card without the
+    port's kernels, as a yardstick."""
+    from repro_torch.kernels import flash_attention as _fa
+    from repro_torch.kernels import ops, ref
+    saved = ops.rms_norm, ops.swiglu, _fa.flash_attention
+    ops.rms_norm = ref.rms_norm
+    ops.swiglu = ref.swiglu
+    _fa.flash_attention = lambda q, k, v, **kw: ref.attention(q, k, v, **kw)
+    try:
+        yield
+    finally:
+        ops.rms_norm, ops.swiglu, _fa.flash_attention = saved
+
+
+def phase_train_lm_card_vs_cpu(torch, np, arch=LM_ARCH):
+    """`arch` (starcoder2-3b, or gemma3-4b through the rms_norm / swiglu
+    backward kernels) at full width cut to 2 layers, W = 2, 1 sequence of
+    128 tokens each, one round of H = 2 at the recipe's peak lr: the same
+    weights and token batches on the card (kernels) and on the CPU (plain
+    versions).  Loss and grad norm within 1e-4 relative; params: at most 1
+    element in 2,000 of each leaf beyond 1e-5 (AdamW's first steps flip
+    where a gradient sits at the sum-order noise), none beyond 4 lr.
+
+    gemma3-4b's second step runs at a grad norm of ~650 (the first AdamW
+    step moves every weight by ~lr), which turns sum-order noise into more
+    flips: its attention's wq and wk leave the 1-in-2,000 rule on the card
+    even with no kernel of the port (PERF.md §6).  So there the card
+    also runs the round with the plain versions (`plain_versions_on_card`)
+    and each leaf's elements beyond 1e-5 are held to at most 1.5 times
+    that run's count against the CPU (or 1 in 2,000): the kernels may move
+    the trajectory no further than the card's own sum order does.
+
+    The CPU holds 16 bytes a parameter a worker (gemma3-4b: 27.5 GB at W =
+    2); W drops to 1 where the host's available memory is under twice
+    that."""
     from repro_torch import tree as T
     from repro_torch.core import local_update as LU
     from repro_torch.core.sync import make_sync
     from repro_torch.data.synthetic import TokenStream, make_train_batch
+    from repro_torch.kernels import ops
     from repro_torch.models import api, param as pm
 
-    cfg, run = lm_setup(2)
+    gemma = arch == G3_ARCH
+    phase = "train_gemma3_card_vs_cpu" if gemma else "train_lm_card_vs_cpu"
+    gc.collect()                          # earlier phases' cycles (run_lm)
+    cfg, run = lm_setup(2, arch)
     lr = run.peak_lr
+    defs = api.get_module(cfg).param_defs(cfg)
+    state_gb = 16.0 * pm.count_params(defs) * 2 / 1e9
+    host_gb = host_available_gb()
+    w = 2 if not host_gb < 2 * state_gb else 1
     gen = torch.Generator(device="cuda").manual_seed(3)
-    card_p = pm.init_params(api.get_module(cfg).param_defs(cfg), gen,
-                            device="cuda")
-    states = {"cuda": LU.init_state(cfg, run, card_p, 2),
-              "cpu": LU.init_state(cfg, run, T.map(lambda x: x.cpu(),
-                                                   card_p), 2)}
-    del card_p
+    host_p = T.map(lambda x: x.cpu(), pm.init_params(defs, gen,
+                                                     device="cuda"))
     step_fn = LU.make_local_step(cfg, run, with_metrics=True)
     sync = make_sync(run)
     stream = TokenStream(vocab=cfg.vocab, seed=0)
-    losses, gns = {"cuda": [], "cpu": []}, {"cuda": [], "cpu": []}
-    t0 = time.perf_counter()
-    for t in range(2):
-        batch = make_train_batch(cfg, stream, t, 2, 1, 128)
-        for dev in ("cuda", "cpu"):
-            b = T.map(lambda x: x.to(dev), batch)
-            states[dev], (loss, gn) = step_fn(states[dev], b, lr)
-            losses[dev].append(float(loss))
-            gns[dev].append(float(gn))
-    with torch.no_grad():
-        for dev in states:
-            states[dev] = sync(states[dev])
-    wall = time.perf_counter() - t0
-    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
-                                                      losses["cpu"]))
-    gn_err = max(abs(a - b) / abs(b) for a, b in zip(gns["cuda"],
-                                                    gns["cpu"]))
-    check(loss_err <= 1e-4, f"LM card vs CPU loss rel err {loss_err}")
-    check(gn_err <= 1e-4, f"LM card vs CPU grad norm rel err {gn_err}")
-    worst, n_off, n_all = 0.0, 0, 0
-    for a, b in zip(T.leaves(states["cuda"]["params"]),
-                    T.leaves(states["cpu"]["params"])):
-        d = (a.cpu() - b).abs()
-        off = int((d > 1e-5 * (1 + b.abs())).sum())
-        check(off <= max(1, b.numel() // 2000),
-              f"LM card vs CPU: {off} of {b.numel()} elements beyond 1e-5")
-        worst = max(worst, float(d.max()))
+    batches = [make_train_batch(cfg, stream, t, w, 1, 128) for t in range(2)]
+
+    def rollout(dev):
+        """The round from host_p on `dev`: (params on the host, losses,
+        grad norms, seconds)."""
+        t0 = time.perf_counter()
+        st = LU.init_state(cfg, run, T.map(lambda x: x.to(dev), host_p), w)
+        losses, gns = [], []
+        for batch in batches:
+            st, (loss, gn) = step_fn(st, T.map(lambda x: x.to(dev), batch),
+                                     lr)
+            losses.append(float(loss))
+            gns.append(float(gn))
+        with torch.no_grad():
+            st = sync(st)
+        out = T.leaves(T.map(lambda x: x.cpu(), st["params"]))
+        del st
+        torch.cuda.empty_cache()
+        return out, losses, gns, time.perf_counter() - t0
+
+    ops.reset_launch_counts()             # the kernels' round alone counts
+    card, losses_card, gns_card, card_s = rollout("cuda")
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    host, losses_cpu, gns_cpu, cpu_s = rollout("cpu")
+
+    def beyond(a, b):
+        return int(((a - b).abs() > 1e-5 * (1 + b.abs())).sum())
+    plain_off = None
+    if gemma:
+        with plain_versions_on_card():
+            plain, *_ = rollout("cuda")
+        plain_off = [beyond(a, b) for a, b in zip(plain, host)]
+        del plain
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses_card,
+                                                      losses_cpu))
+    gn_err = max(abs(a - b) / abs(b) for a, b in zip(gns_card, gns_cpu))
+    check(loss_err <= 1e-4, f"{phase}: loss rel err {loss_err}")
+    check(gn_err <= 1e-4, f"{phase}: grad norm rel err {gn_err}")
+    if gemma:
+        check(counts.get("rms_norm_bwd", 0) == 2 * (2 * cfg.n_layers + 1) * w
+              and counts.get("swiglu_bwd", 0) == 2 * cfg.n_layers * w,
+              f"{phase}: backward kernel launches {counts}")
+    worst, n_off, n_all, offs = 0.0, 0, 0, []
+    for i, (a, b) in enumerate(zip(card, host)):
+        off = beyond(a, b)
+        limit = max(1, b.numel() // 2000)
+        if plain_off is not None:
+            limit = max(limit, int(1.5 * plain_off[i]))
+        check(off <= limit, f"{phase}: {off} of {b.numel()} elements of "
+              f"leaf {i} beyond 1e-5 (limit {limit})")
+        worst = max(worst, float((a - b).abs().max()))
         n_off, n_all = n_off + off, n_all + b.numel()
-    check(worst <= 4 * lr, f"LM card vs CPU params differ by {worst}")
-    emit("train_lm_card_vs_cpu", arch=cfg.name, layers=cfg.n_layers,
-         d_model=cfg.d_model, workers=2, b_loc=1, seq=128, steps=2,
-         losses_card=losses["cuda"], losses_cpu=losses["cpu"],
-         grad_norms_card=gns["cuda"], grad_norms_cpu=gns["cpu"],
-         max_loss_rel_err=loss_err, max_grad_norm_rel_err=gn_err,
-         max_param_abs_err=worst, params_beyond_1e5=n_off, params=n_all,
-         wall_s=wall)
-    del states
+        offs.append(off)
+    check(worst <= 4 * lr, f"{phase}: params differ by {worst}")
+    emit(phase, arch=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, workers=w, b_loc=1, seq=128, steps=2,
+         host_available_gb=host_gb, cpu_state_gb=state_gb / 2 * w,
+         card_launches=counts, losses_card=losses_card,
+         losses_cpu=losses_cpu, grad_norms_card=gns_card,
+         grad_norms_cpu=gns_cpu, max_loss_rel_err=loss_err,
+         max_grad_norm_rel_err=gn_err, max_param_abs_err=worst,
+         params_beyond_1e5=n_off, params=n_all, beyond_1e5_by_leaf=offs,
+         plain_card_beyond_1e5_by_leaf=plain_off, card_s=card_s,
+         cpu_s=cpu_s)
+    del card, host
     torch.cuda.empty_cache()
 
 
@@ -2243,26 +2505,6 @@ def phase_generate(torch, np, cfg, weights, rows):
     return counts
 
 
-def phase_guard(torch):
-    """On the card the forward-only rms_norm and swiglu refuse autograd:
-    no zero gradient comes back without an error."""
-    from repro_torch.errors import ConfigError
-    from repro_torch.kernels import ops
-    x = torch.randn(4, 256, device="cuda", requires_grad=True)
-    w = torch.randn(256, 512, device="cuda") * 0.05
-    raised = []
-    for name, call in (("rms_norm", lambda: ops.rms_norm(x, w[:, 0])),
-                       ("swiglu", lambda: ops.swiglu(x, w, w))):
-        try:
-            call()
-        except ConfigError as e:
-            raised.append(name)
-            check("backward: not ported yet" in str(e), f"{name}: {e}")
-    check(raised == ["rms_norm", "swiglu"],
-          f"guard: only {raised} refused autograd on the card")
-    emit("guard", refused_under_grad=raised)
-
-
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2281,6 +2523,7 @@ def main() -> int:
          device_count=torch.cuda.device_count(),
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+         host_available_gb=host_available_gb(),
          msgpack_importable=importlib.util.find_spec("msgpack") is not None)
 
     t0 = time.perf_counter()
@@ -2300,7 +2543,7 @@ def main() -> int:
     timed.update(t_summary)
     rows.update(t_rows)
     timed.update(phase_sync_kernels(torch))
-    phase_guard(torch)
+    timed.update(phase_backward_kernels(torch))
     # each path's counts at 0 just before it and read just after; a
     # kernel's launches in the `kernels` line sum the paths that run it
     counts = dict.fromkeys(SOURCES, 0)
@@ -2333,6 +2576,10 @@ def main() -> int:
     add(phase_train_lm(torch, np), TRAINING_KERNELS[:3])
     phase_train_lm_full_depth(torch, np)
     phase_train_lm_card_vs_cpu(torch, np)
+    # gemma3 training: the rms_norm / swiglu backward kernels
+    add(phase_train_gemma3(torch, np),
+        ("rms_norm", "swiglu") + BACKWARD_KERNELS + TRAINING_KERNELS[:3])
+    phase_train_lm_card_vs_cpu(torch, np, G3_ARCH)
     # checkpoints: resume across layouts, and train to serve
     try:
         phase_ckpt_resume(torch, np)
@@ -2359,9 +2606,11 @@ def main() -> int:
         "flash_attention_fwd": [LM_TRAIN_ATTN, *PREFILL_ATTN],
         "flash_attention_bwd": [LM_TRAIN_ATTN]}
     kernels = []
-    for name in SERVING_KERNELS + TRAINING_KERNELS + SYNC_KERNELS:
+    for name in (SERVING_KERNELS + TRAINING_KERNELS + SYNC_KERNELS
+                 + BACKWARD_KERNELS):
         t = timed[name]
-        extra = {key: t[key] for key in ("bound_fp32_ms", "bound_fp32_by")
+        extra = {key: t[key] for key in ("bound_fp32_ms", "bound_fp32_by",
+                                         "gate_ms", "gate_bound_ms")
                  if key in t}
         if name in lm_shapes:
             extra["lm_path"] = [

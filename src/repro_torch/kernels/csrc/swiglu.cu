@@ -58,6 +58,21 @@
 // across blocks and the k-order never depends on N or the tile: a row's
 // output has the same bits in every call that takes this path.
 // Measured times, the threshold and the rejected variants: PERF.md.
+//
+// Backward (`swiglu_bwd_gate_f32`).  Replaces no TPU kernel: the Pallas
+// `swiglu` has no VJP, and the JAX package trains through autodiff of
+// `ref.swiglu`.  The gradient's four large products (dx against wg and wi,
+// dwg, dwi) are plain fp32 GEMMs outside any kernel, as XLA runs them there
+// (kernels/swiglu.py); what the Pallas kernel computed in its own body, the
+// products x@wg and x@wi, is recomputed here on the same tile kernel, with
+// a second epilogue (`GateGrad`) that reads dh and writes dg = dh u
+// sigma(g) (1 + g (1 - sigma(g))) (torch's `silu_backward` form, which
+// keeps its value at large |g|) and du = dh silu(g), [N, F] each, in place
+// of silu(g) u.  The epilogue is a template parameter: the forward's
+// instances (`SiluMul`) keep their code and bits.  The backward takes the
+// tiles at every N (N <= 8 too), so from 9 rows its g and u are bitwise
+// the forward's (the same tile for the same N).  Bound: the recompute's
+// 4 N D F operations in 3xTF32 beside 8 N F bytes more of dh, dg and du.
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -195,17 +210,54 @@ using Tile32 = Tile<1, 2, 2, 4, 3, 2>;    // 32 x 64
 using Tile64 = Tile<2, 2, 2, 4, 3, 2>;    // 64 x 64
 using Tile128 = Tile<4, 2, 4, 4, 3, 1>;   // 128 x 128
 
+// The tile kernel's epilogues, called for each pair of adjacent columns
+// (idx = row * f + col, col even) with their gate and up sums.
+// The forward: out = silu(g) * u.
+struct SiluMul {
+  float* out;
+  __device__ __forceinline__ void operator()(size_t idx, float g0, float g1,
+                                             float u0, float u1) const {
+    float2 o;
+    o.x = g0 / (1.f + expf(-g0)) * u0;
+    o.y = g1 / (1.f + expf(-g1)) * u1;
+    *reinterpret_cast<float2*>(out + idx) = o;
+  }
+};
+
+// The backward's gate: reads dh, writes dg and du (see the top).
+struct GateGrad {
+  const float* __restrict__ dh;
+  float* __restrict__ dg;
+  float* __restrict__ du;
+  static __device__ __forceinline__ void one(float h, float g, float u,
+                                             float& dgo, float& duo) {
+    const float e = 1.f + expf(-g);
+    const float s = 1.f / e;
+    dgo = h * u * s * (1.f + g * (1.f - s));
+    duo = h * (g / e);
+  }
+  __device__ __forceinline__ void operator()(size_t idx, float g0, float g1,
+                                             float u0, float u1) const {
+    const float2 h = *reinterpret_cast<const float2*>(dh + idx);
+    float2 a, b;
+    one(h.x, g0, u0, a.x, b.x);
+    one(h.y, g1, u1, a.y, b.y);
+    *reinterpret_cast<float2*>(dg + idx) = a;
+    *reinterpret_cast<float2*>(du + idx) = b;
+  }
+};
+
 // Tag: every m16 tile of the warp lies before N (no per-tile test).
 template <bool B>
 struct Full {
   static constexpr bool value = B;
 };
 
-template <class T>
+template <class T, class Epi>
 __global__ void __launch_bounds__(kTileThreads, T::MIN_BLOCKS)
 swiglu_tile_kernel(const float* __restrict__ x, const float* __restrict__ wg,
-                   const float* __restrict__ wi, float* __restrict__ out, int n,
-                   int d, int f, int x_vec) {
+                   const float* __restrict__ wi, Epi epi, int n, int d, int f,
+                   int x_vec) {
   using repro::cp_async16;
   using repro::cp_async4;
   constexpr int MT = T::MT, NT = T::NT, BM = T::BM, BN = T::BN;
@@ -326,41 +378,40 @@ swiglu_tile_kernel(const float* __restrict__ x, const float* __restrict__ wg,
       for (int h = 0; h < 2; ++h) {
         const int row = row0 + wrow + 16 * i + g + 8 * h;
         if (row >= n) continue;
-        float2 o;
-        const float g0 = cg[i][j][2 * h], g1 = cg[i][j][2 * h + 1];
-        o.x = g0 / (1.f + expf(-g0)) * cu[i][j][2 * h];
-        o.y = g1 / (1.f + expf(-g1)) * cu[i][j][2 * h + 1];
-        *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * f + col) = o;
+        epi(static_cast<size_t>(row) * f + col, cg[i][j][2 * h],
+            cg[i][j][2 * h + 1], cu[i][j][2 * h], cu[i][j][2 * h + 1]);
       }
     }
 }
 
-template <class T>
-int launch_tile(const float* x, const float* wg, const float* wi, float* out,
+template <class T, class Epi>
+int launch_tile(const float* x, const float* wg, const float* wi, Epi epi,
                 int n, int d, int f, cudaStream_t stream) {
   const long long blocks = static_cast<long long>((n + T::BM - 1) / T::BM) *
                            ((f + T::BN - 1) / T::BN);
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaError_t err = cudaFuncSetAttribute(
-      swiglu_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      swiglu_tile_kernel<T, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(T::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
   // x's rows start 16-byte aligned (the wrapper checks the base) iff D % 4 == 0
-  swiglu_tile_kernel<T><<<static_cast<unsigned>(blocks), kTileThreads, T::SMEM,
-                          stream>>>(x, wg, wi, out, n, d, f, d % 4 == 0);
+  swiglu_tile_kernel<T, Epi><<<static_cast<unsigned>(blocks), kTileThreads,
+                               T::SMEM, stream>>>(x, wg, wi, epi, n, d, f,
+                                                  d % 4 == 0);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Row tile by N: one tile of 16, 32 or 64 rows while the weights' bytes
 // bound the call; 128 x 128 once that tile gives at least two waves of
 // blocks over the 132 SMs (64 x 64 tiles until then).
-int launch_tiles(const float* x, const float* wg, const float* wi, float* out,
+template <class Epi>
+int launch_tiles(const float* x, const float* wg, const float* wi, Epi epi,
                  int n, int d, int f, cudaStream_t s) {
-  if (n <= 16) return launch_tile<Tile16>(x, wg, wi, out, n, d, f, s);
-  if (n <= 32) return launch_tile<Tile32>(x, wg, wi, out, n, d, f, s);
+  if (n <= 16) return launch_tile<Tile16>(x, wg, wi, epi, n, d, f, s);
+  if (n <= 32) return launch_tile<Tile32>(x, wg, wi, epi, n, d, f, s);
   const long long big = static_cast<long long>((n + 127) / 128) * ((f + 127) / 128);
-  if (n <= 64 || big < 2 * 132) return launch_tile<Tile64>(x, wg, wi, out, n, d, f, s);
-  return launch_tile<Tile128>(x, wg, wi, out, n, d, f, s);
+  if (n <= 64 || big < 2 * 132) return launch_tile<Tile64>(x, wg, wi, epi, n, d, f, s);
+  return launch_tile<Tile128>(x, wg, wi, epi, n, d, f, s);
 }
 
 }  // namespace
@@ -376,7 +427,18 @@ extern "C" int swiglu_f32(const float* x, const float* wg, const float* wi,
   if (n <= 2) return launch<2>(x, wg, wi, out, n, d, f, s);
   if (n <= 4) return launch<4>(x, wg, wi, out, n, d, f, s);
   if (n < kTileMinRows) return launch<8>(x, wg, wi, out, n, d, f, s);
-  return launch_tiles(x, wg, wi, out, n, d, f, s);
+  return launch_tiles(x, wg, wi, SiluMul{out}, n, d, f, s);
+}
+
+// The gate of swiglu's backward: x [n, d], wg/wi [d, f], dh, dg, du [n, f],
+// under swiglu_f32's contract; the tile path at every n.  Launches on
+// `stream`, allocates nothing; returns the launch's cudaError_t.
+extern "C" int swiglu_bwd_gate_f32(const float* x, const float* wg,
+                                   const float* wi, const float* dh, float* dg,
+                                   float* du, int n, int d, int f, void* stream) {
+  if (n <= 0 || f <= 0) return 0;
+  return launch_tiles(x, wg, wi, GateGrad{dh, dg, du}, n, d, f,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // The row count from which `swiglu_f32` takes the tile path.

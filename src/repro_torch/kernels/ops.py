@@ -6,10 +6,12 @@ The port of `repro/kernels/ops.py`, without its env-var backend switch:
   * a CUDA tensor launches the hand-written CUDA kernel, or raises.
 
 There is no fallback from the kernel to the plain version: a failed build or
-launch on the card is an exception.  The `rms_norm` and `swiglu` kernels are
-forward-only: on the card they raise `ConfigError` where autograd would need
-their gradient (the plain version on the CPU is differentiated).  Models
-call these; they never touch a kernel module directly.
+launch on the card is an exception.  Where autograd needs a gradient, the
+card's `rms_norm`, `swiglu` and full-sequence `flash_attention` run as
+`torch.autograd.Function`s whose backward is a kernel too (`rms_norm_bwd`,
+`swiglu_bwd`, `flash_attention_bwd`); without one they launch the forward
+kernel alone, as serving does.  On the CPU autograd differentiates the plain
+versions.  Models call these; they never touch a kernel module directly.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from repro_torch.kernels import sync_update as _su
 
 # every kernel launcher, by the name its launch count is reported under
 KERNELS = {"rms_norm": _rn.rms_norm, "swiglu": _sw.swiglu,
+           "rms_norm_bwd": _rn.rms_norm_bwd, "swiglu_bwd": _sw.swiglu_bwd,
            "flash_decode": _fa.flash_decode,
            "flash_attention_fwd": _fa.flash_attention_fwd,
            "flash_attention_bwd": _fa.flash_attention_bwd,
@@ -56,23 +59,13 @@ def _needs_grad(*ts: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
-def _forward_only(op: str, *ts: torch.Tensor) -> None:
-    """The rms_norm and swiglu kernels have no backward yet, and their
-    outputs carry no `grad_fn`: under autograd on the card they would give
-    every operand a zero gradient without a word.  Raise instead."""
-    if _needs_grad(*ts):
-        raise ConfigError(f"{op} backward: not ported yet (the CUDA kernel "
-                          "is forward-only; run under torch.no_grad(), or "
-                          "on the CPU, where the plain version is "
-                          "differentiated)")
-
-
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    """On CUDA forward-only: raises `ConfigError` where autograd would need
-    its gradient."""
+    """On CUDA under autograd the differentiable `_RmsNorm` (the
+    `rms_norm_bwd` kernel in the backward), else the forward kernel."""
     if _on_cuda(x, "rms_norm"):
-        _forward_only("rms_norm", x, scale)
+        if _needs_grad(x, scale):
+            return _rn.rms_norm_autograd(x, scale, eps)
         return _rn.rms_norm(x, scale, eps)
     return ref.rms_norm(x, scale, eps)
 
@@ -105,10 +98,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def swiglu(x, wg, wi):
-    """Fused silu(x@wg)*(x@wi) — the MLP hot spot.  On CUDA forward-only:
-    raises `ConfigError` where autograd would need its gradient."""
+    """Fused silu(x@wg)*(x@wi) — the MLP hot spot.  On CUDA under autograd
+    the differentiable `_SwiGLU` (the `swiglu_bwd` gate kernel and four fp32
+    products in the backward), else the forward kernel."""
     if _on_cuda(x, "swiglu"):
-        _forward_only("swiglu", x, wg, wi)
+        if _needs_grad(x, wg, wi):
+            return _sw.swiglu_autograd(x, wg, wi)
         return _sw.swiglu(x, wg, wi)
     return ref.swiglu(x, wg, wi)
 

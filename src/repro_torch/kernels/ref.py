@@ -4,7 +4,9 @@ They define the semantics the CUDA kernels must match up to fp tolerance,
 and they are what a CPU tensor runs (`kernels/ops.py`).  Here so far:
 `rms_norm`, `_mask`, `attention` and `swiglu` (serving), `adamw_update`,
 `sync_flat_update` and `sync_apply_update` (training), `ring_combine` and
-`ring_quantize_codes` (the ring-int8 sync's per-hop requant pass).
+`ring_quantize_codes` (the ring-int8 sync's per-hop requant pass), and the
+port's own backward passes `rms_norm_bwd` and `swiglu_bwd` (the JAX
+package differentiates `rms_norm` and `swiglu` by autodiff).
 
 Each function mirrors the JAX oracle op for op (Python-float constants are
 rounded to fp32 at the op, as JAX's weak types are), so on the CPU the two
@@ -27,6 +29,24 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * scale.float()
     return out.to(x.dtype)
+
+
+def rms_norm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                 eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gradients of `rms_norm` for the output gradient dy [..., D], in fp32
+    over rows: with r = rsqrt(mean(x^2) + eps) a row's,
+    dx = r s dy - x r^3 mean(dy s x) and dscale = sum over rows of dy x r.
+    Returns (dx [..., D] in x's dtype, dscale [D] in scale's)."""
+    d = x.shape[-1]
+    xf = x.float().reshape(-1, d)
+    g = dy.float().reshape(-1, d)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    r = torch.rsqrt(var + eps)
+    gs = g * scale.float()
+    dot = torch.mean(gs * xf, dim=-1, keepdim=True)
+    dx = r * gs - xf * (r * r * r) * dot
+    dscale = torch.sum(g * xf * r, dim=0)
+    return dx.reshape(x.shape).to(x.dtype), dscale.to(scale.dtype)
 
 
 def _mask(sq: int, sk: int, *, causal: bool, window: int, prefix_len: int,
@@ -202,3 +222,45 @@ def swiglu(x, wg, wi):
     g = xf @ wg.float()
     u = xf @ wi.float()
     return (F.silu(g) * u).to(x.dtype)
+
+
+def swiglu_bwd_gate(x, wg, wi, dh):
+    """The gate of `swiglu`'s backward: x [N, D], dh [N, F] -> (dg, du) [N,
+    F] fp32, with g = x@wg and u = x@wi recomputed, dg = dh u sigma(g) (1 +
+    g (1 - sigma(g))) (torch's `silu_backward` form) and du = dh silu(g)."""
+    xf = x.float()
+    g = xf @ wg.float()
+    u = xf @ wi.float()
+    sig = torch.sigmoid(g)
+    dhf = dh.float()
+    return dhf * u * sig * (1.0 + g * (1.0 - sig)), dhf * F.silu(g)
+
+
+def swiglu_bwd_products(x, wg, wi, dg, du, need=(True, True, True)):
+    """The four products of `swiglu`'s backward from the gate's dg and du
+    (x [N, D]): (dx = dg wg^T + du wi^T, dwg = x^T dg, dwi = x^T du), None
+    where `need` says the operand needs no gradient.  fp32 products (TF32
+    off).  The card's `swiglu_bwd` runs these too after its gate kernel:
+    plain GEMMs on every device, as the JAX package leaves them to XLA."""
+    xf = x.float()
+    dx = dwg = dwi = None
+    if need[0]:
+        dx = torch.addmm(dg @ wg.float().T, du, wi.float().T)
+    if need[1]:
+        dwg = xf.T @ dg
+    if need[2]:
+        dwi = xf.T @ du
+    return dx, dwg, dwi
+
+
+def swiglu_bwd(x, wg, wi, dh, need=(True, True, True)):
+    """Gradients of `swiglu` for the output gradient dh [..., F]: (dx [...,
+    D], dwg [D, F], dwi [D, F]) in the operands' dtypes, fp32 inside, over
+    x's rows flattened; None for an operand `need` marks as needing none."""
+    d, f = wg.shape
+    x2 = x.reshape(-1, d)
+    dg, du = swiglu_bwd_gate(x2, wg, wi, dh.reshape(-1, f))
+    dx, dwg, dwi = swiglu_bwd_products(x2, wg, wi, dg, du, need)
+    return (None if dx is None else dx.reshape(x.shape).to(x.dtype),
+            None if dwg is None else dwg.to(wg.dtype),
+            None if dwi is None else dwi.to(wi.dtype))

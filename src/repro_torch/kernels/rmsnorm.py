@@ -1,16 +1,28 @@
-"""RMSNorm forward — CUDA kernel wrapper (`csrc/rmsnorm.cu`).
+"""RMSNorm forward and backward — CUDA kernel wrappers (`csrc/rmsnorm.cu`,
+`csrc/rmsnorm_bwd.cu`).
 
-Replaces the Pallas `_rmsnorm_kernel` of `repro/kernels/rmsnorm.py`.
-`rms_norm` launches the kernel on a CUDA tensor and raises on anything
-else; `plain` is its plain PyTorch version (`kernels/ref.py`), which CPU
-tensors take through `kernels/ops.py`.  `rms_norm.launches` counts launches.
+The forward replaces the Pallas `_rmsnorm_kernel` of
+`repro/kernels/rmsnorm.py`; the backward is the port's own (the Pallas
+kernel has no VJP: the JAX package differentiates `ref.rms_norm`).
+`rms_norm` and `rms_norm_bwd` launch their kernels on CUDA tensors and
+raise on anything else; `plain` and `plain_bwd` are their plain PyTorch
+versions (`kernels/ref.py`), which CPU tensors take through
+`kernels/ops.py`.  `rms_norm_autograd` is the differentiable call
+(`_RmsNorm`): the forward kernel, then the backward kernel for dx and
+dscale.  `.launches` counts calls of each wrapper.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.errors import ShapeError
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import rms_norm as plain  # noqa: F401
+from repro_torch.kernels.ref import rms_norm_bwd as plain_bwd  # noqa: F401
+
+# the widest row the backward takes: kWarps = 1 row of floats in the 227 KB
+# of shared memory a block can use (`kSmemMax` in csrc/rmsnorm_bwd.cu)
+MAX_BWD_D = 232448 // 4
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -34,4 +46,62 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return out
 
 
+def rms_norm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                 eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gradients of `rms_norm` for dy [..., D]: (dx [..., D], dscale [D]).
+    fp32, contiguous, on one CUDA device, D <= MAX_BWD_D.  Allocates the
+    [blocks, D] scratch of dscale's partial sums (2.6 MB at [1024, 2560])."""
+    build.require_cuda("rms_norm_bwd x", x)
+    d = x.shape[-1]
+    build.require("rms_norm_bwd x", x, device=x.device, dtype=torch.float32)
+    build.require("rms_norm_bwd scale", scale, device=x.device,
+                  dtype=torch.float32, shape=(d,))
+    build.require("rms_norm_bwd dy", dy, device=x.device, dtype=torch.float32,
+                  shape=x.shape)
+    if d > MAX_BWD_D:
+        raise ShapeError(f"rms_norm_bwd takes rows of at most {MAX_BWD_D} "
+                         f"floats, got {d}")
+    dx = torch.empty_like(x)
+    n = x.numel() // d if d else 0
+    if n == 0:
+        return dx, torch.zeros_like(scale)
+    dscale = torch.empty_like(scale)
+    lib = build.library()
+    partial = torch.empty(lib.rmsnorm_bwd_scratch_floats(n, d),
+                          dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.rmsnorm_bwd_f32(
+            x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            dscale.data_ptr(), partial.data_ptr(), n, d, float(eps),
+            build.stream_of(x))
+    build.check(err, "rms_norm_bwd")
+    rms_norm_bwd.launches += 1
+    return dx, dscale
+
+
 rms_norm.launches = 0
+rms_norm_bwd.launches = 0
+
+
+class _RmsNorm(torch.autograd.Function):
+    """The forward kernel, and the backward kernel from the saved inputs
+    (r is recomputed, bitwise the forward's)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rms_norm(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rms_norm_bwd(x, scale, dy.contiguous(), ctx.eps)
+        need_x, need_scale, _ = ctx.needs_input_grad
+        return dx if need_x else None, dscale if need_scale else None, None
+
+
+def rms_norm_autograd(x: torch.Tensor, scale: torch.Tensor,
+                      eps: float = 1e-6) -> torch.Tensor:
+    """`rms_norm`, differentiable in x and scale."""
+    return _RmsNorm.apply(x, scale, float(eps))

@@ -16,28 +16,31 @@ def flatten(tree: Tree) -> tuple[list, Any]:
     """-> (leaves in sorted-key order, treedef).  The treedef is the tree
     with every leaf replaced by None; equal treedefs mean equal structure."""
     leaves: list = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(t[k]) for k in sorted(t)}
-        leaves.append(t)
-        return None
 
-    return leaves, walk(tree)
+def _walk(t, leaves: list):
+    # module-level, not a closure: a nested function that calls itself
+    # sits in a reference cycle with the list it fills, which kept every
+    # leaf (a whole training state) alive until the garbage collector ran
+    if isinstance(t, dict):
+        return {k: _walk(t[k], leaves) for k in sorted(t)}
+    leaves.append(t)
+    return None
 
 
 def unflatten(treedef: Any, leaves: list) -> Tree:
     it = iter(leaves)
-
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     if next(it, None) is not None:
         raise ValueError("more leaves than the treedef holds")
     return out
+
+
+def _build(t, it):
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    return next(it)
 
 
 def leaves(tree: Tree) -> list:

@@ -8,7 +8,9 @@ This file imports torch and the port only (the GPU machine has no jax).
 Tolerances: the kernels sum in another order than the plain versions, so
 fp32 results agree to ~1e-6 relative; 1e-5 (rms_norm) and 2e-5 (products)
 leave an order of magnitude of room, 5e-5 for the attention gradients (two
-more contractions).  AdamW runs the plain version's op order with every op
+more contractions).  The backward kernels: rms_norm's dx 1e-5, its dscale
+(a sum over the rows) the worst case of two n-term fp32 sums in different
+orders (`_dscale_tol`), swiglu's gradients 2e-5 of their largest value.  AdamW runs the plain version's op order with every op
 rounded on its own, but its bias correction's pow may differ by an ulp:
 1e-6.  The quantized sync, the split sync's apply and the ring's combine
 and quantize are held bitwise (integer codes, every op rounded on its own,
@@ -28,7 +30,7 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.core import engine as teng
 from repro_torch.core import sync as tsync
 from repro_torch.data.synthetic import VisionStream, vision_batch_fn
-from repro_torch.errors import ConfigError, ShapeError
+from repro_torch.errors import ShapeError
 from repro_torch.kernels import adamw_update as t_ad
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import ops
@@ -100,6 +102,40 @@ def test_swiglu_tile_rows_are_bitwise_independent_of_n(dev, d, f):
 ROW_KERNEL_DIGESTS = {1: "10058d1ca7f4a3c3", 2: "2c314736ff290639",
                       4: "6de4830c458dc090", 5: "1f845f59684d3315",
                       8: "ba1206bd46c907f9"}
+
+
+# sha256 (first 16 hex digits) of the tile path's outputs (every tile: 16,
+# 32, 64 and 128 rows, and D = 98), taken on an NVIDIA H100 80GB HBM3
+# (CUDA 12.8) from `csrc/swiglu.cu` as it was before its epilogue became a
+# template argument for the backward's gate (`python3 tools/grad_checks.py
+# digests DIR`): the forward's tiles keep these bits
+TILE_DIGESTS = {(9, 2560, 1024): "ab49e1525e75ef81",
+                (32, 2560, 1024): "ee6232a53c265f13",
+                (48, 2560, 1024): "13781c2a4fd92636",
+                (1024, 2560, 1024): "8a06886ab9a70044",
+                (4097, 2560, 1024): "69b5f4027a3feb2c",
+                (129, 98, 516): "bd7703d9feaa36ab"}
+
+
+def tile_digest_cases():
+    """{(n, d, f): (x, wg, wi)} on the card, one case per tile."""
+    cases = {}
+    for n, d, f in ((9, 2560, 1024), (32, 2560, 1024), (48, 2560, 1024),
+                    (1024, 2560, 1024), (4097, 2560, 1024), (129, 98, 516)):
+        cases[n, d, f] = (_t(41, n, d), _t(42, d, f, scale=d ** -0.5),
+                          _t(43, d, f, scale=d ** -0.5))
+    return cases
+
+
+def tile_digest(fn, x, wg, wi) -> str:
+    import hashlib
+    return hashlib.sha256(fn(x, wg, wi).cpu().numpy().tobytes()).hexdigest()[
+        :16]
+
+
+def test_swiglu_tile_rows_keep_their_bits(dev):
+    for key, case in tile_digest_cases().items():
+        assert tile_digest(t_sw.swiglu, *case) == TILE_DIGESTS[key], key
 
 
 @pytest.mark.parametrize("n", [1, 2, 4, 5, 8])
@@ -647,6 +683,7 @@ def test_batcher_on_card_launches_kernels_and_matches_cpu(dev):
     L, steps = cfg.n_layers, b.decode_steps
     assert ops.launch_counts() == {"rms_norm": (2 * L + 1) * steps,
                                    "swiglu": L * steps,
+                                   "rms_norm_bwd": 0, "swiglu_bwd": 0,
                                    "flash_decode": L * steps,
                                    "flash_attention_fwd": 0,
                                    "flash_attention_bwd": 0,
@@ -801,44 +838,155 @@ def test_overlap_depth1_on_card_keeps_local_progress_and_matches_cpu(dev):
     assert float(d.max()) <= 4 * 6e-3
 
 
-def test_forward_only_kernels_refuse_autograd_on_card(dev):
-    """rms_norm and swiglu have no backward kernel: under autograd on the
-    card they raise instead of handing back a zero gradient, and without a
-    gradient (no_grad, or no operand that needs one) they launch."""
-    x, scale = _t(1, 4, 64), _t(2, 64)
-    wg, wi = _t(3, 64, 128, scale=0.1), _t(4, 64, 128, scale=0.1)
+def _dscale_tol(x, dy, eps=1e-6):
+    """The bound dscale is held to: 2 n 2^-24 of the largest column sum of
+    |dy x r| over the n rows, the worst case of two n-term fp32 sums in
+    different orders (the kernel's block partials against torch's sum)."""
+    d = x.shape[-1]
+    x2, g2 = x.reshape(-1, d).double(), dy.reshape(-1, d).double()
+    r = torch.rsqrt(torch.mean(x2 * x2, -1, keepdim=True) + eps)
+    return max(2 * x2.shape[0] * 2.0 ** -24
+               * float((g2 * x2 * r).abs().sum(0).max()), RMS_TOL)
+
+
+def _grads_of(fn, ins, dout):
+    xs = [t.detach().clone().requires_grad_(True) for t in ins]
+    out = fn(*xs)
+    return out.detach(), torch.autograd.grad(out, xs, dout)
+
+
+@pytest.mark.parametrize("d", [256, 2560, 2562, 3072, 5120])
+@pytest.mark.parametrize("n", [1, 8, 9, 48, 1024])
+def test_rms_norm_and_swiglu_under_autograd_match_plain(dev, n, d):
+    """`ops.rms_norm` / `ops.swiglu` under autograd on the card (the
+    `_RmsNorm` / `_SwiGLU` Functions: the forward kernel, then
+    `rms_norm_bwd` / `swiglu_bwd`) against autograd of the plain versions:
+    one launch of each; d = 2562 takes rms_norm's strided path and
+    swiglu's unaligned x rows, 5120 (phi3's width) the strided path."""
+    x, sc, dy = _t(1, n, d), _t(2, d), _t(3, n, d)
+    f = 256
+    wg, wi = _t(4, d, f, scale=d ** -0.5), _t(5, d, f, scale=d ** -0.5)
+    dh = _t(6, n, f)
+    ops.reset_launch_counts()
+    out, got = _grads_of(ops.rms_norm, (x, sc), dy)
+    sout, sgot = _grads_of(ops.swiglu, (x, wg, wi), dh)
+    counts = ops.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == dict(
+        rms_norm=1, rms_norm_bwd=1, swiglu=1, swiglu_bwd=1)
+    wout, want = _grads_of(tref.rms_norm, (x, sc), dy)
+    swout, swant = _grads_of(tref.swiglu, (x, wg, wi), dh)
+    torch.testing.assert_close(out, wout, rtol=RMS_TOL, atol=RMS_TOL)
+    torch.testing.assert_close(got[0], want[0], rtol=RMS_TOL,
+                               atol=RMS_TOL * max(1.0, float(
+                                   want[0].abs().max())))
+    torch.testing.assert_close(got[1], want[1], rtol=0.0,
+                               atol=_dscale_tol(x, dy))
+    torch.testing.assert_close(sout, swout, rtol=PROD_TOL, atol=PROD_TOL)
+    for a, b in zip(sgot, swant):
+        torch.testing.assert_close(a, b, rtol=PROD_TOL, atol=PROD_TOL * max(
+            1.0, float(b.abs().max())))
+
+
+@pytest.mark.parametrize("n,d", [(1, 2560), (9, 256), (1024, 2560),
+                                 (1024, 5120), (7, 2562)])
+def test_backward_kernels_are_bitwise_repeatable(dev, n, d):
+    """No float atomics, a grid fixed by the shape: a second call on the
+    same inputs gives the same bits (the overlap and resume gates rest on
+    it)."""
+    x, sc, dy = _t(7, n, d), _t(8, d), _t(9, n, d)
+    a, b = t_rn.rms_norm_bwd(x, sc, dy), t_rn.rms_norm_bwd(x, sc, dy)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+    wg, wi, dh = _t(10, d, 512, scale=0.02), _t(11, d, 512, scale=0.02), \
+        _t(12, n, 512)
+    a, b = t_sw.swiglu_bwd(x, wg, wi, dh), t_sw.swiglu_bwd(x, wg, wi, dh)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+@pytest.mark.parametrize("n", [2, 9, 1024])
+def test_serving_forward_keeps_its_bits_beside_autograd(dev, n):
+    """Without a gradient ops launches the forward kernels alone (no
+    backward launch), and the Functions' forward output is bitwise the
+    same kernel's."""
+    x, sc = _t(13, n, 2560), _t(14, 2560)
+    wg, wi = _t(15, 2560, 1024, scale=0.02), _t(16, 2560, 1024, scale=0.02)
+    want_n, want_s = t_rn.rms_norm(x, sc), t_sw.swiglu(x, wg, wi)
     xg = x.clone().requires_grad_(True)
     ops.reset_launch_counts()
-    with pytest.raises(ConfigError, match="rms_norm backward: not ported"):
-        ops.rms_norm(xg, scale)
-    with pytest.raises(ConfigError, match="rms_norm backward: not ported"):
-        ops.rms_norm(x, scale.clone().requires_grad_(True))
-    with pytest.raises(ConfigError, match="swiglu backward: not ported"):
-        ops.swiglu(xg, wg, wi)
-    with pytest.raises(ConfigError, match="swiglu backward: not ported"):
-        ops.swiglu(x, wg, wi.clone().requires_grad_(True))
-    assert set(ops.launch_counts().values()) == {0}
     with torch.no_grad():
-        ops.rms_norm(xg, scale)
-        ops.swiglu(xg, wg, wi)
-    ops.rms_norm(x, scale)
-    ops.swiglu(x, wg, wi)
-    assert ops.launch_counts()["rms_norm"] == ops.launch_counts()["swiglu"] \
-        == 2
+        assert torch.equal(ops.rms_norm(xg, sc), want_n)
+        assert torch.equal(ops.swiglu(xg, wg, wi), want_s)
+    assert torch.equal(ops.rms_norm(x, sc), want_n)
+    assert torch.equal(ops.swiglu(x, wg, wi), want_s)
+    assert torch.equal(ops.rms_norm(xg, sc).detach(), want_n)
+    assert torch.equal(ops.swiglu(xg, wg, wi).detach(), want_s)
+    assert {k: v for k, v in ops.launch_counts().items() if v} == dict(
+        rms_norm=3, swiglu=3)
 
 
-def test_lm_local_step_on_card_matches_cpu(dev):
-    """One Local AdamW step of starcoder2-smoke (layernorm + GELU: every op
-    on the card differentiable) at W = 2 from the same weights and token
-    batch on the card and on the CPU: the loss and the grad norm within
-    1e-5 relative, the params under the 1-in-2,000 rule of
-    `tests/test_torch_train.py` (AdamW's first step flips where a gradient
-    sits at the sum-order noise), and one attention forward and backward
-    launch per layer per worker."""
+@pytest.mark.parametrize("remat", [False, True])
+def test_remat_repeats_only_the_forward_launches(dev, remat):
+    """gemma3-smoke's loss and gradients on the card: with remat each
+    layer's forward runs again in the backward (torch.utils.checkpoint), so
+    the forward kernels launch twice per layer and the backward kernels
+    once; the gradients agree with remat's within 1e-5 (the tied
+    embedding's gradient is accumulated by index_put_, whose order on the
+    card is not fixed)."""
+    from repro_torch.models import api, param as pm
+    from repro_torch.models import transformer as ttf
+    cfg = TR.get_smoke_config("gemma3-4b")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    params = pm.init_params(api.get_module(cfg).param_defs(cfg), gen,
+                            device="cuda")
+    rng = np.random.default_rng(4)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32))
+                                 .astype(np.int32)).cuda()
+             for k in ("tokens", "labels")}
+    out = {}
+    for r in (False, remat):
+        leaves, treedef = T.flatten(params)
+        alias = [x.detach().requires_grad_(True) for x in leaves]
+        ops.reset_launch_counts()
+        loss = ttf.loss_fn(cfg, T.unflatten(treedef, alias), batch, remat=r)
+        grads = torch.autograd.grad(loss, alias)
+        torch.cuda.synchronize()
+        out[r] = (grads, {k: v for k, v in ops.launch_counts().items() if v})
+    n, fwd = cfg.n_layers, 2 if remat else 1
+    assert out[remat][1] == dict(
+        rms_norm=2 * n * fwd + 1, rms_norm_bwd=2 * n + 1, swiglu=n * fwd,
+        swiglu_bwd=n, flash_attention_fwd=n * fwd, flash_attention_bwd=n)
+    for a, b in zip(out[False][0], out[remat][0]):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5 * max(
+            1.0, float(a.abs().max())))
+
+
+def test_backward_wrappers_reject_bad_operands(dev):
+    x = _t(1, 4, 64)
+    with pytest.raises(ShapeError, match="shape"):
+        t_rn.rms_norm_bwd(x, _t(2, 64), _t(3, 4, 63))
+    with pytest.raises(ShapeError, match="at most"):
+        big = t_rn.MAX_BWD_D + 1
+        t_rn.rms_norm_bwd(_t(1, 1, big), _t(2, big), _t(3, 1, big))
+    with pytest.raises(ShapeError, match="dh"):
+        t_sw.swiglu_bwd(x, _t(2, 64, 96), _t(3, 64, 96), _t(4, 4, 92))
+    with pytest.raises(ShapeError, match="dtype"):
+        t_sw.swiglu_bwd(x, _t(2, 64, 96), _t(3, 64, 96),
+                        _t(4, 4, 96).double())
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "gemma3-4b"])
+def test_lm_local_step_on_card_matches_cpu(dev, arch):
+    """One Local AdamW step of starcoder2-smoke (layernorm + GELU) or
+    gemma3-smoke (rms_norm + SwiGLU through their backward kernels) at W =
+    2 from the same weights and token batch on the card and on the CPU: the
+    loss and the grad norm within 1e-5 relative, the params under the
+    1-in-2,000 rule of `tests/test_torch_train.py` (AdamW's first step flips
+    where a gradient sits at the sum-order noise), and one attention
+    forward and backward launch per layer per worker (gemma3: one rms_norm
+    and rms_norm_bwd per norm, one swiglu and swiglu_bwd per layer)."""
     from repro_torch.core import local_update as LU
     from repro_torch.data.synthetic import TokenStream, make_train_batch
     from repro_torch.models import api, param as pm
-    cfg = TR.get_smoke_config("starcoder2-3b")
+    cfg = TR.get_smoke_config(arch)
     run = RunConfig(peak_lr=3e-3, remat=False)
     gen = torch.Generator().manual_seed(5)
     host = pm.init_params(api.get_module(cfg).param_defs(cfg), gen)
@@ -855,6 +1003,10 @@ def test_lm_local_step_on_card_matches_cpu(dev):
     assert counts["flash_attention_fwd"] == counts["flash_attention_bwd"] \
         == 2 * cfg.n_layers
     assert counts["adamw_update"] == len(T.leaves(sh["params"]))
+    gemma = arch == "gemma3-4b"
+    norms, mlps = 2 * (2 * cfg.n_layers + 1), 2 * cfg.n_layers
+    assert counts["rms_norm"] == counts["rms_norm_bwd"] == gemma * norms
+    assert counts["swiglu"] == counts["swiglu_bwd"] == gemma * mlps
     for a, b in zip(T.leaves(sc["params"]), T.leaves(sh["params"])):
         d = (a.cpu() - b).abs()
         assert int((d > 1e-5 * (1 + b.abs())).sum()) <= max(1, b.numel() //

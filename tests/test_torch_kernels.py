@@ -354,7 +354,8 @@ def test_ops_cpu_tensors_take_the_plain_versions():
                          tref.sync_flat_update(p, a, scale=sc)):
         assert (got is None and want is None) or torch.equal(got, want)
     assert set(ops.launch_counts()) == {
-        "rms_norm", "swiglu", "flash_decode", "flash_attention_fwd",
+        "rms_norm", "swiglu", "rms_norm_bwd", "swiglu_bwd", "flash_decode",
+        "flash_attention_fwd",
         "flash_attention_bwd", "adamw_update", "sync_flat_update",
         "sync_apply_update", "ring_combine", "ring_quantize"}
     assert set(ops.launch_counts().values()) == {0}
