@@ -10,7 +10,8 @@ serving kernels also at a long serving shape: 8 slots of a 4096-row cache;
 `swiglu` also at 16 to 4096 rows, where its tensor-core tiles run;
 `flash_decode` also at starcoder2-3b's 12-head GQA groups), and the two
 backward kernels, `rms_norm_bwd` and `swiglu_bwd`, at gemma3-4b's
-training rows (`rms_norm_bwd` also at phi3's d = 5120).
+training rows (`rms_norm_bwd` also at phi3's d = 5120, `swiglu_bwd`, from
+the pair its forward keeps, also at twice the rows).
 Then it drives both of the port's paths on the card:
 
 * serving: gemma3-4b at full width (random weights drawn on the card from
@@ -40,8 +41,9 @@ Then it drives both of the port's paths on the card:
   and the card against the CPU at 2 layers; gemma3-4b Local AdamW under
   QSR at full width (2 layers, W = 4 x 1 sequence of 1024 tokens, the
   same recipe, 8 steps: every norm and MLP through the `rms_norm` /
-  `swiglu` autograd Functions and their backward kernels), and its card
-  against the CPU at 2 layers;
+  `swiglu` autograd Functions and their backward kernels, and in a
+  profiled step one swiglu forward tile and one dW and dX launch a layer
+  and lane), and its card against the CPU at 2 layers;
 * checkpoints: ViT-B/16's W = 4 state saved in the tree layout after 2
   rounds and resumed in the flat layout, bitwise the run without the
   checkpoint, with save and restore rates; and train to serve: starcoder2-3b
@@ -100,8 +102,8 @@ PROMPT_LENS = (16, 48, 32, 24)        # 4 requests, 16-48 tokens: slots recycle
 # order), its dscale, a sum over the n rows, to the worst case of two
 # n-term fp32 sums in different orders, 2 n 2^-24 of the largest column
 # sum of |dy x r| (`dscale_tol`); swiglu_bwd's gradients like the products
-# (its dwg and dwi sum over the N rows in cuBLAS on both sides, from dg
-# and du within 2e-5)
+# (3xTF32 sums over N or 2F against fp32 ones, from the same pair; end to
+# end, and the pair against the plain forward's, within 2e-5 too)
 TOL = {"rms_norm": 1e-5, "swiglu": 2e-5, "rms_norm_bwd": 1e-5,
        "swiglu_bwd": 2e-5, "flash_decode": 2e-5,
        "flash_attention_fwd": 2e-5, "flash_attention_bwd": 5e-5,
@@ -862,61 +864,75 @@ def dscale_tol(torch, x, dy, eps: float = 1e-6) -> float:
                                                   .max())
 
 
-def swiglu_bwd_row(torch, timer, rnd, n, d, f) -> dict:
-    """swiglu_bwd at x [n, d], wg / wi [d, f] (the main path's shape):
-    held, repeated, timed."""
-    from repro_torch.kernels import build, ref
+def swiglu_bwd_row(torch, timer, rnd, n, d, f, main=True) -> dict:
+    """swiglu_bwd at x [n, d], wg / wi [d, f] from the pair the forward
+    under autograd keeps (`swiglu_fwd`, its out bitwise `swiglu`'s): held
+    against the plain backward on the same pair, and end to end against
+    the plain forward and backward; repeated (bitwise); timed whole beside
+    the plain version, the library's grad (autograd through the composed
+    call, which keeps g and u from its forward) and the forward with and
+    without the pair; and each of its three launches (the gate, dW, dX)
+    by its own device time in a profile of whole calls."""
+    from repro_torch.kernels import ref
     from repro_torch.kernels import swiglu as _sw
     F = torch.nn.functional
     x, dh = rnd(n, d), rnd(n, f)
     wg, wi = rnd(d, f, std=d ** -0.5), rnd(d, f, std=d ** -0.5)
-    got = _sw.swiglu_bwd(x, wg, wi, dh)
-    got2 = _sw.swiglu_bwd(x, wg, wi, dh)
-    want = ref.swiglu_bwd(x, wg, wi, dh)
+    out, p, q = _sw.swiglu_fwd(x, wg, wi)
+    same_out = bool(torch.equal(out, _sw.swiglu(x, wg, wi)))
+    got = _sw.swiglu_bwd(x, wg, wi, p, q, dh)
+    got2 = _sw.swiglu_bwd(x, wg, wi, p, q, dh)
+    want = ref.swiglu_bwd(x, wg, wi, p, q, dh)
+    _, pp, qp = ref.swiglu_fwd(x, wg, wi)
+    plain_all = ref.swiglu_bwd(x, wg, wi, pp, qp, dh)
     torch.cuda.synchronize()
-    same = all(bool(torch.equal(a, b)) for a, b in zip(got, got2))
     label = f"[{n},{d}]x[{d},{f}]"
+    check(same_out, f"swiglu_fwd {label}: out differs from swiglu's bits")
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, got2))
     check(same, f"swiglu_bwd {label}: a second run differs")
-    errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
-            for a, b in zip(got, want)]
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
+    errs = [rel(a, b) for a, b in zip(got, want)]
+    errs_all = [rel(a, b) for a, b in zip(got, plain_all)]
+    pair_errs = [rel(p, pp), rel(q, qp)]
+    for e in errs_all + pair_errs:
+        check(e <= TOL["swiglu_bwd"], f"swiglu_bwd {label}: end to end "
+              f"{errs_all}, pair {pair_errs} > {TOL['swiglu_bwd']}")
     worst = max(range(3), key=lambda i: errs[i])
     row = check_row("swiglu_bwd", label,
                     float((got[worst] - want[worst]).abs().max()),
-                    float(want[worst].abs().max()), True, bitwise_repeat=same,
-                    rel_errs_dx_dwg_dwi=errs)
-    del got, got2, want
+                    float(want[worst].abs().max()), main, bitwise_repeat=same,
+                    out_bitwise_forward=same_out, rel_errs_dx_dwg_dwi=errs,
+                    rel_errs_end_to_end=errs_all, rel_errs_pair=pair_errs)
+    del got, got2, want, pp, qp, plain_all
     xr, gr, ir = (t.clone().requires_grad_(True) for t in (x, wg, wi))
     lib_out = F.silu(xr @ gr) * (xr @ ir)
-    ops_tc, ops_fp32 = 4.0 * n * d * f, 8.0 * n * d * f
-    timed_row(row, timer, lambda: _sw.swiglu_bwd(x, wg, wi, dh),
-              lambda: ref.swiglu_bwd(x, wg, wi, dh),
+    ops = 8.0 * n * d * f + 2.0 * n * f
+    timed_row(row, timer, lambda: _sw.swiglu_bwd(x, wg, wi, p, q, dh),
+              lambda: ref.swiglu_bwd(x, wg, wi, p, q, dh),
               lambda: torch.autograd.grad(lib_out, (xr, gr, ir), dh,
                                           retain_graph=True),
-              4.0 * (2 * n * d + 4 * d * f + n * f), ops_tc + ops_fp32)
-    # the recompute in 3xTF32 on the tensor cores, the products in fp32
-    tc_ms = 3.0 * ops_tc / PEAK_TF32_FLOP_PER_S * 1e3
-    fp32_ms = ops_fp32 / PEAK_FP32_FLOP_PER_S * 1e3
-    row["bound_fp32_ms"], row["bound_fp32_by"] = row["bound_ms"], \
-        row["bound_by"]
-    row["bound_ms"], row["bound_by"] = max(tc_ms + fp32_ms, row["bytes"]
-                                           / PEAK_BYTES_PER_S * 1e3), \
-        "operations"
-    row.update(bound_recompute_ms=tc_ms, bound_products_ms=fp32_ms,
-               bound_share=row["bound_ms"] / row["ms"])
-    dg, du = torch.empty(n, f, device="cuda"), torch.empty(n, f, device="cuda")
-    lib = build.library()
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def gate():
-        build.check(lib.swiglu_bwd_gate_f32(
-            x.data_ptr(), wg.data_ptr(), wi.data_ptr(), dh.data_ptr(),
-            dg.data_ptr(), du.data_ptr(), n, d, f, stream), "swiglu_bwd gate")
-    row["gate_ms"] = timer(gate)
-    row["gate_bound_ms"] = max(tc_ms, 4.0 * (n * d + 2 * d * f + 3 * n * f)
-                               / PEAK_BYTES_PER_S * 1e3)
+              4.0 * (2 * n * d + 4 * d * f + 3 * n * f), ops)
+    tensor_core_bound(row)
+    # each launch's mean device time over 5 whole calls back to back (the
+    # profiler's kernel rows; no L2 flush between calls): the gate (dg = dh
+    # p, du = dh q), dW (x^T [dg | du]) and dX, half the products each
+    calls = 5
+    prof = profile_device_ms(torch, lambda: [
+        _sw.swiglu_bwd(x, wg, wi, p, q, dh) for _ in range(calls)], top=40,
+        count=("gate_kernel", "swiglu_dw_kernel", "swiglu_dx_kernel"))
+    for key, name in (("gate_ms", "gate_kernel"), ("dw_ms", "swiglu_dw_kernel"),
+                      ("dx_ms", "swiglu_dx_kernel")):
+        check(prof["calls"][name] == calls,
+              f"swiglu_bwd {label}: {prof['calls'][name]} {name} launches "
+              f"in {calls} calls")
+        row[key] = sum(t["ms"] for t in prof["top"] if name in t["name"]) / calls
+    row["dw_bound_ms"] = row["dx_bound_ms"] = row["bound_ms"] / 2
     row["forward_ms"] = timer(lambda: _sw.swiglu(x, wg, wi))
+    row["forward_pair_ms"] = timer(lambda: _sw.swiglu_fwd(x, wg, wi))
     emit("kernel_check", **row)
-    del x, dh, wg, wi, xr, gr, ir, lib_out, dg, du
+    del x, dh, wg, wi, xr, gr, ir, lib_out, out, p, q
     return row
 
 
@@ -926,10 +942,11 @@ def phase_backward_kernels(torch):
     d = 5120 (its strided path), each twice on the same inputs (bitwise),
     with kernel / plain / library / bound times.  The library: autograd.grad
     through `F.rms_norm` and through the composed `F.silu(x@wg) * (x@wi)`
-    (graphs built once, outside the timing).  swiglu_bwd's bound adds the
-    recompute's 4 N D F operations in 3xTF32 and the four products' 8 N D F
-    in fp32; its gate kernel alone is timed beside it (`gate_ms`).  Returns
-    the main path's rows by kernel."""
+    (graphs built once, outside the timing).  swiglu_bwd runs from the pair
+    its forward keeps, also at 2 x 1024 rows; its bound is its four
+    products' 8 N D F operations in 3xTF32 on the tensor cores (the fp32
+    bound beside it), its gate, dW and dX launches' device times beside it.
+    Returns the main path's rows by kernel."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as _rn
     F = torch.nn.functional
@@ -972,6 +989,12 @@ def phase_backward_kernels(torch):
 
     summary["swiglu_bwd"] = swiglu_bwd_row(torch, timer, rnd, BWD_ROWS, 2560,
                                            10240)
+    summary["swiglu_bwd"]["rows_2x"] = {
+        k: v for k, v in swiglu_bwd_row(torch, timer, rnd, 2 * BWD_ROWS, 2560,
+                                        10240, main=False).items()
+        if k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                 "bound_fp32_ms", "gate_ms", "dw_ms", "dx_ms",
+                 "max_abs_err")}
     torch.cuda.empty_cache()
     return summary
 
@@ -2037,23 +2060,27 @@ def lm_step_flops(cfg, seqs: int, seq: int) -> float:
     return 3.0 * lm_forward_flops(cfg, seqs, seq)
 
 
-def profile_device_ms(torch, fn, top: int = 12, by_op: bool = False) -> dict:
+def profile_device_ms(torch, fn, top: int = 12, by_op: bool = False,
+                      count=()) -> dict:
     """Device time by kernel name over one call of `fn`, from
     torch.profiler's CUDA activity: the sum over every kernel and the `top`
-    names by time.  With `by_op` also the device time of the kernels each
+    names by time, and the launches of the kernels whose names hold each
+    string in `count`.  With `by_op` also the device time of the kernels each
     aten op launched itself (not through a nested op), and the device span
     from the first kernel's start to the last one's end (kernels and the
     gaps between), over a second call after one profiled as warm-up: a
-    profile that starts with the call can miss its first kernels."""
+    profile that starts with the call can miss its first kernels (also
+    the call `count` reads)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
+    warm = by_op or bool(count)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
-                 if by_op else None) as prof:
-        for _ in range(2 if by_op else 1):
+                 if warm else None) as prof:
+        for _ in range(2 if warm else 1):
             fn()
             torch.cuda.synchronize()
-            if by_op:
+            if warm:
                 prof.step()
     averages = prof.key_averages()
     # with a schedule the step's own range shows as a device row: skip it
@@ -2065,7 +2092,8 @@ def profile_device_ms(torch, fn, top: int = 12, by_op: bool = False) -> dict:
                   key=lambda r: -r[1])
     out = {"kernel_ms": sum(r[1] for r in rows),
            "top": [dict(name=n[:100], ms=ms, calls=c)
-                   for n, ms, c in rows[:top]]}
+                   for n, ms, c in rows[:top]],
+           "calls": {m: sum(c for n, _, c in rows if m in n) for m in count}}
     if by_op:
         spans = [e.time_range for e in prof.events()
                  if e.device_type == DeviceType.CUDA]
@@ -2118,9 +2146,10 @@ def run_lm(torch, np, phase, cfg, run, eng, trace, n_params=None):
               f"{phase}: lanes differ after the sync at {t}")
         check_s[0] += time.perf_counter() - t0
 
-    # what a previous phase left in reference cycles (an engine refers to
-    # itself through its batch function) waits for the garbage collector:
-    # collect it, so this peak is this path's
+    # whatever a previous phase left in reference cycles waits for the
+    # garbage collector (engines and finished runs no longer make any:
+    # `tools/grad_checks.py remat_cycle`): collect it, so this peak is
+    # this path's
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2169,18 +2198,26 @@ def phase_train_gemma3(torch, np):
     `train_lm`."""
     per_w = G3_W * LM_STEPS
     norms, layers = (2 * G3_LAYERS + 1) * per_w, G3_LAYERS * per_w
+    mlps = G3_LAYERS * G3_W              # a profiled step's MLP calls
     return train_lm_path(
         torch, np, "train_gemma3", G3_ARCH, G3_W, G3_B, G3_SEQ, G3_PARAMS,
         dict(rms_norm=norms, rms_norm_bwd=norms, swiglu=layers,
              swiglu_bwd=layers, flash_attention_fwd=layers,
-             flash_attention_bwd=layers, adamw_update=G3_LEAVES * LM_STEPS))
+             flash_attention_bwd=layers, adamw_update=G3_LEAVES * LM_STEPS),
+        kernel_calls={"swiglu_tile_kernel": mlps, "swiglu_kernel": 0,
+                      "swiglu_dw_kernel": mlps, "swiglu_dx_kernel": mlps})
 
 
-def train_lm_path(torch, np, phase, arch, w, b, seq, n_params, launches):
+def train_lm_path(torch, np, phase, arch, w, b, seq, n_params, launches,
+                  kernel_calls=None):
     """`arch` at full width cut to 2 layers through `train()` (W = w x b
     sequences of `seq` tokens, LM_STEPS steps of the LM recipe), its launch
     counts exactly `launches` (every other kernel 0), then one local step's
-    device time and profile.  Returns the counts."""
+    device time and profile, in which the device kernels whose names hold
+    each key of `kernel_calls` ran exactly its value times (gemma3: one
+    swiglu forward tile a layer and lane, which keeps the pair, and its dW
+    and dX launches: the backward recomputes no forward product).  Returns
+    the counts."""
     from repro_torch import tree as T
     from repro_torch.core import local_update as LU
     from repro_torch.data.synthetic import make_train_batch
@@ -2207,7 +2244,11 @@ def train_lm_path(torch, np, phase, arch, w, b, seq, n_params, launches):
     ev[1].record()
     torch.cuda.synchronize()
     device_ms = ev[0].elapsed_time(ev[1]) / 2
-    prof = profile_device_ms(torch, lambda: step_fn(state, batch, 1e-6))
+    prof = profile_device_ms(torch, lambda: step_fn(state, batch, 1e-6),
+                             count=tuple(kernel_calls or ()))
+    if kernel_calls:
+        check(prof["calls"] == kernel_calls, f"{phase}: kernel calls in a "
+              f"profiled step {prof['calls']} != {kernel_calls}")
 
     tokens = w * b * seq
     flops = lm_step_flops(cfg, w * b, seq)
@@ -2609,9 +2650,9 @@ def main() -> int:
     for name in (SERVING_KERNELS + TRAINING_KERNELS + SYNC_KERNELS
                  + BACKWARD_KERNELS):
         t = timed[name]
-        extra = {key: t[key] for key in ("bound_fp32_ms", "bound_fp32_by",
-                                         "gate_ms", "gate_bound_ms")
-                 if key in t}
+        extra = {key: t[key] for key in (
+            "bound_fp32_ms", "bound_fp32_by", "gate_ms", "dw_ms", "dx_ms",
+            "forward_ms", "forward_pair_ms", "rows_2x") if key in t}
         if name in lm_shapes:
             extra["lm_path"] = [
                 {key: rows[name, label][key] for key in (

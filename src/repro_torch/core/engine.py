@@ -175,9 +175,7 @@ class RoundEngine:
         self.mode, self.data, self.layout = mode, data, layout
         self.sync_mode, self.overlap_depth = sync, overlap_depth
         self.stream = TokenStream(vocab=max(cfg.vocab, 2), seed=seed)
-        self._host_batch = batch_fn or (
-            lambda step: make_train_batch(self.cfg, self.stream, step,
-                                          self.workers, self.b_loc, self.seq))
+        self._batch_fn = batch_fn           # None: the built-in stream
         self.spec = None                    # FlatParamSpace (layout="flat")
         self._step = self._sync = None
         self._pending = None                # overlap: the in-flight reduce
@@ -188,6 +186,17 @@ class RoundEngine:
         self.h_trace: list[tuple[int, int]] = []    # (t_start, h) executed
         self.round_metrics: list[dict] = []         # per round, device scalars
         self.data_seconds = 0.0                     # host time in batch_fn
+
+    def _host_batch(self, step: int) -> Tree:
+        """The batch of local step `step`: `batch_fn`'s, or the built-in
+        stream's at the engine's current W.  A method, not a lambda kept on
+        the engine: a lambda that reads `self` would keep the engine (and
+        through it the run's state) alive in a reference cycle after
+        `del`."""
+        if self._batch_fn is not None:
+            return self._batch_fn(step)
+        return make_train_batch(self.cfg, self.stream, step, self.workers,
+                                self.b_loc, self.seq)
 
     # -- state ------------------------------------------------------------
 

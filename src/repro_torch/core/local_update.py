@@ -23,6 +23,12 @@ from functools import partial
 from typing import Any
 
 import torch
+# torch.utils.checkpoint (the models' remat) imports torch._dynamo on its
+# first call; imported there, under the training frames, the import keeps
+# those frames, and the run's state in their locals, alive in a reference
+# cycle.  Imported here, before any run, and not by the models, so that
+# a server, which loads them too, does not pay for the import
+import torch._dynamo  # noqa: F401
 
 from repro_torch import tree as T
 from repro_torch.core.sync import make_sync
@@ -95,8 +101,11 @@ def make_local_step(cfg, run_cfg, *, with_metrics: bool = False, spec=None):
             loss = torch.mean(losses.detach())
             if not with_metrics:
                 return new_state, loss
-            sq = sum(torch.sum(torch.square(g.float()),
-                               dim=tuple(range(1, g.ndim))) for g in grads)
+            # lane by lane: a whole leaf's squares at once (10 GiB for
+            # gemma3-4b's stacked embedding gradient at W = 4) would be the
+            # step's largest transient
+            sq = sum(torch.stack([torch.sum(torch.square(gl.float()))
+                                  for gl in g]) for g in grads)
             return new_state, (loss, torch.mean(torch.sqrt(sq)))
 
     return local_step

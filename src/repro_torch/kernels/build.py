@@ -122,7 +122,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.rmsnorm_bwd_scratch_floats.argtypes = [_I, _I]
     lib.rmsnorm_bwd_scratch_floats.restype = _L
     lib.swiglu_f32.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
-    lib.swiglu_bwd_gate_f32.argtypes = [_P] * 6 + [_I, _I, _I, _P]
+    lib.swiglu_fwd_pair_f32.argtypes = [_P] * 6 + [_I, _I, _I, _P]
+    lib.swiglu_bwd_f32.argtypes = [_P] * 10 + [_I, _I, _I, _P]
+    lib.swiglu_bwd_scratch_floats.argtypes = [_I, _I]
+    lib.swiglu_bwd_scratch_floats.restype = _L
     lib.swiglu_tile_min_rows.argtypes = []
     lib.swiglu_tile_min_rows.restype = _I
     lib.flash_decode_f32.argtypes = [_P] * 7 + [_I] * 7 + [_F, _I, _P]
@@ -146,7 +149,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.cuda_error_string.argtypes = [_I]
     lib.cuda_error_string.restype = ctypes.c_char_p
     for fn in (lib.rmsnorm_f32, lib.rmsnorm_bwd_f32, lib.swiglu_f32,
-               lib.swiglu_bwd_gate_f32, lib.flash_decode_f32,
+               lib.swiglu_fwd_pair_f32, lib.swiglu_bwd_f32,
+               lib.flash_decode_f32,
                lib.flash_attention_fwd_f32, lib.flash_attention_bwd_f32,
                lib.adamw_update_f32, lib.sync_flat_update_f32,
                lib.sync_apply_update_f32, lib.ring_combine_f32,

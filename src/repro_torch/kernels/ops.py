@@ -99,8 +99,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 def swiglu(x, wg, wi):
     """Fused silu(x@wg)*(x@wi) — the MLP hot spot.  On CUDA under autograd
-    the differentiable `_SwiGLU` (the `swiglu_bwd` gate kernel and four fp32
-    products in the backward), else the forward kernel."""
+    the differentiable `_SwiGLU` (the forward kernel keeping the pair its
+    backward reads, and the two `swiglu_bwd` product launches in the
+    backward), else the forward kernel."""
     if _on_cuda(x, "swiglu"):
         if _needs_grad(x, wg, wi):
             return _sw.swiglu_autograd(x, wg, wi)

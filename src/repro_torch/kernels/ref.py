@@ -224,43 +224,36 @@ def swiglu(x, wg, wi):
     return (F.silu(g) * u).to(x.dtype)
 
 
-def swiglu_bwd_gate(x, wg, wi, dh):
-    """The gate of `swiglu`'s backward: x [N, D], dh [N, F] -> (dg, du) [N,
-    F] fp32, with g = x@wg and u = x@wi recomputed, dg = dh u sigma(g) (1 +
-    g (1 - sigma(g))) (torch's `silu_backward` form) and du = dh silu(g)."""
+def swiglu_fwd(x, wg, wi):
+    """`swiglu` and the pair its backward reads: (out, p, q) with out
+    bitwise `swiglu`'s, p = u sigma(g) (1 + g (1 - sigma(g))) (torch's
+    `silu_backward` form) and q = silu(g) [..., F] fp32, so that dg = dh p
+    and du = dh q."""
     xf = x.float()
     g = xf @ wg.float()
     u = xf @ wi.float()
+    q = F.silu(g)
     sig = torch.sigmoid(g)
-    dhf = dh.float()
-    return dhf * u * sig * (1.0 + g * (1.0 - sig)), dhf * F.silu(g)
+    return (q * u).to(x.dtype), u * sig * (1.0 + g * (1.0 - sig)), q
 
 
-def swiglu_bwd_products(x, wg, wi, dg, du, need=(True, True, True)):
-    """The four products of `swiglu`'s backward from the gate's dg and du
-    (x [N, D]): (dx = dg wg^T + du wi^T, dwg = x^T dg, dwi = x^T du), None
-    where `need` says the operand needs no gradient.  fp32 products (TF32
-    off).  The card's `swiglu_bwd` runs these too after its gate kernel:
-    plain GEMMs on every device, as the JAX package leaves them to XLA."""
-    xf = x.float()
+def swiglu_bwd(x, wg, wi, p, q, dh, need=(True, True, True)):
+    """Gradients of `swiglu` from the pair `swiglu_fwd` returns, for the
+    output gradient dh [..., F]: (dx [..., D], dwg [D, F], dwi [D, F]) in
+    the operands' dtypes, fp32 inside, over x's rows flattened, with dg =
+    dh p, du = dh q, dx = dg wg^T + du wi^T, dwg = x^T dg, dwi = x^T du
+    (fp32 products, TF32 off); None for an operand `need` marks as needing
+    none (its products do not run)."""
+    d, f = wg.shape
+    xf = x.float().reshape(-1, d)
+    dhf = dh.float().reshape(-1, f)
+    dg, du = dhf * p.reshape(-1, f), dhf * q.reshape(-1, f)
     dx = dwg = dwi = None
     if need[0]:
         dx = torch.addmm(dg @ wg.float().T, du, wi.float().T)
+        dx = dx.reshape(x.shape).to(x.dtype)
     if need[1]:
-        dwg = xf.T @ dg
+        dwg = (xf.T @ dg).to(wg.dtype)
     if need[2]:
-        dwi = xf.T @ du
+        dwi = (xf.T @ du).to(wi.dtype)
     return dx, dwg, dwi
-
-
-def swiglu_bwd(x, wg, wi, dh, need=(True, True, True)):
-    """Gradients of `swiglu` for the output gradient dh [..., F]: (dx [...,
-    D], dwg [D, F], dwi [D, F]) in the operands' dtypes, fp32 inside, over
-    x's rows flattened; None for an operand `need` marks as needing none."""
-    d, f = wg.shape
-    x2 = x.reshape(-1, d)
-    dg, du = swiglu_bwd_gate(x2, wg, wi, dh.reshape(-1, f))
-    dx, dwg, dwi = swiglu_bwd_products(x2, wg, wi, dg, du, need)
-    return (None if dx is None else dx.reshape(x.shape).to(x.dtype),
-            None if dwg is None else dwg.to(wg.dtype),
-            None if dwi is None else dwi.to(wi.dtype))

@@ -7,13 +7,17 @@ its plain PyTorch version (`kernels/ref.py`), which CPU tensors take through
 `kernels/ops.py`.  `swiglu.launches` counts launches: one per call.
 
 The backward is the port's own (the Pallas kernel has no VJP: the JAX
-package differentiates `ref.swiglu`).  `swiglu_bwd` launches the gate
-kernel `swiglu_bwd_gate_f32`, which recomputes x@wg and x@wi on the tile
-path and writes dg and du, then runs the four products dx = dg wg^T + du
-wi^T, dwg = x^T dg and dwi = x^T du as fp32 `torch.matmul` / `addmm` (TF32
-off), as the JAX package leaves them to XLA; `swiglu_bwd.launches` counts
-its calls (one gate launch and the products each).  `plain_bwd` is its
-plain version.  `swiglu_autograd` is the differentiable call (`_SwiGLU`).
+package differentiates `ref.swiglu`, which keeps g and u from its
+forward).  Under autograd `swiglu_fwd` launches the forward with a third
+epilogue that writes `out` with the same bits and also the pair p = u
+sigma(g) (1 + g (1 - sigma(g))), q = silu(g) (`swiglu_fwd_pair_f32`), and
+`swiglu_bwd` writes the gate dg = dh p, du = dh q once into a scratch
+and runs the four products from it on the 3xTF32 tensor-core tiles in two
+launches (`swiglu_bwd_f32`: dW = x^T [dg | du], then dX = dg wg^T + du
+wi^T): nothing is recomputed, and no product goes to cuBLAS.  `swiglu_fwd` counts under
+`swiglu.launches`, `swiglu_bwd.launches` one per call.  `plain_fwd` and
+`plain_bwd` are their plain versions.  `swiglu_autograd` is the
+differentiable call (`_SwiGLU`).
 
 The C entry picks the path from the row count N: up to 8 rows (decode) the
 fp32 row kernel, which reads the weights once per tile of 1, 2, 4 or 8
@@ -31,7 +35,7 @@ from repro_torch.errors import ShapeError
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import swiglu as plain  # noqa: F401
 from repro_torch.kernels.ref import swiglu_bwd as plain_bwd  # noqa: F401
-from repro_torch.kernels.ref import swiglu_bwd_products
+from repro_torch.kernels.ref import swiglu_fwd as plain_fwd  # noqa: F401
 
 _MAX_ROWS = 65535 * 8          # the rows the wrapper takes: 65535 tiles of 8
 
@@ -74,27 +78,58 @@ def swiglu(x: torch.Tensor, wg: torch.Tensor,
     return out
 
 
+def swiglu_fwd(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor):
+    """`swiglu` and the pair its backward reads: (out, p, q), out bitwise
+    `swiglu`'s (the same path at every N), p and q [..., F] (`plain_fwd`'s
+    semantics).  `swiglu`'s operand contract; one launch."""
+    n, d, f = _check("swiglu", x, wg, wi)
+    out = torch.empty(x.shape[:-1] + (f,), dtype=x.dtype, device=x.device)
+    p, q = torch.empty_like(out), torch.empty_like(out)
+    if n == 0:
+        return out, p, q
+    with torch.cuda.device(x.device):
+        err = build.library().swiglu_fwd_pair_f32(
+            x.data_ptr(), wg.data_ptr(), wi.data_ptr(), out.data_ptr(),
+            p.data_ptr(), q.data_ptr(), n, d, f, build.stream_of(x))
+    build.check(err, "swiglu_fwd")
+    swiglu.launches += 1
+    return out, p, q
+
+
 def swiglu_bwd(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
-               dh: torch.Tensor, need=(True, True, True)):
-    """Gradients of `swiglu` for dh [..., F]: (dx [..., D], dwg [D, F], dwi
-    [D, F]), None where `need` marks an operand that needs none (its
-    products do not run).  `swiglu`'s operand contract; dh fp32, contiguous,
-    16-byte aligned.  Allocates dg and du [N, F] (42 MB each at [1024,
-    10240])."""
+               p: torch.Tensor, q: torch.Tensor, dh: torch.Tensor,
+               need=(True, True, True)):
+    """Gradients of `swiglu` from `swiglu_fwd`'s pair p, q for dh [..., F]:
+    (dx [..., D], dwg [D, F], dwi [D, F]), None where `need` marks an
+    operand that needs none (its products do not run).  `swiglu`'s operand
+    contract; p, q and dh fp32 [..., F], contiguous, 16-byte aligned.
+    Allocates the gate's scratch the library asks for (dg and du, [2, N,
+    F]: 84 MB at [1024, 10240])."""
     n, d, f = _check("swiglu_bwd", x, wg, wi)
-    build.require("swiglu_bwd dh", dh, device=x.device, dtype=torch.float32,
-                  shape=x.shape[:-1] + (f,), aligned=True)
-    dg = torch.empty((n, f), dtype=torch.float32, device=x.device)
-    du = torch.empty_like(dg)
-    if n:
-        with torch.cuda.device(x.device):
-            err = build.library().swiglu_bwd_gate_f32(
-                x.data_ptr(), wg.data_ptr(), wi.data_ptr(), dh.data_ptr(),
-                dg.data_ptr(), du.data_ptr(), n, d, f, build.stream_of(x))
-        build.check(err, "swiglu_bwd")
-    dx, dwg, dwi = swiglu_bwd_products(x.reshape(n, d), wg, wi, dg, du, need)
+    for nm, t in (("p", p), ("q", q), ("dh", dh)):
+        build.require(f"swiglu_bwd {nm}", t, device=x.device,
+                      dtype=torch.float32, shape=x.shape[:-1] + (f,),
+                      aligned=True)
+    dx = torch.empty_like(x) if need[0] else None
+    dwg = torch.empty_like(wg) if need[1] else None
+    dwi = torch.empty_like(wi) if need[2] else None
+    if n == 0:
+        return dx, None if dwg is None else dwg.zero_(), \
+            None if dwi is None else dwi.zero_()
+    lib = build.library()
+    scratch = torch.empty(lib.swiglu_bwd_scratch_floats(n, f),
+                          dtype=torch.float32, device=x.device)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+    with torch.cuda.device(x.device):
+        err = lib.swiglu_bwd_f32(
+            x.data_ptr(), wg.data_ptr(), wi.data_ptr(), p.data_ptr(),
+            q.data_ptr(), dh.data_ptr(), ptr(dx), ptr(dwg), ptr(dwi),
+            scratch.data_ptr(), n, d, f, build.stream_of(x))
+    build.check(err, "swiglu_bwd")
     swiglu_bwd.launches += 1
-    return None if dx is None else dx.reshape(x.shape), dwg, dwi
+    return dx, dwg, dwi
 
 
 swiglu.launches = 0
@@ -102,18 +137,19 @@ swiglu_bwd.launches = 0
 
 
 class _SwiGLU(torch.autograd.Function):
-    """The forward kernel, and the backward from the saved inputs: g and u
-    are recomputed by the gate kernel, not kept."""
+    """The forward kernel, which also keeps the pair p, q, and the backward
+    kernels from the pair."""
 
     @staticmethod
     def forward(ctx, x, wg, wi):
-        ctx.save_for_backward(x, wg, wi)
-        return swiglu(x, wg, wi)
+        out, p, q = swiglu_fwd(x, wg, wi)
+        ctx.save_for_backward(x, wg, wi, p, q)
+        return out
 
     @staticmethod
     def backward(ctx, dh):
-        x, wg, wi = ctx.saved_tensors
-        return swiglu_bwd(x, wg, wi, dh.contiguous(),
+        x, wg, wi, p, q = ctx.saved_tensors
+        return swiglu_bwd(x, wg, wi, p, q, dh.contiguous(),
                           need=tuple(ctx.needs_input_grad))
 
 

@@ -898,8 +898,82 @@ def test_backward_kernels_are_bitwise_repeatable(dev, n, d):
     assert all(torch.equal(p, q) for p, q in zip(a, b))
     wg, wi, dh = _t(10, d, 512, scale=0.02), _t(11, d, 512, scale=0.02), \
         _t(12, n, 512)
-    a, b = t_sw.swiglu_bwd(x, wg, wi, dh), t_sw.swiglu_bwd(x, wg, wi, dh)
+    _, pg, pu = t_sw.swiglu_fwd(x, wg, wi)
+    a = t_sw.swiglu_bwd(x, wg, wi, pg, pu, dh)
+    b = t_sw.swiglu_bwd(x, wg, wi, pg, pu, dh)
     assert all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+def test_swiglu_fwd_keeps_the_forward_bits_and_the_pair(dev):
+    """The forward under autograd (`swiglu_fwd`) writes out with the
+    forward kernel's bits on both paths (`ROW_KERNEL_DIGESTS` at N <= 8,
+    `TILE_DIGESTS` from 9 rows) and the pair p, q within the products'
+    tolerance of the plain version's."""
+    d, f = 2560, 1024
+    for n in ROW_KERNEL_DIGESTS:
+        x = _t(31, n, d)
+        wg, wi = _t(32, d, f, scale=d ** -0.5), _t(33, d, f, scale=d ** -0.5)
+        assert tile_digest(lambda *a: t_sw.swiglu_fwd(*a)[0], x, wg, wi) \
+            == ROW_KERNEL_DIGESTS[n], n
+    for key, case in tile_digest_cases().items():
+        assert tile_digest(lambda *a: t_sw.swiglu_fwd(*a)[0], *case) \
+            == TILE_DIGESTS[key], key
+        got, want = t_sw.swiglu_fwd(*case), tref.swiglu_fwd(*case)
+        for a, b in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a, b, rtol=PROD_TOL, atol=PROD_TOL)
+
+
+# (n, d, f): the row kernel's rows; D = 98 (x's rows unaligned, partial
+# tiles everywhere); dW's 128 x 128 tiles (d 2560, f 2048); dX's 64 x 128,
+# 128 x 128 (2048 x 2048) and 128 x 160 (1024 x 2560) tiles
+SWIGLU_BWD_SHAPES = [(1, 64, 96), (9, 98, 516), (129, 256, 132),
+                     (300, 2560, 2048), (2048, 2048, 64), (1024, 2560, 64)]
+NEEDS = [(True, True, True), (True, False, False), (False, True, False),
+         (False, False, True), (False, True, True), (True, True, False),
+         (True, False, True)]
+
+
+@pytest.mark.parametrize("n,d,f,need", [
+    *[(*shape, NEEDS[0]) for shape in SWIGLU_BWD_SHAPES],
+    *[(9, 98, 516, need) for need in NEEDS[1:]]])
+def test_swiglu_bwd_matches_plain_from_the_pair(dev, n, d, f, need):
+    """swiglu_bwd (the gate's launch, then the dW and dX tiles) against the
+    plain backward on the same pair: each gradient within PROD_TOL of its
+    largest value, None where `need` says so."""
+    x, dh = _t(21, n, d), _t(22, n, f)
+    wg, wi = _t(23, d, f, scale=d ** -0.5), _t(24, d, f, scale=d ** -0.5)
+    _, p, q = t_sw.swiglu_fwd(x, wg, wi)
+    got = t_sw.swiglu_bwd(x, wg, wi, p, q, dh, need=need)
+    want = tref.swiglu_bwd(x, wg, wi, p, q, dh, need=need)
+    for a, b, nd in zip(got, want, need):
+        assert (a is None) == (b is None) == (not nd)
+        if nd:
+            torch.testing.assert_close(a, b, rtol=PROD_TOL, atol=PROD_TOL * max(
+                1.0, float(b.abs().max())))
+
+
+def test_swiglu_bwd_runs_no_library_product(dev):
+    """The card's swiglu_bwd runs its four products in the port's own
+    kernels: no aten matrix product is dispatched during the call."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func))
+            return func(*args, **(kwargs or {}))
+    x, dh = _t(21, 256, 512), _t(22, 256, 1024)
+    wg, wi = _t(23, 512, 1024, scale=0.04), _t(24, 512, 1024, scale=0.04)
+    _, p, q = t_sw.swiglu_fwd(x, wg, wi)
+    with Ops() as ops_seen:
+        t_sw.swiglu_bwd(x, wg, wi, p, q, dh)
+    assert ops_seen.names and not [
+        n for n in ops_seen.names
+        if any(k in n for k in ("mm", "matmul", "linear", "baddbmm"))], \
+        ops_seen.names
 
 
 @pytest.mark.parametrize("n", [2, 9, 1024])
@@ -966,11 +1040,15 @@ def test_backward_wrappers_reject_bad_operands(dev):
     with pytest.raises(ShapeError, match="at most"):
         big = t_rn.MAX_BWD_D + 1
         t_rn.rms_norm_bwd(_t(1, 1, big), _t(2, big), _t(3, 1, big))
+    pair = (_t(5, 4, 96), _t(6, 4, 96))
     with pytest.raises(ShapeError, match="dh"):
-        t_sw.swiglu_bwd(x, _t(2, 64, 96), _t(3, 64, 96), _t(4, 4, 92))
+        t_sw.swiglu_bwd(x, _t(2, 64, 96), _t(3, 64, 96), *pair, _t(4, 4, 92))
     with pytest.raises(ShapeError, match="dtype"):
-        t_sw.swiglu_bwd(x, _t(2, 64, 96), _t(3, 64, 96),
+        t_sw.swiglu_bwd(x, _t(2, 64, 96), _t(3, 64, 96), *pair,
                         _t(4, 4, 96).double())
+    with pytest.raises(ShapeError, match="p has shape"):
+        t_sw.swiglu_bwd(x, _t(2, 64, 96), _t(3, 64, 96), _t(5, 4, 92),
+                        pair[1], _t(4, 4, 96))
 
 
 @pytest.mark.parametrize("arch", ["starcoder2-3b", "gemma3-4b"])

@@ -2,8 +2,9 @@
 
 The JAX package has no backward kernel for either: it differentiates
 `repro.kernels.ref.rms_norm` / `ref.swiglu` by autodiff.  Here the port's
-plain backward versions (`repro_torch.kernels.ref.rms_norm_bwd`,
-`swiglu_bwd`), which the card's kernels are held to, are held against
+plain backward versions (`repro_torch.kernels.ref.rms_norm_bwd`, and
+`swiglu_bwd` from the pair `swiglu_fwd` keeps), which the card's kernels
+are held to, are held against
 `jax.vjp` of the JAX package's `ref` and against torch's autograd of the
 port's `ref`; the autograd Functions `_RmsNorm` and `_SwiGLU` (with their
 launchers replaced by the plain versions, as no card is here) against
@@ -97,15 +98,31 @@ def test_rms_norm_bwd_matches_jax_vjp_and_torch_autograd(shape):
 
 SWIGLU_CASES = [(n, d, f) for n in (1, 8, 9, 64)
                 for d, f in ((32, 64), (98, 132))]
+# every pattern of (x, wg, wi) needing a gradient, but none
+NEEDS = [(True, True, True), (True, False, False), (False, True, False),
+         (False, False, True), (False, True, True), (True, True, False),
+         (True, False, True)]
+
+
+def _bwd_through_pair(x, wg, wi, dh, need=(True, True, True)):
+    """The plain backward from the plain forward's pair."""
+    out, p, q = ref.swiglu_fwd(x, wg, wi)
+    return out, ref.swiglu_bwd(x, wg, wi, p, q, dh, need=need)
 
 
 @pytest.mark.parametrize("n,d,f", SWIGLU_CASES)
 def test_swiglu_bwd_matches_jax_vjp_and_torch_autograd(n, d, f):
+    """The plain forward that keeps the pair (its out bitwise `ref.swiglu`)
+    and the plain backward from the pair, against `jax.vjp` of the JAX
+    package's `ref.swiglu` and torch's autograd of the port's."""
     x, dh = _np(4, n, d), _np(7, n, f)
     wg, wi = _np(5, d, f, scale=d ** -0.5), _np(6, d, f, scale=d ** -0.5)
-    got = ref.swiglu_bwd(*(torch.from_numpy(a) for a in (x, wg, wi, dh)))
-    _, vjp = jax.vjp(jref.swiglu, jnp.asarray(x), jnp.asarray(wg),
-                     jnp.asarray(wi))
+    ts = [torch.from_numpy(a) for a in (x, wg, wi, dh)]
+    out, got = _bwd_through_pair(*ts)
+    assert torch.equal(out, ref.swiglu(*ts[:3]))
+    jout, vjp = jax.vjp(jref.swiglu, jnp.asarray(x), jnp.asarray(wg),
+                        jnp.asarray(wi))
+    _close(out, jout, PROD_TOL)
     want_j = vjp(jnp.asarray(dh))
     ins = [torch.from_numpy(a).requires_grad_(True) for a in (x, wg, wi)]
     want_t = torch.autograd.grad(ref.swiglu(*ins), ins, torch.from_numpy(dh))
@@ -117,10 +134,9 @@ def test_swiglu_bwd_matches_jax_vjp_and_torch_autograd(n, d, f):
 def test_swiglu_bwd_skips_what_needs_no_gradient():
     x, wg, wi, dh = (torch.from_numpy(a) for a in (
         _np(1, 3, 8), _np(2, 8, 12), _np(3, 8, 12), _np(4, 3, 12)))
-    full = ref.swiglu_bwd(x, wg, wi, dh)
-    for need in ((True, False, False), (False, True, True),
-                 (False, False, True)):
-        got = ref.swiglu_bwd(x, wg, wi, dh, need=need)
+    _, full = _bwd_through_pair(x, wg, wi, dh)
+    for need in NEEDS:
+        _, got = _bwd_through_pair(x, wg, wi, dh, need=need)
         for a, b, nd in zip(got, full, need):
             assert (a is None) == (not nd)
             if nd:
@@ -140,6 +156,8 @@ def _plain_launchers(monkeypatch, calls):
     monkeypatch.setattr(_rn, "rms_norm_bwd",
                         counted("rms_norm_bwd", ref.rms_norm_bwd))
     monkeypatch.setattr(_sw, "swiglu", counted("swiglu", ref.swiglu))
+    monkeypatch.setattr(_sw, "swiglu_fwd",
+                        counted("swiglu", ref.swiglu_fwd))
     monkeypatch.setattr(_sw, "swiglu_bwd",
                         counted("swiglu_bwd", ref.swiglu_bwd))
 
@@ -167,9 +185,7 @@ def test_rms_norm_function_matches_autograd_of_plain(monkeypatch, want_grad):
             _close(a, b, RMS_TOL)
 
 
-@pytest.mark.parametrize("want_grad", [
-    (True, True, True), (True, False, False), (False, True, False),
-    (False, False, True), (False, True, True)])
+@pytest.mark.parametrize("want_grad", NEEDS)
 def test_swiglu_function_matches_autograd_of_plain(monkeypatch, want_grad):
     calls = []
     _plain_launchers(monkeypatch, calls)
@@ -179,7 +195,8 @@ def test_swiglu_function_matches_autograd_of_plain(monkeypatch, want_grad):
     got_out, got = _grads(_sw.swiglu_autograd, ins, want_grad, dh)
     want_out, want = _grads(ref.swiglu, ins, want_grad, dh)
     assert torch.equal(got_out, want_out)
-    # one forward, one backward told which operands need a gradient
+    # one forward (which keeps the pair), one backward from the pair told
+    # which operands need a gradient: nothing recomputes the forward
     assert calls == [("swiglu", None), ("swiglu_bwd", want_grad)]
     for a, b, g in zip(got, want, want_grad):
         assert (a is None) == (b is None) == (not g)

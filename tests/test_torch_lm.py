@@ -367,11 +367,12 @@ def test_tree_and_flat_layouts_are_bitwise_equal_on_the_lm(lm):
 
 def test_a_finished_runs_state_dies_at_del():
     """No reference cycle holds a finished run's state: once the caller
-    drops the state and the engine, every leaf is gone without the garbage
-    collector (a cycle through `tree.flatten`'s recursive closure once kept
-    a whole training state, 48.5 GB of starcoder2-3b's on the card, until
-    the collector ran).  With remat at W = 2 a cycle remains (ROADMAP
-    queue 3)."""
+    drops the state and the engine, every leaf and the engine are gone
+    without the garbage collector (a cycle through `tree.flatten`'s
+    recursive closure once kept a whole training state, 48.5 GB of
+    starcoder2-3b's on the card, until the collector ran; the engine kept
+    itself through its batch lambda).  The first remat run of a process is
+    `test_first_remat_run_of_a_process_dies_at_del`'s."""
     import gc
     import weakref
     cfg = TR.get_smoke_config("starcoder2-3b")
@@ -384,11 +385,83 @@ def test_a_finished_runs_state_dies_at_del():
         state, _ = ttrain.train(cfg, run, workers=2, b_loc=1, seq=8,
                                 data="host", eng=eng, device="cpu",
                                 log_every=0)
-        refs = [weakref.ref(x) for x in T.leaves(state)]
+        refs = [weakref.ref(x) for x in T.leaves(state)] + [
+            weakref.ref(eng)]
         del state, eng
-        assert refs and all(r() is None for r in refs)
+        assert len(refs) > 1 and all(r() is None for r in refs)
     finally:
         gc.enable()
+
+
+FIRST_REMAT_RUN = """
+import gc, weakref
+from repro_torch import tree as T
+from repro_torch.configs import registry as R
+from repro_torch.configs.base import RunConfig
+from repro_torch.core.engine import RoundEngine
+from repro_torch.launch.train import train
+import torch
+torch.set_num_threads(1)
+cfg = R.get_smoke_config("starcoder2-3b")
+run = RunConfig(schedule="qsr", optimizer="adamw", total_steps=2,
+                peak_lr=3e-3, alpha=0.002, h_base=2, warmup_steps=1,
+                remat=True)
+gc.collect()
+gc.disable()
+eng = RoundEngine(cfg, run, workers=2, b_loc=1, seq=8, data="host",
+                  device="cpu")
+state, _ = train(cfg, run, workers=2, b_loc=1, seq=8, data="host", eng=eng,
+                 device="cpu", log_every=0)
+refs = [weakref.ref(x) for x in T.leaves(state)]
+engine = weakref.ref(eng)
+del state, eng
+print("ALIVE", len(refs), sum(r() is not None for r in refs),
+      engine() is not None)
+"""
+
+
+def test_first_remat_run_of_a_process_dies_at_del():
+    """The first remat run of a fresh process (an xdist worker may have
+    imported torch._dynamo already, so a subprocess): with the collector
+    off, no state leaf and not the engine outlive `del`.  The first
+    `torch.utils.checkpoint` call imports torch._dynamo, and that import,
+    made under the training frames, kept them (and the state in their
+    locals) in a reference cycle until `core/local_update.py` imported it
+    first."""
+    import os
+    import subprocess
+    import sys
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(os.path.dirname(__file__), "..", "src")]
+        + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
+    out = subprocess.run([sys.executable, "-c", FIRST_REMAT_RUN], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("ALIVE")]
+    assert line, out.stdout[-2000:]
+    _, leaves, alive, engine = line[-1].split()
+    assert int(leaves) > 0 and (int(alive), engine) == (0, "False"), line
+
+
+def test_serving_modules_leave_torch_dynamo_unloaded():
+    """Only the training step imports torch._dynamo (for remat's sake):
+    the modules a server loads leave it out, and a server does not pay for
+    the import.  A subprocess, as an xdist worker may have imported it
+    already."""
+    import os
+    import subprocess
+    import sys
+    code = ("import sys\n"
+            "import repro_torch.launch.serve, repro_torch.launch.batching\n"
+            "import repro_torch.launch.weights, repro_torch.models.api\n"
+            "print('DYNAMO', 'torch._dynamo' in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(os.path.dirname(__file__), "..", "src")]
+        + os.environ.get("PYTHONPATH", "").split(os.pathsep)))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "DYNAMO False" in out.stdout, out.stdout[-2000:]
 
 
 def test_engine_refuses_device_data_and_points_to_host():

@@ -3,7 +3,7 @@
 training on the card.
 
     python3 tools/grad_checks.py digests [CSRC_DIR ...]
-    python3 tools/grad_checks.py card_vs_cpu
+    python3 tools/grad_checks.py card_vs_cpu [VARIANT ...]
     python3 tools/grad_checks.py remat_cycle [--device cpu]
 
 `digests`: the sha256 (first 16 hex digits) of `swiglu`'s forward outputs
@@ -16,19 +16,23 @@ directory under `src/repro_torch/kernels/_build/digests/` (git ignores
 it); one JSON line per source, with whether every digest equals the test's
 `TILE_DIGESTS`.
 
-`card_vs_cpu`: chip_smoke's `train_gemma3_card_vs_cpu` round (gemma3-4b at
-2 layers, W = 2 x 1 x 128, one round of H = 2 at the peak lr) run once on
-the CPU and three times on the card: with the port's kernels, with
-`rms_norm` and `swiglu` plain (autograd of `kernels/ref.py`), and with no
-kernel of the port in the model (attention plain too).  For each leaf:
-the elements beyond 1e-5 after the round (chip_smoke's rule) and the
-relative L2 error of lane 0's first-step gradient.  One JSON line per
-card variant.
+`card_vs_cpu [VARIANT ...]`: chip_smoke's `train_gemma3_card_vs_cpu` round
+(gemma3-4b at 2 layers, W = 2 x 1 x 128, one round of H = 2 at the peak
+lr) run once on the CPU and twice each on the card (whether a round
+repeats: the embedding gradient's index_put_ adds in no fixed order): with the port's kernels, with
+swiglu's backward plain from the kernel's pair, with `rms_norm` and
+`swiglu` plain (autograd of `kernels/ref.py`), with no kernel of the port
+in the model (attention plain too), and with each named
+`tools/kernel_variants.py` variant's kernels.  For each leaf: the
+elements beyond 1e-5 after the round (chip_smoke's rule) and the relative
+L2 error of lane 0's first-step gradient.  One JSON line per card run.
 
 `remat_cycle`: the state a two-step `train()` leaves behind after `del`,
-with and without remat: how many of its leaves are still alive before and
-after `gc.collect()`, and on the card the memory still allocated (a
-reference cycle through `tree.flatten` once held all of it)
+with and without remat: how many of its leaves (and whether the engine)
+are still alive before and after `gc.collect()`, and on the card the
+memory still allocated (reference cycles once held all of it: through
+`tree.flatten`, through the engine's batch lambda, and through the frames
+of a first `torch.utils.checkpoint` call, which imported torch._dynamo)
 (starcoder2-3b at full width and 30 layers, W = 1 x 1 x 1024, as
 chip_smoke's `train_lm_full_depth`); with `--device cpu` starcoder2-smoke.
 
@@ -104,7 +108,7 @@ def digests(dirs) -> None:
               flush=True)
 
 
-def card_vs_cpu() -> None:
+def card_vs_cpu(variants=()) -> None:
     import torch
 
     import chip_smoke as cs
@@ -160,20 +164,55 @@ def card_vs_cpu() -> None:
         finally:
             ops.rms_norm, ops.swiglu = saved
 
+    @contextlib.contextmanager
+    def swiglu_bwd_plain():
+        from repro_torch.kernels import ref
+        from repro_torch.kernels import swiglu as _sw
+        saved = _sw.swiglu_bwd
+        _sw.swiglu_bwd = ref.swiglu_bwd
+        try:
+            yield
+        finally:
+            _sw.swiglu_bwd = saved
+
+    def kernel_variant(name):
+        """The port's kernels with a `tools/kernel_variants.py` variant's
+        in the wrappers' place."""
+        import kernel_variants as kv
+        from repro_torch.kernels import build as kb
+        base = kb.library()
+        lib = kv.build([name])[name][0]
+
+        @contextlib.contextmanager
+        def ctx():
+            kv.using(kv.Kernels(base, lib))
+            try:
+                yield
+            finally:
+                kv.using(base)
+        return ctx
+
     g_cpu, p_cpu = lane0_grads("cpu"), rollout("cpu")
-    for variant, ctx in (("kernels", contextlib.nullcontext),
-                         ("plain_rms_norm_swiglu", plain_rms_norm_swiglu),
-                         ("no_port_kernel", cs.plain_versions_on_card)):
-        with ctx():
-            g_card, p_card = lane0_grads("cuda"), rollout("cuda")
-        rows = {}
-        for nm, gc_, gh, a, b in zip(names, g_card, g_cpu, p_card, p_cpu):
-            rows[nm] = dict(
-                beyond_1e5=int(((a - b).abs() > 1e-5 * (1 + b.abs())).sum()),
-                allowed=max(1, b.numel() // 2000),
-                grad_rel_l2=float((gc_ - gh).norm() / gh.norm()))
-        print(json.dumps({"variant": variant, "leaves": rows}), flush=True)
-        torch.cuda.empty_cache()
+    cases = [("kernels", contextlib.nullcontext),
+             ("kernels_swiglu_bwd_plain", swiglu_bwd_plain),
+             ("plain_rms_norm_swiglu", plain_rms_norm_swiglu),
+             ("no_port_kernel", cs.plain_versions_on_card)]
+    cases += [(name, kernel_variant(name)) for name in variants]
+    for variant, ctx in cases:
+        for rep in range(2):          # the embedding's index_put_ order
+            with ctx():
+                g_card, p_card = lane0_grads("cuda"), rollout("cuda")
+            rows = {}
+            for nm, gc_, gh, a, b in zip(names, g_card, g_cpu, p_card,
+                                         p_cpu):
+                rows[nm] = dict(
+                    beyond_1e5=int(((a - b).abs()
+                                    > 1e-5 * (1 + b.abs())).sum()),
+                    allowed=max(1, b.numel() // 2000),
+                    grad_rel_l2=float((gc_ - gh).norm() / gh.norm()))
+            print(json.dumps({"variant": variant, "repeat": rep,
+                              "leaves": rows}), flush=True)
+            torch.cuda.empty_cache()
 
 
 def remat_cycle(device: str) -> None:
@@ -202,14 +241,17 @@ def remat_cycle(device: str) -> None:
                          eng=eng, device=device, log_every=0)
         leaves = T.leaves(state)
         refs = [weakref.ref(x) for x in leaves]
+        engine = weakref.ref(eng)
         del state, eng, leaves
         alive = sum(r() is not None for r in refs)
+        engine_alive = engine() is not None
         held = (torch.cuda.memory_allocated() - base) / 1e9 \
             if device == "cuda" else None
         freed = gc.collect()
         print(json.dumps(dict(
             device=device, arch=cfg.name, layers=cfg.n_layers, remat=remat,
             state_leaves=len(refs), alive_after_del=alive,
+            engine_alive_after_del=engine_alive,
             alive_after_gc=sum(r() is not None for r in refs),
             objects_collected=freed, card_gb_held_after_del=held,
             card_gb_held_after_gc=(torch.cuda.memory_allocated() - base)
@@ -228,7 +270,7 @@ def main(argv) -> int:
     if argv[0] == "digests":
         digests(argv[1:])
     elif argv[0] == "card_vs_cpu":
-        card_vs_cpu()
+        card_vs_cpu([a for a in argv[1:] if not a.startswith("-")])
     else:
         remat_cycle(device)
     if device == "cuda":

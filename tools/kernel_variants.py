@@ -41,8 +41,17 @@ chip_smoke times it (`ms`: the lanes already equal to the anchor after the
 first call) and on fresh deltas (`fresh_ms`: the lanes and anchor restored
 before each launch, outside the events), beside a copy of as many bytes
 (half read, half written) with the same `Timer`: the streaming rate this
-card reaches.  `--only=KERNEL` (`rms_norm`, `swiglu`, `flash_decode` or
-`sync_flat_update`) keeps that kernel's cases alone.  One JSON line per
+card reaches.  `swiglu_bwd` (`sb_*` variants, or the `swiglu` ones, which
+touch its source too) is held at gemma3-4b's [1024, 2560] x [2560, 10240]
+and [2048, ...] from the pair the base's forward keeps, against the plain
+backward on it and bitwise against the base (the k-order of every sum is
+the tile's own, so a variant that changes only where the gate is formed or
+which tile runs keeps the bits), and timed in the same turns whole, with
+only dW's products asked for (`gate_dw_ms`: the gate's launch, where the
+variant has one, and dW's) and with only dX's (`gate_dx_ms`), beside the
+library's grad.
+`--only=KERNEL` (`rms_norm`, `swiglu`, `flash_decode`, `sync_flat_update`
+or `swiglu_bwd`) keeps that kernel's cases alone.  One JSON line per
 variant, then the library and copy times and the card's name and power
 limit.  Needs one CUDA card.
 """
@@ -66,7 +75,7 @@ FD, RN, SW, SU = ("flash_decode.cu", "rmsnorm.cu", "swiglu.cu",
 ENTRY = {FD: "flash_decode_f32", RN: "rmsnorm_f32", SW: "swiglu_f32",
          SU: "sync_flat_update_f32"}
 KERNEL = {"flash_decode": FD, "rms_norm": RN, "swiglu": SW,
-          "sync_flat_update": SU}
+          "sync_flat_update": SU, "swiglu_bwd": SW}
 # sync_flat_update's rows: (W, quantize, momentum) at chip_smoke's N
 SYNC_ROWS = ((4, True, 0.0), (4, False, 0.0), (4, True, 0.9),
              (4, False, 0.9), (2, True, 0.0))
@@ -155,6 +164,81 @@ SW_SUM2_BODY = """#pragma unroll
     }
   };
 """
+# swiglu_bwd's operand split with lo rounded to nearest too (not left for
+# the tensor core to truncate), and a fourth product lo*lo
+SB_RN_SPLIT = """
+__device__ __forceinline__ void split_rn(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ repro::FragA frag_a_rn(float a0, float a1, float a2,
+                                                  float a3) {
+  repro::FragA f;
+  split_rn(a0, f.hi[0], f.lo[0]);
+  split_rn(a1, f.hi[1], f.lo[1]);
+  split_rn(a2, f.hi[2], f.lo[2]);
+  split_rn(a3, f.hi[3], f.lo[3]);
+  return f;
+}
+__device__ __forceinline__ repro::FragB frag_b_rn(float b0, float b1) {
+  repro::FragB f;
+  split_rn(b0, f.hi[0], f.lo[0]);
+  split_rn(b1, f.hi[1], f.lo[1]);
+  return f;
+}
+__device__ __forceinline__ void mma4_zero(float (&d)[4], const repro::FragA& a,
+                                          const repro::FragB& b) {
+  repro::mma_tf32_zero(d, a.lo, b.lo);
+  repro::mma_tf32(d, a.lo, b.hi);
+  repro::mma_tf32(d, a.hi, b.lo);
+  repro::mma_tf32(d, a.hi, b.hi);
+}
+"""
+SB_RN = {r"repro::frag_a\((?=ap\[0\], ap\[8\],|hs\[o\]|as\[o\])": "frag_a_rn(",
+         r"repro::frag_b\((?=bs\[bo\]|sp\[bo\])": "frag_b_rn(",
+         r"// Tag: every m16 tile": SB_RN_SPLIT + "// Tag: every m16 tile"}
+# swiglu_bwd with dg = dh p and du = dh q formed in the product tiles, as
+# each operand fragment is read from shared memory, in place of written
+# once by the gate kernel into the scratch: the kernels take dh (from a
+# host-side static the C entry sets) as a third ring chunk, and read p and
+# q where they read dg and du
+SB_GATE_IN_TILES = {
+    r"// dg = dh p and du = dh q, written once":
+        "static const float* sb_dh;   // dh, for the launches below\n\n"
+        "// dg = dh p and du = dh q, written once",
+    r"swiglu_dw_kernel\(const float\* __restrict__ x,":
+        "swiglu_dw_kernel(const float* __restrict__ sb_h, "
+        "const float* __restrict__ x,",
+    r"swiglu_dx_kernel\(const float\* __restrict__ s0,":
+        "swiglu_dx_kernel(const float* __restrict__ sb_h, "
+        "const float* __restrict__ s0,",
+    r"stream>>>\(x, s0, s1, dw0, dw1": "stream>>>(sb_dh, x, s0, s1, dw0, dw1",
+    r"stream>>>\(s0, s1, wg, wi, dx": "stream>>>(sb_dh, s0, s1, wg, wi, dx",
+    # dW: dh's chunk after the NP operands' chunks, multiplied in
+    r"DwSmem<T, NP>": "DwSmem<T, NP + 1>",
+    r"(cp_async16\(bs \+ \(b \* kK \+ r\) \* LDB \+ c, src\[b\] \+ off, ok\);)":
+        r"\1" "\n        cp_async16(bs + (NP * kK + r) * LDB + c, sb_h + off, ok);",
+    r"b\[p\] = repro::frag_b\(sp\[bo\], sp\[bo \+ 4 \* LDB\]\);":
+        "b[p] = repro::frag_b(bs[NP * kK * LDB + bo] * sp[bo],\n"
+        "                     bs[NP * kK * LDB + bo + 4 * LDB] * sp[bo + 4 * LDB]);",
+    # dX: dh's chunk after the operand's, multiplied in
+    r"STAGE = T::BM \* LDA \+ T::BN \* LDB;": "STAGE = 2 * T::BM * LDA + T::BN * LDB;",
+    r"float\* bs = as \+ BM \* LDA;": "float* bs = as + 2 * BM * LDA;",
+    r"(cp_async16\(as \+ r \* LDA \+ c, sa \+ off, ok\);)":
+        r"\1" "\n        cp_async16(as + BM * LDA + r * LDA + c, sb_h + off, ok);",
+    r"a\[s\]\[i\] = repro::frag_a\(as\[o\], as\[o \+ 8 \* LDA\], as\[o \+ 4\],\n"
+    r"\s*as\[o \+ 8 \* LDA \+ 4\]\);":
+        "a[s][i] = repro::frag_a(\n"
+        "              as[BM * LDA + o] * as[o],\n"
+        "              as[BM * LDA + o + 8 * LDA] * as[o + 8 * LDA],\n"
+        "              as[BM * LDA + o + 4] * as[o + 4],\n"
+        "              as[BM * LDA + o + 8 * LDA + 4] * as[o + 8 * LDA + 4]);",
+    # no gate launch: the tiles read p and q with dh
+    r"float\* dg = scratch;\n  float\* du = scratch \+ static_cast<size_t>\(n\) \* f;\n"
+    r"  gate_kernel<<<[^;]*;\n  int err = static_cast<int>\(cudaGetLastError\(\)\);":
+        "const float* dg = p;\n  const float* du = q;\n  sb_dh = dh;\n"
+        "  int err = 0;\n  (void)n4;",
+}
 VARIANTS = {
     "base": {},
     # the split policy: units of 64 keys per split
@@ -193,7 +277,9 @@ VARIANTS = {
                             "using Tile64 = Tile<2, 2, 2, 4, 3, 1>;"}},
     # two k-steps (six products) in each zero-started sum: half the adds
     "sw_sum2": {SW: {
-        r"(?s)#pragma unroll\n    for \(int ks = 0; ks < kK / 8; \+\+ks\) \{.*?\n  \};\n":
+        r"(?s)#pragma unroll\n    for \(int ks = 0; ks < kK / 8; \+\+ks\) \{"
+        r"\n      repro::FragA a\[MT\];\n#pragma unroll\n      for \(int i = 0; "
+        r"i < MT; \+\+i\)\n        if \(FULL.*?\n  \};\n":
         SW_SUM2_BODY,
         r"// Tag: every m16 tile": SW_SUM2_HELPER + "// Tag: every m16 tile"}},
     # diagnostics (the output is wrong): one chained accumulator, no fp32
@@ -211,6 +297,21 @@ VARIANTS = {
                            "    else if (mt_act < 0)"}},
     "sw_no_load": {SW: {r"    if \(kc < nk\) \{\n      float\* xs":
                         "    if (kc < 0) {\n      float* xs"}},
+    # swiglu_bwd: dg and du formed in the product tiles from dh and the
+    # pair, in place of written once by a gate kernel into a scratch that
+    # the tiles read; dX on 128 x 128 or on 64 x 128 tiles whatever the
+    # waves
+    "sb_gate_in_tiles": {SW: SB_GATE_IN_TILES},
+    # swiglu_bwd's numerics: lo rounded to nearest; and lo*lo added
+    "sb_rn": {SW: SB_RN},
+    "sb_rn4": {SW: {**SB_RN, r"repro::mma3_zero\(c, a\[i\], b": "mma4_zero(c, a[i], b"}},
+    # dX's k-steps joined in fp32 before the running sums: one, or four
+    "sb_dx_join1": {SW: {r"constexpr int kDxJoin = 2;": "constexpr int kDxJoin = 1;"}},
+    "sb_dx_join4": {SW: {r"constexpr int kDxJoin = 2;": "constexpr int kDxJoin = 4;"}},
+    "sb_dx_128x128": {SW: {r"if \(c160 <= c128 && c160 <= c64\)": "if (false)",
+                           r"if \(c128 <= c64\)": "if (true)"}},
+    "sb_dx_64x128": {SW: {r"if \(c160 <= c128 && c160 <= c64\)": "if (false)",
+                          r"if \(c128 <= c64\)": "if (false)"}},
     # sync_flat_update: streaming cache hints on its loads (__ldcs: evict
     # first; __ldlu: last use; no L1 line), its stores (__stcs) or both;
     # 128 or 512 threads a block; a grid-stride loop over 132 x 5 blocks
@@ -315,8 +416,15 @@ class Kernels:
         self.has_fd = lib.interface is not None
         if self.has_rn:
             lib.rmsnorm_f32.argtypes = [P, P, P, I, I, F, P]
+        # swiglu's backward from the pair, where the source has it
+        self.has_sb = hasattr(lib, "swiglu_bwd_f32")
         if self.has_sw:
             lib.swiglu_f32.argtypes = [P, P, P, P, I, I, I, P]
+        if self.has_sb:
+            lib.swiglu_fwd_pair_f32.argtypes = [P] * 6 + [I, I, I, P]
+            lib.swiglu_bwd_f32.argtypes = [P] * 10 + [I, I, I, P]
+            lib.swiglu_bwd_scratch_floats.argtypes = [I, I]
+            lib.swiglu_bwd_scratch_floats.restype = ctypes.c_longlong
         if self.has_su:
             lib.sync_flat_update_f32.argtypes = [P] * 4 + [
                 ctypes.c_longlong, I, F, P]
@@ -336,6 +444,17 @@ class Kernels:
     def swiglu_f32(self, *args):
         return (self.lib if self.has_sw else self.base).swiglu_f32(*args)
 
+    def swiglu_fwd_pair_f32(self, *args):
+        return (self.lib if self.has_sb else self.base).swiglu_fwd_pair_f32(
+            *args)
+
+    def swiglu_bwd_f32(self, *args):
+        return (self.lib if self.has_sb else self.base).swiglu_bwd_f32(*args)
+
+    def swiglu_bwd_scratch_floats(self, *args):
+        return (self.lib if self.has_sb else
+                self.base).swiglu_bwd_scratch_floats(*args)
+
     def sync_flat_update_f32(self, *args):
         return (self.lib if self.has_su else self.base).sync_flat_update_f32(
             *args)
@@ -343,7 +462,8 @@ class Kernels:
     def has(self, kernel: str) -> bool:
         return {"rms_norm": self.has_rn, "swiglu": self.has_sw,
                 "flash_decode": self.has_fd,
-                "sync_flat_update": self.has_su}[kernel]
+                "sync_flat_update": self.has_su,
+                "swiglu_bwd": self.has_sb}[kernel]
 
     def flash_decode_f32(self, q, k, v, out, part, qoff, kpos, b, sk, hq, hkv,
                          d, window, prefix_len, scale, causal, stream):
@@ -440,6 +560,72 @@ def sync_flat_rows(torch, cs, names, kern, turns, timer, res) -> dict:
     return ceiling
 
 
+def swiglu_bwd_rows(torch, names, kern, turns, timer, res) -> dict:
+    """swiglu_bwd at gemma3-4b's widths, 1024 and 2048 rows, held and timed
+    per variant (into `res`), each gradient's RMS error against fp64
+    products beside the plain (cuBLAS fp32) version's; returns {row: the
+    library's grad ms, and the plain version's errors}."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import swiglu as _sw
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(2468)
+    d, f = 2560, 10240
+    users = [v for v in names if v == "base" or kern[v].has("swiglu_bwd")]
+    library = {}
+    for n in (1024, 2048):
+        x, dh = (torch.randn(*shape, generator=g, device="cuda")
+                 for shape in ((n, d), (n, f)))
+        wg, wi = (torch.randn(d, f, generator=g, device="cuda") * d ** -0.5
+                  for _ in range(2))
+        using(kern["base"])
+        _, p, q = _sw.swiglu_fwd(x, wg, wi)
+        base = _sw.swiglu_bwd(x, wg, wi, p, q, dh)
+        want = ref.swiglu_bwd(x, wg, wi, p, q, dh)
+        xd, wgd, wid, dgd, dud = (t.double() for t in (x, wg, wi, dh * p,
+                                                         dh * q))
+        exact = (dgd @ wgd.T + dud @ wid.T, xd.T @ dgd, xd.T @ dud)
+        del xd, wgd, wid, dgd, dud
+
+        def rms_err(got):
+            """Each gradient's RMS error against the fp64 products over
+            its RMS: the sum-order noise the variant adds."""
+            return [float((a.double() - b).square().mean().sqrt()
+                          / b.square().mean().sqrt())
+                    for a, b in zip(got, exact)]
+        key = f"swiglu_bwd [{n},{d}]x[{d},{f}]"
+        library[key + " plain_rms_err_vs_fp64"] = rms_err(want)
+        for v in users:
+            using(kern[v])
+            got = _sw.swiglu_bwd(x, wg, wi, p, q, dh)
+            torch.cuda.synchronize()
+            err = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                       1.0)
+                      for a, b in zip(got, want))
+            res[v]["cases"][key] = dict(
+                max_rel_err=err, within_tol=err <= 2e-5,
+                rms_err_vs_fp64=rms_err(got),
+                bitwise_base=all(bool(torch.equal(a, b))
+                                 for a, b in zip(got, base)),
+                ms=[], gate_dw_ms=[], gate_dx_ms=[])
+            del got
+        for v in turns:
+            if v in users:
+                using(kern[v])
+                case = res[v]["cases"][key]
+                for field, need in (("ms", (True, True, True)),
+                                    ("gate_dw_ms", (False, True, True)),
+                                    ("gate_dx_ms", (True, False, False))):
+                    case[field].append(timer(lambda: _sw.swiglu_bwd(
+                        x, wg, wi, p, q, dh, need=need)))
+        using(kern["base"])
+        xr, gr, ir = (t.clone().requires_grad_(True) for t in (x, wg, wi))
+        lib_out = F.silu(xr @ gr) * (xr @ ir)
+        library[key] = timer(lambda: torch.autograd.grad(
+            lib_out, (xr, gr, ir), dh, retain_graph=True))
+        del x, dh, wg, wi, p, q, base, want, exact, xr, gr, ir, lib_out
+    return library
+
+
 def using(kernels):
     """Point the wrappers at `kernels` (a Kernels or the base library)."""
     from repro_torch.kernels import build as kb
@@ -521,6 +707,9 @@ def main(argv) -> int:
                         if e.device_time_total > 0}
         using(base)
     del cases
+    if not only or "swiglu_bwd" in only:
+        library.update(swiglu_bwd_rows(torch, names, kern, turns, timer,
+                                       res))
     ceiling = {}
     if not only or "sync_flat_update" in only:
         ceiling = sync_flat_rows(torch, cs, names, kern, turns, timer, res)
