@@ -10,8 +10,9 @@ serving kernels also at a long serving shape: 8 slots of a 4096-row cache;
 `swiglu` also at 16 to 4096 rows, where its tensor-core tiles run;
 `flash_decode` also at starcoder2-3b's 12-head GQA groups), and the two
 backward kernels, `rms_norm_bwd` and `swiglu_bwd`, at gemma3-4b's
-training rows (`rms_norm_bwd` also at phi3's d = 5120, `swiglu_bwd`, from
-the pair its forward keeps, also at twice the rows).
+training rows (`rms_norm_bwd` also at phi3's d = 5120 and qwen's 8192,
+`swiglu_bwd`, from the pair its forward keeps, also at twice the rows;
+`rms_norm` also at d = 5120).
 Then it drives both of the port's paths on the card:
 
 * serving: gemma3-4b at full width (random weights drawn on the card from
@@ -69,6 +70,7 @@ import gc
 import importlib.util
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -171,8 +173,10 @@ LM_LEAVES = 13                  # tree leaves: the AdamW launches per step
 G3_ARCH = "gemma3-4b"
 G3_W, G3_B, G3_SEQ, G3_LAYERS = 4, 1, 1024, 2
 G3_PARAMS, G3_LEAVES = 859_845_120, 11
-# the backward kernels' rows: one lane's 1 x 1024 tokens of gemma3-4b
+# the backward kernels' rows: one lane's 1 x 1024 tokens of gemma3-4b;
+# rms_norm_bwd also at phi3-medium-14b's and qwen1.5-110b's widths
 BWD_ROWS = G3_B * G3_SEQ
+PHI3_D, QWEN_D = 5120, 8192
 # starcoder2-3b's decode attention (GQA 12: 24 query heads over 2 kv heads
 # of 128, every layer windowed at 4096) at the main serving step and the
 # long one, as flash_decode kernel rows
@@ -299,6 +303,11 @@ def kernel_cases(torch, main_len: int):
                     (PREFILL_B * PREFILL_LEN, False), (8192, False)):
         cases.append(("rms_norm", f"[{n},{d}]",
                       dict(x=rnd(n, d), scale=rnd(d)), main, True))
+    # phi3-medium-14b's d = 5120 (past the register path: the strided one) at
+    # a training lane's 1024 rows and the prefill's 4096
+    for n in (BWD_ROWS, PREFILL_B * PREFILL_LEN):
+        cases.append(("rms_norm", f"[{n},{PHI3_D}]",
+                      dict(x=rnd(n, PHI3_D), scale=rnd(PHI3_D)), False, True))
 
     def sw(n, d, f, main=False, timed=True):
         cases.append(("swiglu", f"[{n},{d}]x[{d},{f}]",
@@ -425,6 +434,24 @@ def work(torch, name, a) -> tuple[float, float]:
     return nbytes, flops
 
 
+# the paths of csrc/rmsnorm.cu's and csrc/rmsnorm_bwd.cu's instances by
+# their template argument VEC (VEC > 0: rows held in registers)
+RMS_NORM_PATHS = {"rmsnorm_kernel": {0: "strided"},
+                  "rmsnorm_bwd_kernel": {-1: "scalar", -2: "staged"}}
+
+
+def rms_norm_path(names, kernel: str) -> str:
+    """The path of the one instance of `kernel` (`kernel<VEC>`) among the
+    profiled kernel `names`: the instance that launched."""
+    vecs = {int(m.group(1)) for n in names
+            for m in [re.search(kernel + r"<(-?\d+)>", n)] if m}
+    check(len(vecs) == 1, f"{kernel}: instances {sorted(vecs)} launched")
+    vec = vecs.pop()
+    path = "registers" if vec > 0 else RMS_NORM_PATHS[kernel].get(vec)
+    check(path is not None, f"{kernel}<{vec}>: no such path")
+    return path
+
+
 def check_row(name, label, err, scale, main, **extra) -> dict:
     tol = TOL[name] * max(scale, 1.0)
     row = dict(kernel=name, shape=label, main_path_shape=main,
@@ -477,6 +504,12 @@ def phase_kernels(torch, main_len):
         tiles = name == "swiglu" and a["x"].shape[0] >= tile_rows
         if name == "swiglu":
             row["path"] = "tiles" if tiles else "rows"
+        if name == "rms_norm":
+            prof = profile_device_ms(
+                torch, lambda: run_kernel(torch, ops.KERNELS, name, a),
+                count=("rmsnorm_kernel",))
+            row["path"] = rms_norm_path([t["name"] for t in prof["top"]],
+                                        "rmsnorm_kernel")
         if timed:
             lib = library_call(torch, name, a)
             row["library_max_abs_err"] = float((lib() - want).abs().max())
@@ -939,8 +972,10 @@ def swiglu_bwd_row(torch, timer, rnd, n, d, f, main=True) -> dict:
 def phase_backward_kernels(torch):
     """rms_norm_bwd and swiglu_bwd against their plain versions at gemma3-4b's
     training rows (one lane: 1 x 1024 tokens), rms_norm_bwd also at phi3's
-    d = 5120 (its strided path), each twice on the same inputs (bitwise),
-    with kernel / plain / library / bound times.  The library: autograd.grad
+    d = 5120 and qwen's 8192 (its staged path), each twice on the same
+    inputs (bitwise), with kernel / plain / library / bound times, and
+    rms_norm_bwd's launches a call (one) with their device time and path
+    from a profile of whole calls (`launch_ms`, `path`).  The library: autograd.grad
     through `F.rms_norm` and through the composed `F.silu(x@wg) * (x@wi)`
     (graphs built once, outside the timing).  swiglu_bwd runs from the pair
     its forward keeps, also at 2 x 1024 rows; its bound is its four
@@ -957,7 +992,8 @@ def phase_backward_kernels(torch):
         return torch.randn(*shape, generator=g, device="cuda") * std
 
     summary = {}
-    for n, d, main in ((BWD_ROWS, 2560, True), (BWD_ROWS, 5120, False)):
+    for n, d, main in ((BWD_ROWS, 2560, True), (BWD_ROWS, PHI3_D, False),
+                       (BWD_ROWS, QWEN_D, False)):
         x, sc, dy = rnd(n, d), rnd(d), rnd(n, d)
         dx, ds = _rn.rms_norm_bwd(x, sc, dy)
         dx2, ds2 = _rn.rms_norm_bwd(x, sc, dy)
@@ -972,8 +1008,7 @@ def phase_backward_kernels(torch):
               f"> {ds_tol}")
         row = check_row("rms_norm_bwd", label, float((dx - wdx).abs().max()),
                         float(wdx.abs().max()), main, bitwise_repeat=same,
-                        dscale_max_abs_err=ds_err, dscale_tol=ds_tol,
-                        path="registers" if d <= 3072 else "strided")
+                        dscale_max_abs_err=ds_err, dscale_tol=ds_tol)
         row["max_abs_err"] = max(row["max_abs_err"], ds_err)
         xr, sr = x.clone().requires_grad_(True), sc.clone().requires_grad_(True)
         lib_out = F.rms_norm(xr, (d,), sr, 1e-6)
@@ -982,6 +1017,18 @@ def phase_backward_kernels(torch):
                   lambda: torch.autograd.grad(lib_out, (xr, sr), dy,
                                               retain_graph=True),
                   4.0 * (3 * n * d + 2 * d), 10.0 * n * d)
+        # each launch's mean device time over 5 whole calls back to back
+        # (no L2 flush between calls): one launch a call
+        calls = 5
+        prof = profile_device_ms(torch, lambda: [
+            _rn.rms_norm_bwd(x, sc, dy) for _ in range(calls)],
+            count=("rmsnorm_bwd",))
+        check(prof["calls"]["rmsnorm_bwd"] == calls,
+              f"rms_norm_bwd {label}: {prof['calls']['rmsnorm_bwd']} "
+              f"launches in {calls} calls")
+        row["launch_ms"] = {t["name"]: t["ms"] / t["calls"]
+                            for t in prof["top"] if "rmsnorm_bwd" in t["name"]}
+        row["path"] = rms_norm_path(row["launch_ms"], "rmsnorm_bwd_kernel")
         if main:
             summary["rms_norm_bwd"] = row
         emit("kernel_check", **row)

@@ -118,9 +118,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     """argtypes/restype of every exported function: each returns the
     `cudaError_t` of its launch (0 = success)."""
     lib.rmsnorm_f32.argtypes = [_P, _P, _P, _I, _I, _F, _P]
-    lib.rmsnorm_bwd_f32.argtypes = [_P] * 6 + [_I, _I, _F, _P]
-    lib.rmsnorm_bwd_scratch_floats.argtypes = [_I, _I]
-    lib.rmsnorm_bwd_scratch_floats.restype = _L
+    lib.rmsnorm_bwd_f32.argtypes = [_P] * 6 + [_I, _I, _F, _I, _I, _P]
+    lib.rmsnorm_bwd_grid.argtypes = [_I] * 3 + [ctypes.POINTER(_I)]
     lib.swiglu_f32.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
     lib.swiglu_fwd_pair_f32.argtypes = [_P] * 6 + [_I, _I, _I, _P]
     lib.swiglu_bwd_f32.argtypes = [_P] * 10 + [_I, _I, _I, _P]
@@ -148,7 +147,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.empty_launch.argtypes = [_P]
     lib.cuda_error_string.argtypes = [_I]
     lib.cuda_error_string.restype = ctypes.c_char_p
-    for fn in (lib.rmsnorm_f32, lib.rmsnorm_bwd_f32, lib.swiglu_f32,
+    for fn in (lib.rmsnorm_f32, lib.rmsnorm_bwd_f32, lib.rmsnorm_bwd_grid,
+               lib.swiglu_f32,
                lib.swiglu_fwd_pair_f32, lib.swiglu_bwd_f32,
                lib.flash_decode_f32,
                lib.flash_attention_fwd_f32, lib.flash_attention_bwd_f32,

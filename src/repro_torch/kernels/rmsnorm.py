@@ -13,6 +13,8 @@ dscale.  `.launches` counts calls of each wrapper.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.errors import ShapeError
@@ -49,8 +51,13 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 def rms_norm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
                  eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
     """Gradients of `rms_norm` for dy [..., D]: (dx [..., D], dscale [D]).
-    fp32, contiguous, on one CUDA device, D <= MAX_BWD_D.  Allocates the
-    [blocks, D] scratch of dscale's partial sums (2.6 MB at [1024, 2560])."""
+    fp32, contiguous, on one CUDA device, D <= MAX_BWD_D.  One cooperative
+    launch, its grid sized once by `rmsnorm_bwd_grid` for the path the
+    operands take (float4 where D % 4 == 0 and every operand is 16-byte
+    aligned).  Allocates the [blocks, D] scratch of dscale's partial sums, a
+    row for each block of that grid (256 rows, 2.6 MB, at [1024, 2560] on
+    an H100); the kernel keeps no state between calls, so calls back to back
+    on a stream need no reset."""
     build.require_cuda("rms_norm_bwd x", x)
     d = x.shape[-1]
     build.require("rms_norm_bwd x", x, device=x.device, dtype=torch.float32)
@@ -66,14 +73,18 @@ def rms_norm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     if n == 0:
         return dx, torch.zeros_like(scale)
     dscale = torch.empty_like(scale)
+    vec = int(d % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                 for t in (x, scale, dy, dx)))
     lib = build.library()
-    partial = torch.empty(lib.rmsnorm_bwd_scratch_floats(n, d),
-                          dtype=torch.float32, device=x.device)
+    blocks = ctypes.c_int()
     with torch.cuda.device(x.device):
+        build.check(lib.rmsnorm_bwd_grid(n, d, vec, blocks), "rms_norm_bwd")
+        partial = torch.empty(blocks.value * d, dtype=torch.float32,
+                              device=x.device)
         err = lib.rmsnorm_bwd_f32(
             x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-            dscale.data_ptr(), partial.data_ptr(), n, d, float(eps),
-            build.stream_of(x))
+            dscale.data_ptr(), partial.data_ptr(), n, d, float(eps), vec,
+            blocks.value, build.stream_of(x))
     build.check(err, "rms_norm_bwd")
     rms_norm_bwd.launches += 1
     return dx, dscale

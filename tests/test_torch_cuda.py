@@ -904,6 +904,61 @@ def test_backward_kernels_are_bitwise_repeatable(dev, n, d):
     assert all(torch.equal(p, q) for p, q in zip(a, b))
 
 
+# rms_norm_bwd's paths: registers (d % 4 == 0, d <= 3072), rows staged in
+# shared memory (3076 is the first width past the registers: phi3's 5120,
+# qwen's 8192), scalar (2562); rows from one to past the resident grid's
+# rows a pass (4099: 1056 rows a pass at d = 2560 on an H100, 396 at 5120),
+# so the row rule and the reduce's column stripes meet their edges
+RMS_BWD_D = [256, 2560, 2562, 3072, 3076, 5120, 8192]
+RMS_BWD_N = [1, 7, 1024, 4099]
+
+
+@pytest.mark.parametrize("d", RMS_BWD_D)
+@pytest.mark.parametrize("n", RMS_BWD_N)
+def test_rms_norm_bwd_matches_plain_on_every_path(dev, n, d):
+    """dx within 1e-5 of the plain backward, dscale within `_dscale_tol`,
+    and a second call bitwise (one cooperative launch: no float atomics, a
+    grid fixed by n, d and the card)."""
+    x, sc, dy = _t(21, n, d), _t(22, d), _t(23, n, d)
+    dx, ds = t_rn.rms_norm_bwd(x, sc, dy)
+    dx2, ds2 = t_rn.rms_norm_bwd(x, sc, dy)
+    wdx, wds = tref.rms_norm_bwd(x, sc, dy)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+    torch.testing.assert_close(dx, wdx, rtol=RMS_TOL, atol=RMS_TOL * max(
+        1.0, float(wdx.abs().max())))
+    torch.testing.assert_close(ds, wds, rtol=0.0, atol=_dscale_tol(x, dy))
+
+
+@pytest.mark.parametrize("d", [2560, 5120])
+def test_rms_norm_bwd_scalar_path_gives_the_float4_paths_dx_bits(dev, d):
+    """Operands one float off 16-byte alignment take the scalar path; its
+    dx sums and expressions are the register and staged paths', so dx keeps
+    its bits (dscale is held to its tolerance: another grid)."""
+    n = 33
+    x, sc, dy = _t(24, n, d), _t(25, d), _t(26, n, d)
+    dx, ds = t_rn.rms_norm_bwd(x, sc, dy)
+    bufs = [torch.empty(t.numel() + 1, device=t.device) for t in (x, sc, dy)]
+    xs, ss, gs = (b[1:].view(t.shape).copy_(t)
+                  for b, t in zip(bufs, (x, sc, dy)))
+    assert xs.data_ptr() % 16
+    sdx, sds = t_rn.rms_norm_bwd(xs, ss, gs)
+    assert torch.equal(sdx, dx)
+    torch.testing.assert_close(sds, ds, rtol=0.0, atol=2 * _dscale_tol(x, dy))
+
+
+def test_rms_norm_bwd_takes_its_widest_row(dev):
+    """MAX_BWD_D floats (past the staged rows: the scalar path, one warp a
+    block) run; one more raises
+    (`test_backward_wrappers_reject_bad_operands`)."""
+    d = t_rn.MAX_BWD_D
+    x, sc, dy = _t(27, 3, d), _t(28, d), _t(29, 3, d)
+    dx, ds = t_rn.rms_norm_bwd(x, sc, dy)
+    wdx, wds = tref.rms_norm_bwd(x, sc, dy)
+    torch.testing.assert_close(dx, wdx, rtol=RMS_TOL, atol=RMS_TOL * max(
+        1.0, float(wdx.abs().max())))
+    torch.testing.assert_close(ds, wds, rtol=0.0, atol=_dscale_tol(x, dy))
+
+
 def test_swiglu_fwd_keeps_the_forward_bits_and_the_pair(dev):
     """The forward under autograd (`swiglu_fwd`) writes out with the
     forward kernel's bits on both paths (`ROW_KERNEL_DIGESTS` at N <= 8,

@@ -74,7 +74,7 @@ def _dscale_tol(x, scale, dy, eps=1e-6):
 # ------------------------------------------------- plain vs JAX, autograd --
 
 RMS_SHAPES = [(1, 8), (3, 98), (9, 6), (2, 5, 256), (4, 2560), (2, 5120),
-              (64, 3072)]
+              (64, 3072), (3, 3076), (2, 8192)]
 
 
 @pytest.mark.parametrize("shape", RMS_SHAPES)

@@ -23,7 +23,8 @@ repeats: the embedding gradient's index_put_ adds in no fixed order): with the p
 swiglu's backward plain from the kernel's pair, with `rms_norm` and
 `swiglu` plain (autograd of `kernels/ref.py`), with no kernel of the port
 in the model (attention plain too), and with each named
-`tools/kernel_variants.py` variant's kernels.  For each leaf: the
+`tools/kernel_variants.py` variant's kernels (a regex variant, or
+`file:PATH` another source, e.g. the parent's `rmsnorm_bwd.cu`).  For each leaf: the
 elements beyond 1e-5 after the round (chip_smoke's rule) and the relative
 L2 error of lane 0's first-step gradient.  One JSON line per card run.
 

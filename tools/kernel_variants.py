@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Build variants of the serving kernels (`flash_decode`, `rms_norm`,
-`swiglu`) and of the flat sync (`sync_flat_update`) and time them side by
-side with the source.
+`swiglu`), of the backward kernels (`rms_norm_bwd`, `swiglu_bwd`) and of
+the flat sync (`sync_flat_update`) and time them side by side with the
+source.
 
     python3 tools/kernel_variants.py [--step] [--only=KERNEL] \
         [VARIANT | file:PATH[,PATH] ...]
 
 A variant is `src/repro_torch/kernels/csrc/flash_decode.cu`, `rmsnorm.cu`,
-`swiglu.cu` or `sync_update.cu` with a few regex substitutions (`VARIANTS`
+`rmsnorm_bwd.cu`, `swiglu.cu` or `sync_update.cu` with a few regex
+substitutions (`VARIANTS`
 below), or `file:PATH`, whole other sources of these kernels (which one: the C
 function a source defines; several joined by commas form one variant), such
 as an earlier commit's, written out first with `git show REV:src/
@@ -49,11 +51,18 @@ the tile's own, so a variant that changes only where the gate is formed or
 which tile runs keeps the bits), and timed in the same turns whole, with
 only dW's products asked for (`gate_dw_ms`: the gate's launch, where the
 variant has one, and dW's) and with only dX's (`gate_dx_ms`), beside the
-library's grad.
-`--only=KERNEL` (`rms_norm`, `swiglu`, `flash_decode`, `sync_flat_update`
-or `swiglu_bwd`) keeps that kernel's cases alone.  One JSON line per
-variant, then the library and copy times and the card's name and power
-limit.  Needs one CUDA card.
+library's grad.  `rms_norm_bwd` (`rb_*` variants, or an earlier source as
+`file:`, e.g. `git show HEAD~1:src/repro_torch/kernels/csrc/rmsnorm_bwd.cu
+> _dev/rb_parent.cu`) is held at [1024, d] for d = 2560, 5120 and 8192:
+dx against the plain version and bitwise against the base, dscale within
+chip_smoke's `dscale_tol` and by its RMS error against an fp64 sum, a
+second call bitwise; timed in the same turns beside `F.rms_norm`'s grad,
+with each launch's device time from a profile (`launch_ms`).
+`--only=KERNEL` (`rms_norm`, `swiglu`, `flash_decode`, `sync_flat_update`,
+`rms_norm_bwd` or `swiglu_bwd`) keeps that kernel's cases alone, and with
+no variant named builds only the variants of that kernel's source.  One
+JSON line per variant, then the library and copy times and the card's
+name and power limit.  Needs one CUDA card.
 """
 import ctypes
 import json
@@ -69,13 +78,16 @@ sys.path.insert(0, ROOT)
 
 CSRC = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc")
 OUT = os.path.join(ROOT, "src", "repro_torch", "kernels", "_build", "variants")
-FD, RN, SW, SU = ("flash_decode.cu", "rmsnorm.cu", "swiglu.cu",
-                  "sync_update.cu")
+FD, RN, RB, SW, SU = ("flash_decode.cu", "rmsnorm.cu", "rmsnorm_bwd.cu",
+                      "swiglu.cu", "sync_update.cu")
 # C function of each kernel file, and the kernel chip_smoke names it by
-ENTRY = {FD: "flash_decode_f32", RN: "rmsnorm_f32", SW: "swiglu_f32",
-         SU: "sync_flat_update_f32"}
-KERNEL = {"flash_decode": FD, "rms_norm": RN, "swiglu": SW,
-          "sync_flat_update": SU, "swiglu_bwd": SW}
+ENTRY = {FD: "flash_decode_f32", RB: "rmsnorm_bwd_f32", RN: "rmsnorm_f32",
+         SW: "swiglu_f32", SU: "sync_flat_update_f32"}
+KERNEL = {"flash_decode": FD, "rms_norm": RN, "rms_norm_bwd": RB,
+          "swiglu": SW, "sync_flat_update": SU, "swiglu_bwd": SW}
+# rms_norm_bwd's rows: gemma3-4b's, phi3-medium-14b's and qwen1.5-110b's
+# widths at one lane's 1 x 1024 tokens
+RMS_BWD_D = (2560, 5120, 8192)
 # sync_flat_update's rows: (W, quantize, momentum) at chip_smoke's N
 SYNC_ROWS = ((4, True, 0.0), (4, False, 0.0), (4, True, 0.9),
              (4, False, 0.9), (2, True, 0.0))
@@ -239,8 +251,125 @@ SB_GATE_IN_TILES = {
         "const float* dg = p;\n  const float* du = q;\n  sb_dh = dh;\n"
         "  int err = 0;\n  (void)n4;",
 }
+# rms_norm_bwd in two launches: the rows (and each block's partial row) in
+# an ordinary launch, then dscale's column stripes in a second, one block a
+# stripe
+RB_TWO_LAUNCH = {
+    re.escape("  cg::this_grid().sync();     // also a block barrier: acc "
+              "is free again\n  reduce_stripes(partial, dscale, gridDim.x, "
+              "d, acc);"): "",
+    re.escape("using Kernel = void (*)("):
+        "__global__ void __launch_bounds__(kThreads)\n"
+        "rb_reduce_kernel(const float* partial, float* dscale, int rows, "
+        "int d) {\n  __shared__ float red[kRedStripes * kThreads];\n"
+        "  reduce_stripes(partial, dscale, rows, d, red);\n}\n\n"
+        "using Kernel = void (*)(",
+    r"err = cudaLaunchCooperativeKernel\(": "err = cudaLaunchKernel(",
+    re.escape("  if (err != cudaSuccess) return static_cast<int>(err);\n"
+              "  return static_cast<int>(cudaGetLastError());"):
+        "  if (err != cudaSuccess) return static_cast<int>(err);\n"
+        "  rb_reduce_kernel<<<(d + kRedCols - 1) / kRedCols, kThreads, 0,\n"
+        "                     static_cast<cudaStream_t>(stream)>>>(\n"
+        "      partial, dscale, blocks, d);\n"
+        "  return static_cast<int>(cudaGetLastError());"}
+RB_ONE_PER_SM = {re.escape("const long long fit = static_cast<long long>"
+                           "(per_sm) * sms;"): "const long long fit = sms;"}
+# rms_norm_bwd's wide rows (past 3072 floats) read twice from global
+# memory in float4 chunks of kChunk a lane, each chunk's loads in flight
+# before its sums, the second pass mostly from L2, in place of staged in
+# shared memory
+RB_REREAD_BODY = """\
+    } else if constexpr (VEC == kWide) {
+      const float4* x4 = reinterpret_cast<const float4*>(xr);
+      const float4* g4 = reinterpret_cast<const float4*>(gr);
+      const int per_lane = (d4 + 31) / 32;
+      for (int c0 = 0; c0 < per_lane; c0 += kChunk) {
+        float4 xv[kChunk], gv[kChunk];
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c) {
+          const int i = lane + 32 * (c0 + c);
+          const bool ok = i < d4;
+          xv[c] = ok ? __ldg(x4 + i) : zero;
+          gv[c] = ok ? __ldg(g4 + i) : zero;
+        }
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c) {   // the forward's order
+          ss = fmaf(xv[c].x, xv[c].x, ss);
+          ss = fmaf(xv[c].y, xv[c].y, ss);
+          ss = fmaf(xv[c].z, xv[c].z, ss);
+          ss = fmaf(xv[c].w, xv[c].w, ss);
+        }
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c) {
+          const int i = lane + 32 * (c0 + c);
+          if (i < d4) {
+            const float4 s = __ldg(s4 + i);
+            dot = fmaf(gv[c].x * s.x, xv[c].x, dot);
+            dot = fmaf(gv[c].y * s.y, xv[c].y, dot);
+            dot = fmaf(gv[c].z * s.z, xv[c].z, dot);
+            dot = fmaf(gv[c].w * s.w, xv[c].w, dot);
+          }
+        }
+      }
+      ss = repro::warp_sum(ss);
+      dot = repro::warp_sum(dot);
+      const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+      const float c3 = r * r * r * (dot / static_cast<float>(d));
+      float4* o4 = reinterpret_cast<float4*>(dxr);
+      for (int c0 = 0; c0 < per_lane; c0 += kChunk) {
+        float4 xv[kChunk], gv[kChunk];
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c) {
+          const int i = lane + 32 * (c0 + c);
+          const bool ok = i < d4;
+          xv[c] = ok ? __ldg(x4 + i) : zero;
+          gv[c] = ok ? __ldg(g4 + i) : zero;
+        }
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c) {
+          const int i = lane + 32 * (c0 + c);
+          if (i < d4) {
+            const float4 s = __ldg(s4 + i);
+            const float4 xc = xv[c], gc = gv[c];
+            o4[i] = make_float4(r * (gc.x * s.x) - xc.x * c3,
+                                r * (gc.y * s.y) - xc.y * c3,
+                                r * (gc.z * s.z) - xc.z * c3,
+                                r * (gc.w * s.w) - xc.w * c3);
+            float4 a = make_float4(gc.x * xc.x * r, gc.y * xc.y * r,
+                                   gc.z * xc.z * r, gc.w * xc.w * r);
+            if (!first) {
+              const float4 o = w4[i];
+              a = make_float4(o.x + a.x, o.y + a.y, o.z + a.z, o.w + a.w);
+            }
+            w4[i] = a;
+          }
+        }
+      }
+"""
+RB_REREAD = {
+    re.escape("constexpr int kScalar = -1, kStaged = -2;"):
+        "constexpr int kScalar = -1, kStaged = -2, kWide = 0;\n"
+        "constexpr int kChunk = 16;",
+    re.escape("    } else {\n      for (int i0 = 4 * lane; i0 < d; i0 += 128)"):
+        RB_REREAD_BODY + "    } else {\n      for (int i0 = 4 * lane; i0 < d; i0 += 128)",
+    re.escape("const bool staged = vec && per_lane > kMaxVec && d <= kStageMaxD;"):
+        "const bool staged = false;",
+    re.escape("else if (!vec || per_lane > kMaxVec) kern = "
+              "rmsnorm_bwd_kernel<kScalar>;"):
+        "else if (!vec) kern = rmsnorm_bwd_kernel<kScalar>;\n"
+        "  else if (per_lane > kMaxVec) kern = rmsnorm_bwd_kernel<kWide>;"}
 VARIANTS = {
     "base": {},
+    # rms_norm_bwd: two launches with one resident block an SM (fewer
+    # partial rows, more rows a warp); the cooperative launch with one block
+    # an SM; wide rows read twice from global memory (in float4 chunks, the
+    # second pass mostly from L2) in place of staged in shared memory; rows
+    # of up to 3072 floats staged too, in place of held in registers
+    "rb_two_launch": {RB: {**RB_TWO_LAUNCH, **RB_ONE_PER_SM}},
+    "rb_one_per_sm": {RB: RB_ONE_PER_SM},
+    "rb_reread": {RB: RB_REREAD},
+    "rb_stage_all": {RB: {r"vec && per_lane > kMaxVec && d <= kStageMaxD":
+                          "vec && d <= kStageMaxD"}},
     # the split policy: units of 64 keys per split
     "units_1": {FD: {r"kUnitsPerSplit = 2;": "kUnitsPerSplit = 1;"}},
     "units_4": {FD: {r"kUnitsPerSplit = 2;": "kUnitsPerSplit = 4;"}},
@@ -413,6 +542,17 @@ class Kernels:
         self.has_rn = hasattr(lib, "rmsnorm_f32")
         self.has_sw = hasattr(lib, "swiglu_f32")
         self.has_su = hasattr(lib, "sync_flat_update_f32")
+        self.has_rb = hasattr(lib, "rmsnorm_bwd_f32")
+        # an rms_norm_bwd source from before `rmsnorm_bwd_grid` sizes its
+        # own scratch and grid
+        self.rb_old = self.has_rb and not hasattr(lib, "rmsnorm_bwd_grid")
+        if self.rb_old:
+            lib.rmsnorm_bwd_f32.argtypes = [P] * 6 + [I, I, F, P]
+            lib.rmsnorm_bwd_scratch_floats.argtypes = [I, I]
+            lib.rmsnorm_bwd_scratch_floats.restype = ctypes.c_longlong
+        elif self.has_rb:
+            lib.rmsnorm_bwd_f32.argtypes = [P] * 6 + [I, I, F, I, I, P]
+            lib.rmsnorm_bwd_grid.argtypes = [I] * 3 + [ctypes.POINTER(I)]
         self.has_fd = lib.interface is not None
         if self.has_rn:
             lib.rmsnorm_f32.argtypes = [P, P, P, I, I, F, P]
@@ -441,6 +581,18 @@ class Kernels:
     def rmsnorm_f32(self, *args):
         return (self.lib if self.has_rn else self.base).rmsnorm_f32(*args)
 
+    def rmsnorm_bwd_grid(self, n, d, vec, blocks):
+        if not self.rb_old:
+            return (self.lib if self.has_rb else self.base).rmsnorm_bwd_grid(
+                n, d, vec, blocks)
+        blocks.value = self.lib.rmsnorm_bwd_scratch_floats(n, d) // d
+        return 0
+
+    def rmsnorm_bwd_f32(self, *args):
+        if self.rb_old:
+            return self.lib.rmsnorm_bwd_f32(*args[:9], args[-1])
+        return (self.lib if self.has_rb else self.base).rmsnorm_bwd_f32(*args)
+
     def swiglu_f32(self, *args):
         return (self.lib if self.has_sw else self.base).swiglu_f32(*args)
 
@@ -460,7 +612,8 @@ class Kernels:
             *args)
 
     def has(self, kernel: str) -> bool:
-        return {"rms_norm": self.has_rn, "swiglu": self.has_sw,
+        return {"rms_norm": self.has_rn, "rms_norm_bwd": self.has_rb,
+                "swiglu": self.has_sw,
                 "flash_decode": self.has_fd,
                 "sync_flat_update": self.has_su,
                 "swiglu_bwd": self.has_sb}[kernel]
@@ -626,6 +779,78 @@ def swiglu_bwd_rows(torch, names, kern, turns, timer, res) -> dict:
     return library
 
 
+def rms_norm_bwd_rows(torch, cs, names, kern, turns, timer, res) -> dict:
+    """rms_norm_bwd at [1024, d] for d in RMS_BWD_D, held and timed per
+    variant (into `res`): dx against the plain version at chip_smoke's
+    tolerance and bitwise against the base, dscale within chip_smoke's
+    `dscale_tol`, a second call bitwise, dscale's RMS error against an
+    fp64 sum over the rows, timed in turns, and each launch's device time
+    from a profile of 5 calls (chip_smoke's `profile_device_ms`); returns {row: the library's grad ms and the
+    plain version's dscale error against fp64}."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as _rn
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(1357)
+    users = [v for v in names if v == "base" or kern[v].has("rms_norm_bwd")]
+    library = {}
+    for d in RMS_BWD_D:
+        n = cs.BWD_ROWS
+        x, sc, dy = (torch.randn(*shape, generator=g, device="cuda")
+                     for shape in ((n, d), (d,), (n, d)))
+        using(kern["base"])
+        base = _rn.rms_norm_bwd(x, sc, dy)
+        wdx, wds = ref.rms_norm_bwd(x, sc, dy)
+        xd = x.double()
+        r = torch.rsqrt(torch.mean(xd * xd, -1, keepdim=True) + 1e-6)
+        exact = (dy.double() * xd * r).sum(0)
+        ds_tol = cs.dscale_tol(torch, x, dy)
+        dx_tol = cs.TOL["rms_norm_bwd"] * max(float(wdx.abs().max()), 1.0)
+
+        def rms_err(ds):
+            """dscale's RMS error against the fp64 sum over its RMS."""
+            return float((ds.double() - exact).square().mean().sqrt()
+                         / exact.square().mean().sqrt())
+        key = f"rms_norm_bwd [{n},{d}]"
+        library[key + " plain_dscale_rms_err_vs_fp64"] = rms_err(wds)
+        for v in users:
+            using(kern[v])
+            dx, ds = _rn.rms_norm_bwd(x, sc, dy)
+            dx2, ds2 = _rn.rms_norm_bwd(x, sc, dy)
+            torch.cuda.synchronize()
+            ds_err = float((ds - wds).abs().max())
+            dx_err = float((dx - wdx).abs().max())
+            prof = cs.profile_device_ms(torch, lambda: [
+                _rn.rms_norm_bwd(x, sc, dy) for _ in range(5)],
+                count=("rmsnorm_bwd",))
+            res[v]["cases"][key] = dict(
+                dx_max_abs_err=dx_err, dscale_max_abs_err=ds_err,
+                within_tol=dx_err <= dx_tol and ds_err <= ds_tol,
+                dscale_tol=ds_tol, dx_bitwise_base=bool(torch.equal(
+                    dx, base[0])),
+                dscale_bitwise_base=bool(torch.equal(ds, base[1])),
+                bitwise_repeat=bool(torch.equal(dx, dx2)
+                                    and torch.equal(ds, ds2)),
+                dscale_rms_err_vs_fp64=rms_err(ds),
+                launch_ms={t["name"][:80]: t["ms"] / t["calls"]
+                           for t in prof["top"]},
+                ms=[])
+            del dx, ds, dx2, ds2
+        for v in turns:
+            if v in users:
+                using(kern[v])
+                res[v]["cases"][key]["ms"].append(timer(
+                    lambda: _rn.rms_norm_bwd(x, sc, dy)))
+        using(kern["base"])
+        xr, sr = x.clone().requires_grad_(True), sc.clone().requires_grad_(True)
+        lib_out = F.rms_norm(xr, (d,), sr, 1e-6)
+        library[key] = timer(lambda: torch.autograd.grad(
+            lib_out, (xr, sr), dy, retain_graph=True))
+        library[key + " bound_ms"] = cs.bound_ms(4.0 * (3 * n * d + 2 * d),
+                                                 10.0 * n * d)[0]
+        del x, sc, dy, base, wdx, wds, xd, r, exact, xr, sr, lib_out
+    return library
+
+
 def using(kernels):
     """Point the wrappers at `kernels` (a Kernels or the base library)."""
     from repro_torch.kernels import build as kb
@@ -649,7 +874,9 @@ def main(argv) -> int:
     step = "--step" in argv
     only = [a.split("=", 1)[1] for a in argv if a.startswith("--only=")]
     argv = [a for a in argv if a != "--step" and not a.startswith("--only=")]
-    names = ["base"] + [n for n in (argv or VARIANTS) if n != "base"]
+    # no variant named: every variant, or with --only those of its files
+    names = ["base"] + [n for n in (argv or VARIANTS) if n != "base" and (
+        argv or not only or any(KERNEL[k] in VARIANTS[n] for k in only))]
     base = kb.library()
     libs = build(names)
     kern = {n: base if n == "base" else Kernels(base, libs[n][0])
@@ -707,6 +934,9 @@ def main(argv) -> int:
                         if e.device_time_total > 0}
         using(base)
     del cases
+    if not only or "rms_norm_bwd" in only:
+        library.update(rms_norm_bwd_rows(torch, cs, names, kern, turns,
+                                         timer, res))
     if not only or "swiglu_bwd" in only:
         library.update(swiglu_bwd_rows(torch, names, kern, turns, timer,
                                        res))
