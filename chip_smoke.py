@@ -12,7 +12,11 @@ serving kernels also at a long serving shape: 8 slots of a 4096-row cache;
 backward kernels, `rms_norm_bwd` and `swiglu_bwd`, at gemma3-4b's
 training rows (`rms_norm_bwd` also at phi3's d = 5120 and qwen's 8192,
 `swiglu_bwd`, from the pair its forward keeps, also at twice the rows;
-`rms_norm` also at d = 5120).
+`rms_norm` also at d = 5120 and 8192, where its rows are staged in shared
+memory, each row bitwise the strided path's output; `swiglu`,
+`flash_decode` and `flash_attention` also at phi3-medium-14b's,
+qwen1.5-110b's and paligemma-3b's shapes, the last with its 256-token
+image prefix).
 Then it drives both of the port's paths on the card:
 
 * serving: gemma3-4b at full width (random weights drawn on the card from
@@ -22,6 +26,14 @@ Then it drives both of the port's paths on the card:
   swap; then starcoder2-3b at full width and all 30 layers through the
   same loop and one-shot `generate` (equal tokens), its decode step's
   device time and kernels, and its card against the CPU at 2 layers;
+  phi3-medium-14b (untied head) at full width and all 40 layers and
+  qwen1.5-110b (QKV bias, random) at full width cut to 2 layers (its 80
+  do not fit) through the same loop and `generate`, with their decode
+  steps' device times and kernels; paligemma-3b at all 18 layers through
+  one-shot `generate` after its 256-token image prefix (prefill against
+  decode) and a timed prefill of 4 x (256 + 1024) rows; and the card
+  against the CPU for the three (phi3 at 2 layers, qwen at 1, paligemma
+  at 2 with the prefix);
 * training: ViT-B/16 at full width with Local AdamW under the QSR schedule
   through `train()` (W = 4 workers, 32 images each, 10 rounds), the flat
   layout with the quantized sync for 2 rounds, and the card against the
@@ -44,7 +56,11 @@ Then it drives both of the port's paths on the card:
   same recipe, 8 steps: every norm and MLP through the `rms_norm` /
   `swiglu` autograd Functions and their backward kernels, and in a
   profiled step one swiglu forward tile and one dW and dX launch a layer
-  and lane), and its card against the CPU at 2 layers;
+  and lane), and its card against the CPU at 2 layers; the same recipe
+  on phi3-medium-14b (W = 2 x 1 x 1024: every norm on the staged rms_norm
+  instances, forward and backward) and paligemma-3b (W = 4 x 1 x (256 +
+  1024), attention with prefix_len 256), each with its card against the
+  CPU at 2 layers;
 * checkpoints: ViT-B/16's W = 4 state saved in the tree layout after 2
   rounds and resumed in the flat layout, bitwise the run without the
   checkpoint, with save and restore rates; and train to serve: starcoder2-3b
@@ -87,6 +103,9 @@ PEAK_TF32_FLOP_PER_S = 495e12         # dense TF32 on the tensor cores
 # FMAs on the CUDA cores), from this script on an NVIDIA H100 80GB HBM3 at
 # 700 W, ViT-B/16's [32,196,12,64]: printed beside this run's for comparison
 CUDA_CORE_MS = {"flash_attention_fwd": 0.2834, "flash_attention_bwd": 0.9132}
+# host seconds kept between a profile's capture window and the profiled
+# work at either end (see `profile_device_ms`)
+PROFILE_MARGIN_S = 0.05
 ARCH = "gemma3-4b"
 SLOTS, MAX_NEW = 2, 16
 # the long serving shape: 8 slots of a 4096-row cache, slot s at position
@@ -177,6 +196,23 @@ G3_PARAMS, G3_LEAVES = 859_845_120, 11
 # rms_norm_bwd also at phi3-medium-14b's and qwen1.5-110b's widths
 BWD_ROWS = G3_B * G3_SEQ
 PHI3_D, QWEN_D = 5120, 8192
+# phi3-medium-14b (an untied head), qwen1.5-110b (QKV bias) and
+# paligemma-3b (a bidirectional prefix of 256 stub image tokens): served
+# at full width (phi3 and paligemma at full depth, qwen at 2 layers: its
+# 80 layers are 444.8 GB of fp32 weights), held against the CPU, and
+# trained at 2 layers with the LM recipe; parameters by depth
+PHI3_ARCH, QWEN_ARCH, VLM_ARCH = "phi3-medium-14b", "qwen1.5-110b", "paligemma-3b"
+PHI3_PARAMS = {2: 1_709_204_480, 40: 14_659_507_200}
+QWEN_PARAMS = {1: 3_850_405_888, 2: 5_209_387_008, 80: 111_209_914_368}
+VLM_PARAMS = {2: 746_989_568, 18: 2_508_662_784}
+QWEN_SERVE_LAYERS = 2
+# training: phi3 W = 2 x 1 x 1024 tokens (2 x 1.709 G params x 16 B = 54.7
+# GB + a 6.8 GB anchor), paligemma W = 4 x 1 x (256 prefix + 1024 text);
+# tree leaves (AdamW launches a step): phi3 12 (the untied head), paligemma
+# 11
+PHI3_W, VLM_W = 2, 4
+PHI3_LEAVES, VLM_LEAVES = 12, 11
+VLM_PREFIX = 256
 # starcoder2-3b's decode attention (GQA 12: 24 query heads over 2 kv heads
 # of 128, every layer windowed at 4096) at the main serving step and the
 # long one, as flash_decode kernel rows
@@ -195,6 +231,8 @@ CKPT_ROOT = os.path.join(ROOT, "_ckpt")
 # one-shot generate (gemma3-4b): prompts x prompt tokens, new tokens; and
 # the timed prefill
 GEN_B, GEN_PLEN, GEN_NEW = 4, 32, 16
+# paligemma-3b's one-shot cache: the image prefix, the prompt, the new tokens
+VLM_GEN_LEN = VLM_PREFIX + GEN_PLEN + GEN_NEW
 PREFILL_B, PREFILL_LEN = 4, 1024
 # prefill's last-position logits against the prompt fed through
 # decode_step, x max(|logits|, 1): fp32 sums in another order in every
@@ -303,11 +341,14 @@ def kernel_cases(torch, main_len: int):
                     (PREFILL_B * PREFILL_LEN, False), (8192, False)):
         cases.append(("rms_norm", f"[{n},{d}]",
                       dict(x=rnd(n, d), scale=rnd(d)), main, True))
-    # phi3-medium-14b's d = 5120 (past the register path: the strided one) at
-    # a training lane's 1024 rows and the prefill's 4096
-    for n in (BWD_ROWS, PREFILL_B * PREFILL_LEN):
-        cases.append(("rms_norm", f"[{n},{PHI3_D}]",
-                      dict(x=rnd(n, PHI3_D), scale=rnd(PHI3_D)), False, True))
+    # rows past the registers, staged in shared memory: phi3-medium-14b's d
+    # = 5120 at its decode step's 2 rows, a training lane's 1024 and the
+    # prefill's 4096; qwen1.5-110b's 8192 at 1024 and 4096
+    for n, dd in ((SLOTS, PHI3_D), (BWD_ROWS, PHI3_D),
+                  (PREFILL_B * PREFILL_LEN, PHI3_D), (BWD_ROWS, QWEN_D),
+                  (PREFILL_B * PREFILL_LEN, QWEN_D)):
+        cases.append(("rms_norm", f"[{n},{dd}]",
+                      dict(x=rnd(n, dd), scale=rnd(dd)), False, True))
 
     def sw(n, d, f, main=False, timed=True):
         cases.append(("swiglu", f"[{n},{d}]x[{d},{f}]",
@@ -366,6 +407,15 @@ def kernel_cases(torch, main_len: int):
     fd(4, 4097, window=1000, prefix_len=7, timed=False,
        qoff=[4096, 2000, -1, 3], **sc2)
     fd(4, 700, window=300, ring=True, timed=False, **sc2)
+    # the decode steps of phi3-medium-14b (G = 4, D = 128) and qwen1.5-110b
+    # (G = 8, D = 128) at the serving step, and paligemma-3b's (G = 8, D =
+    # 256) after its 256-token image prefix: the one-shot path's 4 rows at
+    # the last new token's position
+    fd(SLOTS, main_len, window=0, heads=(40, 10, 128), arch="phi3-medium-14b ")
+    fd(SLOTS, main_len, window=0, heads=(64, 8, 128), arch="qwen1.5-110b ")
+    fd(GEN_B, VLM_GEN_LEN, window=0, prefix_len=VLM_PREFIX,
+       qoff=[VLM_GEN_LEN - 1] * GEN_B, heads=(8, 1, 256),
+       arch="paligemma-3b ")
     # swiglu's tile path (from 9 rows): prefills of 16 to 128 rows, timed;
     # edges one past a tile (9, 129, 4097 rows), and D = 98, a k-tail that
     # is neither a multiple of the 32-wide chunk nor of 4
@@ -375,6 +425,11 @@ def kernel_cases(torch, main_len: int):
         sw(n, d, f, timed=False)
     for n in (9, 129):
         sw(n, 98, 516, timed=False)
+    # phi3-medium-14b's MLP at its decode step and a training lane's rows,
+    # qwen1.5-110b's at its decode step
+    sw(SLOTS, PHI3_D, 17920)
+    sw(BWD_ROWS, PHI3_D, 17920)
+    sw(SLOTS, QWEN_D, 49152)
     return cases
 
 
@@ -436,7 +491,7 @@ def work(torch, name, a) -> tuple[float, float]:
 
 # the paths of csrc/rmsnorm.cu's and csrc/rmsnorm_bwd.cu's instances by
 # their template argument VEC (VEC > 0: rows held in registers)
-RMS_NORM_PATHS = {"rmsnorm_kernel": {0: "strided"},
+RMS_NORM_PATHS = {"rmsnorm_kernel": {0: "strided", -2: "staged"},
                   "rmsnorm_bwd_kernel": {-1: "scalar", -2: "staged"}}
 
 
@@ -510,6 +565,16 @@ def phase_kernels(torch, main_len):
                 count=("rmsnorm_kernel",))
             row["path"] = rms_norm_path([t["name"] for t in prof["top"]],
                                         "rmsnorm_kernel")
+            # the same rows one float off 16-byte alignment take the strided
+            # path (the parent's for rows past the registers): every path
+            # sums in one order, so the bits are the same
+            xs = torch.empty(a["x"].numel() + 1, device="cuda")[1:]
+            xs = xs.view_as(a["x"]).copy_(a["x"])
+            row["bitwise_strided_path"] = bool(torch.equal(
+                got, ops.KERNELS[name](xs, a["scale"])))
+            check(row["bitwise_strided_path"],
+                  f"rms_norm {label}: not bitwise the strided path's output")
+            del xs
         if timed:
             lib = library_call(torch, name, a)
             row["library_max_abs_err"] = float((lib() - want).abs().max())
@@ -552,6 +617,9 @@ def attention_work(torch, a, backward: bool) -> tuple[float, float]:
 
 LM_TRAIN_ATTN = ("starcoder2-3b train q[4,1024,24,128] kv[.,.,2,.] causal "
                  "window 4096")
+PHI3_TRAIN_ATTN = "phi3-medium-14b train q[1,1024,40,128] kv[.,.,10,.] causal"
+VLM_ATTN = tuple(f"paligemma-3b {what} q[{b},1280,8,256] kv[.,.,1,.] causal "
+                 f"prefix 256" for what, b in (("train", 1), ("prefill", 4)))
 PREFILL_ATTN = tuple(f"gemma3-4b prefill q[4,1024,8,256] kv[.,.,4,.] causal "
                      f"window {w}" for w in (1024, 0))
 
@@ -602,6 +670,10 @@ def attention_cases(rnd):
            True),
         fa("q[1,130,4,256] gqa 2 window 32 prefix 5", 1, 130, 130, 2, 2, 256,
            True, window=32, prefix_len=5),
+        fa(PHI3_TRAIN_ATTN, 1, LM_SEQ, LM_SEQ, 10, 4, 128, True, timed=True),
+        *(fa(label, b, VLM_PREFIX + LM_SEQ, VLM_PREFIX + LM_SEQ, 1, 8, 256,
+             True, prefix_len=VLM_PREFIX, timed=True)
+          for label, b in zip(VLM_ATTN, (1, PREFILL_B))),
     ]
 
 
@@ -1212,46 +1284,71 @@ def device_step_ms(torch, cfg, weights, slots, max_len, positions,
     return ev[0].elapsed_time(ev[1]) / reps
 
 
-def phase_card_vs_cpu(torch, np, arch=ARCH):
-    """`arch`'s widths at 2 layers: same weights on the card (kernels) and
-    on the CPU (plain versions), teacher-forced decode steps."""
+def phase_card_vs_cpu(torch, np, arch=ARCH, n_layers=2):
+    """`arch`'s widths at `n_layers` layers: same weights on the card
+    (kernels) and on the CPU (plain versions; a QKV-bias model's biases
+    random), teacher-forced decode steps.  A VLM first prefills a random
+    image prefix and one token on both sides (its logits held the same
+    way), then decodes after it with `prefix_len`."""
     from repro_torch.configs import registry as R
     from repro_torch.launch import weights as W
     from repro_torch.models import api
 
-    cfg = dataclasses.replace(R.get_config(arch), n_layers=2)
+    cfg = dataclasses.replace(R.get_config(arch), n_layers=n_layers)
     mod = api.get_module(cfg)
     card = W.ServingWeights.from_seed(cfg, 3, device="cuda")
+    random_biases(torch, cfg, card.as_tree(), 4)
     host = card.spec.unflatten({b: v.cpu() for b, v in card.bufs.items()})
     cpu = W.ServingWeights(cfg, host, device="cpu")
-    b, max_len, n_steps = SLOTS, 16, 6
+    prefix = cfg.n_img_tokens if cfg.family == "vlm" else 0
+    b, max_len, n_steps = SLOTS, prefix + 16, 6
     caches = {dev: mod.init_cache(cfg, b, max_len, device=dev)
               for dev in ("cuda", "cpu")}
     rng = np.random.default_rng(11)
-    # fp32 sums over D=2560 / F=10240 in another order on each side: ~1e-6
-    # relative per product, through 2 layers and the 262144-way unembed
+    # fp32 sums over D (2048 to 8192) and F (10240 to 49152) in another
+    # order on each side: ~1e-6 relative per product, through 2 layers and
+    # the unembedding (100,352 to 262,144 ways)
     tol = 2e-4
     worst, agree, decided = 0.0, 0, 0
+
+    def compare(lc, lh):
+        nonlocal worst, agree, decided
+        lc = lc.cpu()
+        worst = max(worst, float((lc - lh).abs().max()))
+        top2 = torch.topk(lh, 2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        same = lc.argmax(-1) == lh.argmax(-1)
+        decided += int(sure.sum())
+        agree += int((same & sure).sum())
+
+    start = 0
     with torch.no_grad():
+        if prefix:
+            pre = torch.from_numpy((0.02 * rng.standard_normal(
+                (b, prefix, cfg.d_model))).astype(np.float32))
+            tok = torch.from_numpy(rng.integers(0, cfg.vocab, (b, 1)))
+            lc, _ = mod.prefill(cfg, card.as_tree(), tok.cuda(),
+                                caches["cuda"], prefix_embeds=pre.cuda())
+            lh, _ = mod.prefill(cfg, cpu.as_tree(), tok, caches["cpu"],
+                                prefix_embeds=pre)
+            compare(lc, lh)
+            start = prefix + 1
         for i in range(n_steps):
             tok = torch.from_numpy(rng.integers(0, cfg.vocab, b))
-            pos = torch.tensor([i, i + 3], dtype=torch.int32)
+            pos = torch.tensor([start + i, start + i + 3], dtype=torch.int32)
             lc, _ = mod.decode_step(cfg, card.as_tree(), tok.cuda(),
-                                    caches["cuda"], pos.cuda())
+                                    caches["cuda"], pos.cuda(),
+                                    prefix_len=prefix)
             lh, _ = mod.decode_step(cfg, cpu.as_tree(), tok, caches["cpu"],
-                                    pos)
-            lc = lc.cpu()
-            worst = max(worst, float((lc - lh).abs().max()))
-            top2 = torch.topk(lh, 2, dim=-1).values
-            sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
-            same = lc.argmax(-1) == lh.argmax(-1)
-            decided += int(sure.sum())
-            agree += int((same & sure).sum())
-    check(worst <= tol, f"card vs CPU logits differ by {worst} > {tol}")
-    check(agree == decided, f"greedy tokens differ: {agree}/{decided}")
+                                    pos, prefix_len=prefix)
+            compare(lc, lh)
+    check(worst <= tol, f"{cfg.name} card vs CPU logits differ by {worst} "
+          f"> {tol}")
+    check(agree == decided, f"{cfg.name} greedy tokens differ: "
+          f"{agree}/{decided}")
     emit("card_vs_cpu", arch=cfg.name, layers=cfg.n_layers,
-         d_model=cfg.d_model,
-         vocab=cfg.vocab, steps=n_steps, batch=b, max_abs_logit_err=worst,
+         d_model=cfg.d_model, vocab=cfg.vocab, qkv_bias=cfg.qkv_bias,
+         prefix_len=prefix, steps=n_steps, batch=b, max_abs_logit_err=worst,
          tol=tol, greedy_agree=agree, greedy_decided=decided)
     del card, cpu, caches
     torch.cuda.empty_cache()
@@ -1292,32 +1389,102 @@ def phase_hot_swap(torch, np):
          restart_tokens=rref.out, match=True)
 
 
+def decode_launches(cfg) -> dict:
+    """Kernel launches of one decode step of `cfg`: flash_decode once a
+    layer, and an RMSNorm model's rms_norm twice a layer and once for the
+    final norm, a SwiGLU model's swiglu once a layer."""
+    n_l = cfg.n_layers
+    out = dict(flash_decode=n_l)
+    if cfg.norm == "rmsnorm":
+        out["rms_norm"] = 2 * n_l + 1
+    if cfg.act == "swiglu":
+        out["swiglu"] = n_l
+    return out
+
+
+def generate_launches(cfg, new: int) -> dict:
+    """Kernel launches of one-shot `generate` of `new` tokens: one prefill
+    (the full-sequence attention, and the norms and MLPs of every row),
+    then a decode step for each new token."""
+    out = {k: v * new for k, v in decode_launches(cfg).items()}
+    out["flash_attention_fwd"] = cfg.n_layers
+    for k in ("rms_norm", "swiglu"):
+        if k in out:
+            out[k] += out[k] // new
+    return out
+
+
+def random_biases(torch, cfg, tree, seed: int) -> None:
+    """A QKV-bias model's bq, bk and bv drawn 0.1 · normal in place (the
+    init leaves them at zero, which would test nothing)."""
+    if not cfg.qkv_bias:
+        return
+    g = torch.Generator(device=tree["layers"]["attn"]["bq"].device)
+    g.manual_seed(seed)
+    for name in ("bq", "bk", "bv"):
+        tree["layers"]["attn"][name].normal_(0.0, 0.1, generator=g)
+
+
 def phase_service_starcoder2(torch, np):
-    """starcoder2-3b at full width and all 30 layers (random weights from
-    seed 0 on the card) through the continuous-batching loop: 2 slots, the
-    4 requests of PROMPT_LENS, MAX_NEW new tokens each, with the launch
-    counts at 0 just before and read just after; then one-shot `generate`
-    of GEN_B prompts, its tokens equal to the `--slots 2` service's; then
-    the device time of one decode step (a CUDA graph) beside its bytes
-    floor and its launches: flash_decode once a layer (g = 12, the G = 16
-    instance), no rms_norm or swiglu (LayerNorm and GELU).  Returns (the
-    service's counts, generate's counts)."""
+    """starcoder2-3b at full width and all 30 layers through
+    `service_path`: flash_decode once a layer (g = 12, the G = 16
+    instance), no rms_norm or swiglu (LayerNorm and GELU)."""
     from repro_torch.configs import registry as R
+    return service_path(torch, np, "service_starcoder2",
+                        R.get_config(LM_ARCH), LM_PARAMS[30])
+
+
+def phase_service_phi3(torch, np):
+    """phi3-medium-14b at full width and all 40 layers (58.6 GB of fp32
+    weights, its untied head among them) through `service_path`: per
+    decode step 81 rms_norm (d = 5120: the staged rows), 40 swiglu and 40
+    flash_decode (G = 4)."""
+    from repro_torch.configs import registry as R
+    return service_path(torch, np, "service_phi3", R.get_config(PHI3_ARCH),
+                        PHI3_PARAMS[40])
+
+
+def phase_service_qwen(torch, np):
+    """qwen1.5-110b at full width cut to QWEN_SERVE_LAYERS layers (all 80
+    are 444.8 GB of fp32 weights: they do not fit the card), with nonzero
+    random QKV biases, through `service_path`: d = 8192 rows staged, G =
+    8."""
+    from repro_torch.configs import registry as R
+    cfg = dataclasses.replace(R.get_config(QWEN_ARCH),
+                              n_layers=QWEN_SERVE_LAYERS)
+    return service_path(
+        torch, np, "service_qwen", cfg, QWEN_PARAMS[QWEN_SERVE_LAYERS],
+        depth=f"{QWEN_SERVE_LAYERS} of 80 layers: the full depth's "
+        f"{4 * QWEN_PARAMS[80] / 1e9:.1f} GB of fp32 weights exceed the "
+        "card's 80 GB")
+
+
+def service_path(torch, np, phase, cfg, n_params, depth=None):
+    """`cfg` at full width (random weights from seed 0 on the card; a QKV
+    bias model's biases random too) through the continuous-batching loop:
+    2 slots, the 4 requests of PROMPT_LENS, MAX_NEW new tokens each, with
+    the launch counts at 0 just before and read just after; then one-shot
+    `generate` of GEN_B prompts, its tokens equal to the `--slots 2`
+    service's; then the device time of one decode step (a CUDA graph)
+    beside its bytes floor, its launches (`decode_launches`) and its
+    kernels by name.  Returns (the service's counts, generate's
+    counts)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import weights as W
     from repro_torch.launch.serve import generate, run_service
     from repro_torch.models import api
 
-    cfg = R.get_config(LM_ARCH)
     n_l = cfg.n_layers
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     weights = W.ServingWeights.from_seed(cfg, 0, device="cuda")
+    random_biases(torch, cfg, weights.as_tree(), 1)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(b.numel() for b in weights.bufs.values())
-    check(n_params == LM_PARAMS[30], f"starcoder2-3b has {n_params} params")
+    got_params = sum(b.numel() for b in weights.bufs.values())
+    check(got_params == n_params, f"{phase}: {got_params} params")
     prompts = prompts_for(cfg, np)
     max_len = max(PROMPT_LENS) + MAX_NEW
 
@@ -1331,10 +1498,10 @@ def phase_service_starcoder2(torch, np):
     counts = ops.launch_counts()          # ... read just after
     steps = audit["decode_steps"]
     check(all(r.done and len(r.out) == MAX_NEW for r in reqs),
-          "starcoder2 service: not every request finished with its tokens")
+          f"{phase}: not every request finished with its tokens")
     want = {k: 0 for k in counts}
-    want.update(flash_decode=n_l * steps)
-    check(counts == want, f"starcoder2 service: launches {counts} != {want}")
+    want.update({k: v * steps for k, v in decode_launches(cfg).items()})
+    check(counts == want, f"{phase}: launches {counts} != {want}")
 
     rng = np.random.default_rng(13)
     gp = rng.integers(0, cfg.vocab, (GEN_B, GEN_PLEN), dtype=np.int32)
@@ -1345,24 +1512,24 @@ def phase_service_starcoder2(torch, np):
     gen_wall = time.perf_counter() - t0
     gen_counts = ops.launch_counts()
     want = {k: 0 for k in gen_counts}
-    want.update(flash_attention_fwd=n_l, flash_decode=n_l * GEN_NEW)
-    check(gen_counts == want,
-          f"starcoder2 generate: launches {gen_counts} != {want}")
+    want.update(generate_launches(cfg, GEN_NEW))
+    check(gen_counts == want, f"{phase} generate: launches {gen_counts} != "
+          f"{want}")
     got = toks[:, GEN_PLEN:].cpu().tolist()
     check(tuple(toks.shape) == (GEN_B, GEN_PLEN + GEN_NEW),
-          f"starcoder2 generate: tokens of shape {tuple(toks.shape)}")
+          f"{phase} generate: tokens of shape {tuple(toks.shape)}")
     sreqs, _ = run_service(cfg, weights, list(gp), slots=SLOTS,
                            max_new=GEN_NEW, max_len=GEN_PLEN + GEN_NEW)
     for r in sreqs:
-        check(r.out == got[r.rid], f"starcoder2 generate row {r.rid}: "
+        check(r.out == got[r.rid], f"{phase} generate row {r.rid}: "
               f"{got[r.rid]} != the --slots {SLOTS} service's {r.out}")
 
     ops.reset_launch_counts()
     device_ms = device_step_ms(torch, cfg, weights, SLOTS, max_len,
                                [max_len // 2, max_len - 1], count=True)
     step_counts = {k: v for k, v in ops.launch_counts().items() if v}
-    check(step_counts == dict(flash_decode=n_l),
-          f"starcoder2 decode step launches {step_counts}")
+    check(step_counts == decode_launches(cfg),
+          f"{phase}: decode step launches {step_counts}")
     # one eager decode step's kernels by name (torch.profiler)
     mod = api.get_module(cfg)
     cache = mod.init_cache(cfg, SLOTS, max_len, device="cuda")
@@ -1374,25 +1541,35 @@ def phase_service_starcoder2(torch, np):
         prof = profile_device_ms(torch, lambda: mod.decode_step(
             cfg, weights.as_tree(), tok, cache, pos), top=16)
     del cache
+    # bytes one decode step must read: every weight once (an untied
+    # model's input embedding only at the slots' rows: its head is the
+    # unembedding) + the whole cache
     w_bytes = sum(b.numel() * b.element_size() for b in weights.bufs.values())
+    step_w_bytes = w_bytes
+    if not cfg.tie_embeddings:
+        step_w_bytes -= 4 * (cfg.vocab - SLOTS) * cfg.d_model
     kv_bytes = 2 * n_l * SLOTS * max_len * cfg.n_kv_heads * cfg.hd * 4
-    floor_ms = (w_bytes + kv_bytes) / PEAK_BYTES_PER_S * 1e3
+    floor_ms = (step_w_bytes + kv_bytes) / PEAK_BYTES_PER_S * 1e3
     tokens = audit["tokens_emitted"]
-    emit("service_starcoder2", arch=cfg.name, layers=n_l,
+    extra = {} if depth is None else {"depth": depth}
+    emit(phase, arch=cfg.name, layers=n_l,
          d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
-         head_dim=cfg.hd, params=n_params, weight_bytes=w_bytes,
-         weight_init_s=init_s, slots=SLOTS, requests=len(reqs),
-         prompt_lens=list(PROMPT_LENS), max_new=MAX_NEW, decode_steps=steps,
-         tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
-         ms_per_step=wall / steps * 1e3, device_ms_per_step=device_ms,
+         head_dim=cfg.hd, qkv_bias=cfg.qkv_bias,
+         tied_embeddings=cfg.tie_embeddings, params=got_params,
+         weight_bytes=w_bytes, step_weight_bytes=step_w_bytes,
+         weight_init_s=init_s, slots=SLOTS,
+         requests=len(reqs), prompt_lens=list(PROMPT_LENS), max_new=MAX_NEW,
+         decode_steps=steps, tokens=tokens, wall_s=wall,
+         tokens_per_s=tokens / wall, ms_per_step=wall / steps * 1e3,
+         device_ms_per_step=device_ms,
          device_busy_share=device_ms / (wall / steps * 1e3),
-         step_bytes=w_bytes + kv_bytes, floor_ms_datasheet=floor_ms,
+         step_bytes=step_w_bytes + kv_bytes, floor_ms_datasheet=floor_ms,
          floor_share=floor_ms / device_ms, launches=counts,
          launches_per_step=step_counts, profiled_step=prof,
          generate_wall_s=gen_wall,
          generate_tokens_per_s=GEN_B * GEN_NEW / gen_wall,
          generate_launches=gen_counts, generate_equals_slots_service=True,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **extra)
     del weights, reqs, sreqs, toks
     torch.cuda.empty_cache()
     return counts, gen_counts
@@ -2117,7 +2294,11 @@ def profile_device_ms(torch, fn, top: int = 12, by_op: bool = False,
     from the first kernel's start to the last one's end (kernels and the
     gaps between), over a second call after one profiled as warm-up: a
     profile that starts with the call can miss its first kernels (also
-    the call `count` reads)."""
+    the call `count` reads).  The host waits PROFILE_MARGIN_S after the
+    capture window opens and before it closes: with no wait the profiler
+    lost some or all kernel records of the profiled call now and then,
+    those whose device time, mapped onto the host's clock, falls outside
+    the window (`tools/profile_window.py` counts them)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     warm = by_op or bool(count)
@@ -2125,8 +2306,10 @@ def profile_device_ms(torch, fn, top: int = 12, by_op: bool = False,
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
                  if warm else None) as prof:
         for _ in range(2 if warm else 1):
+            time.sleep(PROFILE_MARGIN_S)
             fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
             if warm:
                 prof.step()
     averages = prof.key_averages()
@@ -2237,22 +2420,56 @@ def phase_train_gemma3(torch, np):
     """gemma3-4b training on the card: full width cut to 2 layers
     (859,845,120 parameters, 11 leaves), Local AdamW under QSR through
     `train()` with the LM recipe, W = 4 x 1 sequence of 1024 tokens, 8
-    steps, tree layout, blocking sync.  Every norm and MLP runs through the
-    `_RmsNorm` / `_SwiGLU` autograd Functions: per step 5 rms_norm and
-    rms_norm_bwd launches a worker (two a layer, the final norm), one
-    swiglu and swiglu_bwd and one attention forward and backward a layer a
-    worker.  Then the device time of one local step and its kernels, as
+    steps, tree layout, blocking sync, through `train_rms_swiglu`: every
+    norm and MLP runs through the `_RmsNorm` / `_SwiGLU` autograd
+    Functions.  Then the device time of one local step and its kernels, as
     `train_lm`."""
-    per_w = G3_W * LM_STEPS
-    norms, layers = (2 * G3_LAYERS + 1) * per_w, G3_LAYERS * per_w
-    mlps = G3_LAYERS * G3_W              # a profiled step's MLP calls
+    return train_rms_swiglu(torch, np, "train_gemma3", G3_ARCH, G3_W,
+                            G3_PARAMS, G3_LEAVES)
+
+
+def phase_train_phi3(torch, np):
+    """phi3-medium-14b training on the card: full width cut to 2 layers
+    (1,709,204,480 parameters, 12 leaves with the untied head), the LM
+    recipe, W = 2 x 1 sequence of 1024 tokens, 8 steps, as `train_gemma3`:
+    every norm through `_RmsNorm` at d = 5120, and in a profiled step 10
+    launches each of the staged forward and backward instances."""
+    return train_rms_swiglu(torch, np, "train_phi3", PHI3_ARCH, PHI3_W,
+                            PHI3_PARAMS[2], PHI3_LEAVES, staged=True)
+
+
+def phase_train_paligemma(torch, np):
+    """paligemma-3b training on the card: full width cut to 2 layers
+    (746,989,568 parameters), the LM recipe, W = 4 x 1 x (256 stub image
+    tokens + 1024 text tokens: the engine's vlm batches), 8 steps: every
+    attention forward and backward with prefix_len 256."""
+    return train_rms_swiglu(torch, np, "train_paligemma", VLM_ARCH, VLM_W,
+                            VLM_PARAMS[2], VLM_LEAVES)
+
+
+def train_rms_swiglu(torch, np, phase, arch, w, n_params, leaves,
+                     staged=False):
+    """An RMSNorm + SwiGLU model at 2 layers through `train_lm_path`, W = w
+    x 1 x LM_SEQ, with its exact launches: per step and worker 5 rms_norm
+    and rms_norm_bwd (two a layer, the final norm), one swiglu,
+    swiglu_bwd and attention forward and backward a layer; and in a
+    profiled step one swiglu forward tile and one dW and dX launch a layer
+    and lane (`staged`: every norm on the staged instances, forward and
+    backward)."""
+    per_w = w * LM_STEPS
+    norms, layers = 5 * per_w, 2 * per_w
+    mlps = 2 * w
+    calls = {"swiglu_tile_kernel": mlps, "swiglu_kernel": 0,
+             "swiglu_dw_kernel": mlps, "swiglu_dx_kernel": mlps}
+    if staged:
+        calls.update({"rmsnorm_kernel<-2>": 5 * w,
+                      "rmsnorm_bwd_kernel<-2>": 5 * w})
     return train_lm_path(
-        torch, np, "train_gemma3", G3_ARCH, G3_W, G3_B, G3_SEQ, G3_PARAMS,
+        torch, np, phase, arch, w, 1, LM_SEQ, n_params,
         dict(rms_norm=norms, rms_norm_bwd=norms, swiglu=layers,
              swiglu_bwd=layers, flash_attention_fwd=layers,
-             flash_attention_bwd=layers, adamw_update=G3_LEAVES * LM_STEPS),
-        kernel_calls={"swiglu_tile_kernel": mlps, "swiglu_kernel": 0,
-                      "swiglu_dw_kernel": mlps, "swiglu_dx_kernel": mlps})
+             flash_attention_bwd=layers, adamw_update=leaves * LM_STEPS),
+        kernel_calls=calls)
 
 
 def train_lm_path(torch, np, phase, arch, w, b, seq, n_params, launches,
@@ -2298,10 +2515,13 @@ def train_lm_path(torch, np, phase, arch, w, b, seq, n_params, launches,
               f"profiled step {prof['calls']} != {kernel_calls}")
 
     tokens = w * b * seq
-    flops = lm_step_flops(cfg, w * b, seq)
+    prefix = cfg.n_img_tokens if cfg.family == "vlm" else 0
+    flops = 3.0 * lm_forward_flops(cfg, w * b, prefix + seq,
+                                   unembed_rows=tokens)
     wall_ms = wall / LM_STEPS * 1e3
     emit(phase, arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-         params=n_params, workers=w, b_loc=b, seq=seq, steps=LM_STEPS,
+         params=n_params, workers=w, b_loc=b, seq=seq, prefix_len=prefix,
+         steps=LM_STEPS,
          rounds=len(rounds), h_trace=eng.h_trace, layout="tree",
          sync="blocking", wall_s=wall, wall_ms_per_step=wall_ms,
          data_ms_per_step=eng.data_seconds / LM_STEPS * 1e3,
@@ -2377,23 +2597,33 @@ def plain_versions_on_card():
         ops.rms_norm, ops.swiglu, _fa.flash_attention = saved
 
 
+# the training card-vs-CPU phases by arch
+TRAIN_CARD_VS_CPU = {LM_ARCH: "train_lm_card_vs_cpu",
+                     G3_ARCH: "train_gemma3_card_vs_cpu",
+                     PHI3_ARCH: "train_phi3_card_vs_cpu",
+                     VLM_ARCH: "train_paligemma_card_vs_cpu"}
+
+
 def phase_train_lm_card_vs_cpu(torch, np, arch=LM_ARCH):
-    """`arch` (starcoder2-3b, or gemma3-4b through the rms_norm / swiglu
-    backward kernels) at full width cut to 2 layers, W = 2, 1 sequence of
-    128 tokens each, one round of H = 2 at the recipe's peak lr: the same
-    weights and token batches on the card (kernels) and on the CPU (plain
-    versions).  Loss and grad norm within 1e-4 relative; params: at most 1
-    element in 2,000 of each leaf beyond 1e-5 (AdamW's first steps flip
-    where a gradient sits at the sum-order noise), none beyond 4 lr.
+    """`arch` (starcoder2-3b, or an RMSNorm + SwiGLU model through the
+    rms_norm / swiglu backward kernels: gemma3-4b, phi3-medium-14b,
+    paligemma-3b with its image prefix) at full width cut to 2 layers, W =
+    2, 1 sequence of 128 tokens each, one round of H = 2 at the recipe's
+    peak lr: the same weights and batches on the card (kernels) and on the
+    CPU (plain versions).  Loss and grad norm within 1e-4 relative;
+    params: at most 1 element in 2,000 of each leaf beyond 1e-5 (AdamW's
+    first steps flip where a gradient sits at the sum-order noise), none
+    beyond 4 lr.
 
     gemma3-4b's second step runs at a grad norm of ~650 (the first AdamW
     step moves every weight by ~lr), which turns sum-order noise into more
     flips: its attention's wq and wk leave the 1-in-2,000 rule on the card
-    even with no kernel of the port (PERF.md §6).  So there the card
-    also runs the round with the plain versions (`plain_versions_on_card`)
-    and each leaf's elements beyond 1e-5 are held to at most 1.5 times
-    that run's count against the CPU (or 1 in 2,000): the kernels may move
-    the trajectory no further than the card's own sum order does.
+    even with no kernel of the port (PERF.md §6).  So for the models that
+    train through the backward kernels the card also runs the round with
+    the plain versions (`plain_versions_on_card`) and each leaf's elements
+    beyond 1e-5 are held to at most 1.5 times that run's count against the
+    CPU (or 1 in 2,000): the kernels may move the trajectory no further
+    than the card's own sum order does.
 
     The CPU holds 16 bytes a parameter a worker (gemma3-4b: 27.5 GB at W =
     2); W drops to 1 where the host's available memory is under twice
@@ -2405,10 +2635,10 @@ def phase_train_lm_card_vs_cpu(torch, np, arch=LM_ARCH):
     from repro_torch.kernels import ops
     from repro_torch.models import api, param as pm
 
-    gemma = arch == G3_ARCH
-    phase = "train_gemma3_card_vs_cpu" if gemma else "train_lm_card_vs_cpu"
+    phase = TRAIN_CARD_VS_CPU[arch]
     gc.collect()                          # earlier phases' cycles (run_lm)
     cfg, run = lm_setup(2, arch)
+    backward_kernels = cfg.norm == "rmsnorm"
     lr = run.peak_lr
     defs = api.get_module(cfg).param_defs(cfg)
     state_gb = 16.0 * pm.count_params(defs) * 2 / 1e9
@@ -2448,7 +2678,7 @@ def phase_train_lm_card_vs_cpu(torch, np, arch=LM_ARCH):
     def beyond(a, b):
         return int(((a - b).abs() > 1e-5 * (1 + b.abs())).sum())
     plain_off = None
-    if gemma:
+    if backward_kernels:
         with plain_versions_on_card():
             plain, *_ = rollout("cuda")
         plain_off = [beyond(a, b) for a, b in zip(plain, host)]
@@ -2458,7 +2688,7 @@ def phase_train_lm_card_vs_cpu(torch, np, arch=LM_ARCH):
     gn_err = max(abs(a - b) / abs(b) for a, b in zip(gns_card, gns_cpu))
     check(loss_err <= 1e-4, f"{phase}: loss rel err {loss_err}")
     check(gn_err <= 1e-4, f"{phase}: grad norm rel err {gn_err}")
-    if gemma:
+    if backward_kernels:
         check(counts.get("rms_norm_bwd", 0) == 2 * (2 * cfg.n_layers + 1) * w
               and counts.get("swiglu_bwd", 0) == 2 * cfg.n_layers * w,
               f"{phase}: backward kernel launches {counts}")
@@ -2593,6 +2823,123 @@ def phase_generate(torch, np, cfg, weights, rows):
     return counts
 
 
+def phase_generate_paligemma(torch, np, rows):
+    """paligemma-3b at full width and all 18 layers (random weights from
+    seed 0 on the card): one-shot `generate` of GEN_B prompts x GEN_PLEN
+    tokens after the 256-token stub image prefix (`serve.image_prefix`,
+    the CLI's), GEN_NEW new, greedy, with the launch counts at 0 just
+    before and read just after: the prefill runs `flash_attention` with
+    prefix_len 256 over 256 + 32 rows, each decode step `flash_decode` at G
+    = 8, D = 256 with prefix_len 256.  Its prefill's last-position logits
+    equal those of the prefix and first token prefilled and the rest of the
+    prompt fed through `decode_step`, within PREFILL_TOL; the prefix moves
+    the logits (a text-only prefill differs).  Then a prefill of PREFILL_B
+    x (256 + PREFILL_LEN) rows: device ms, launches, kernels by name.
+    Returns the generate path's counts."""
+    from repro_torch.configs import registry as R
+    from repro_torch.kernels import ops
+    from repro_torch.launch import weights as W
+    from repro_torch.launch.serve import generate, image_prefix
+    from repro_torch.models import api
+
+    cfg = R.get_config(VLM_ARCH)
+    n_l, p = cfg.n_layers, cfg.n_img_tokens
+    check(p == VLM_PREFIX, f"paligemma: {p} image tokens")
+    mod = api.get_module(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    weights = W.ServingWeights.from_seed(cfg, 0, device="cuda")
+    n_params = sum(b.numel() for b in weights.bufs.values())
+    check(n_params == VLM_PARAMS[18], f"paligemma has {n_params} params")
+    tree = weights.as_tree()
+    rng = np.random.default_rng(9)
+    prompts = rng.integers(0, cfg.vocab, (GEN_B, GEN_PLEN), dtype=np.int32)
+    extra = image_prefix(cfg, GEN_B, "cuda")
+    ops.reset_launch_counts()             # the path: counts at 0 ...
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = generate(cfg, tree, prompts, gen_len=GEN_NEW, extra=extra)
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    counts = ops.launch_counts()          # ... read just after
+    want = {k: 0 for k in counts}
+    want.update(generate_launches(cfg, GEN_NEW))
+    check(counts == want, f"paligemma generate: launches {counts} != {want}")
+    check(tuple(toks.shape) == (GEN_B, GEN_PLEN + GEN_NEW)
+          and bool(torch.equal(toks[:, :GEN_PLEN].cpu(),
+                               torch.from_numpy(prompts))),
+          f"paligemma generate: tokens of shape {tuple(toks.shape)}")
+
+    pre = extra["prefix_embeds"]
+    with torch.no_grad():
+        pt = torch.from_numpy(prompts).cuda()
+        lp, _ = mod.prefill(cfg, tree, pt, mod.init_cache(
+            cfg, GEN_B, p + GEN_PLEN, device="cuda"), prefix_embeds=pre)
+        cache = mod.init_cache(cfg, GEN_B, p + GEN_PLEN, device="cuda")
+        _, cache = mod.prefill(cfg, tree, pt[:, :1], cache,
+                               prefix_embeds=pre)
+        for i in range(1, GEN_PLEN):
+            ld, cache = mod.decode_step(cfg, tree, pt[:, i], cache, p + i,
+                                        prefix_len=p)
+        lt, _ = mod.prefill(cfg, tree, pt, mod.init_cache(
+            cfg, GEN_B, GEN_PLEN, device="cuda"))
+    err, scale = float((lp - ld).abs().max()), float(ld.abs().max())
+    tol = PREFILL_TOL * max(scale, 1.0)
+    check(err <= tol, f"paligemma prefill vs decode logits differ by {err} "
+          f"> {tol}")
+    check(bool(torch.equal(lp.argmax(-1), ld.argmax(-1))),
+          "paligemma prefill vs decode: another greedy token")
+    text_only = float((lp - lt).abs().max())
+    check(text_only > tol, "paligemma: the image prefix does not move the "
+          f"logits ({text_only})")
+    del cache, lp, ld, lt
+
+    # a prefill of PREFILL_B x (prefix + PREFILL_LEN) rows
+    pt = torch.from_numpy(rng.integers(0, cfg.vocab, (PREFILL_B, PREFILL_LEN),
+                                       dtype=np.int32)).cuda()
+    pre = image_prefix(cfg, PREFILL_B, "cuda")["prefix_embeds"]
+    cache = mod.init_cache(cfg, PREFILL_B, p + PREFILL_LEN, device="cuda")
+    with torch.no_grad():
+        mod.prefill(cfg, tree, pt, cache, prefix_embeds=pre)   # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        mod.prefill(cfg, tree, pt, cache, prefix_embeds=pre)
+        ev[1].record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        pre_counts = {k: v for k, v in ops.launch_counts().items() if v}
+        prof = profile_device_ms(torch, lambda: mod.prefill(
+            cfg, tree, pt, cache, prefix_embeds=pre))
+    device_ms = ev[0].elapsed_time(ev[1])
+    want = dict(rms_norm=2 * n_l + 1, swiglu=n_l, flash_attention_fwd=n_l)
+    check(pre_counts == want, f"paligemma prefill launches {pre_counts} != "
+          f"{want}")
+    rows_ms = dict(flash_attention_fwd=n_l * rows[
+        "flash_attention_fwd", VLM_ATTN[1]]["ms"])
+    emit("generate_paligemma", arch=cfg.name, layers=n_l, params=n_params,
+         prefix_len=p, prompts=GEN_B, prompt_len=GEN_PLEN,
+         new_tokens=GEN_NEW, wall_s=gen_wall,
+         tokens_per_s=GEN_B * GEN_NEW / gen_wall, launches=counts,
+         prefill_vs_decode_max_abs_err=err, prefill_vs_decode_tol=tol,
+         text_only_max_abs_diff=text_only,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit("prefill_paligemma", arch=cfg.name, layers=n_l, batch=PREFILL_B,
+         prefix_len=p, prompt_len=PREFILL_LEN, wall_ms=wall_ms,
+         device_ms=device_ms,
+         rows_per_s=PREFILL_B * (p + PREFILL_LEN) / wall_ms * 1e3,
+         launches=pre_counts, profiled=prof,
+         kernel_rows_ms_x_launches=rows_ms,
+         flop=lm_forward_flops(cfg, PREFILL_B, p + PREFILL_LEN,
+                               unembed_rows=PREFILL_B))
+    del cache, pt, pre, weights, tree, toks, extra
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2649,6 +2996,17 @@ def main() -> int:
     add(serve, ("flash_decode",))
     add(gen, ("flash_decode", "flash_attention_fwd"))
     phase_card_vs_cpu(torch, np, LM_ARCH)
+    # phi3-medium-14b (untied head, d = 5120), qwen1.5-110b (QKV bias, d =
+    # 8192) and paligemma-3b (the image prefix)
+    for phase in (phase_service_phi3, phase_service_qwen):
+        serve, gen = phase(torch, np)
+        add(serve, SERVING_KERNELS)
+        add(gen, SERVING_KERNELS + ("flash_attention_fwd",))
+    add(phase_generate_paligemma(torch, np, rows),
+        SERVING_KERNELS + ("flash_attention_fwd",))
+    phase_card_vs_cpu(torch, np, PHI3_ARCH)
+    phase_card_vs_cpu(torch, np, QWEN_ARCH, n_layers=1)
+    phase_card_vs_cpu(torch, np, VLM_ARCH)
     add(phase_train(torch, np), TRAINING_KERNELS[:3])
     flat, flat_state = phase_train_flat_quantized(torch, np)
     add(flat, ("sync_flat_update",))
@@ -2668,6 +3026,11 @@ def main() -> int:
     add(phase_train_gemma3(torch, np),
         ("rms_norm", "swiglu") + BACKWARD_KERNELS + TRAINING_KERNELS[:3])
     phase_train_lm_card_vs_cpu(torch, np, G3_ARCH)
+    rms_swiglu = ("rms_norm", "swiglu") + BACKWARD_KERNELS + TRAINING_KERNELS[:3]
+    add(phase_train_phi3(torch, np), rms_swiglu)
+    phase_train_lm_card_vs_cpu(torch, np, PHI3_ARCH)
+    add(phase_train_paligemma(torch, np), rms_swiglu)
+    phase_train_lm_card_vs_cpu(torch, np, VLM_ARCH)
     # checkpoints: resume across layouts, and train to serve
     try:
         phase_ckpt_resume(torch, np)
@@ -2686,13 +3049,21 @@ def main() -> int:
         speedup_vs_library=timed[name]["library_ms"] / timed[name]["ms"])
         for name in CUDA_CORE_MS})
     # the LM path's shapes, beside each kernel's main-path row
+    rows_n = (SLOTS, BWD_ROWS, PREFILL_B * PREFILL_LEN)
     lm_shapes = {
-        "rms_norm": [f"[{PREFILL_B * PREFILL_LEN},2560]"],
+        "rms_norm": [f"[{PREFILL_B * PREFILL_LEN},2560]"]
+        + [f"[{n},{PHI3_D}]" for n in rows_n]
+        + [f"[{n},{QWEN_D}]" for n in rows_n[1:]],
         "swiglu": [f"[{n},2560]x[2560,10240]"
-                   for n in (16, 48, 128, 256, PREFILL_B * PREFILL_LEN)],
-        "flash_decode": list(SC2_DECODE),
-        "flash_attention_fwd": [LM_TRAIN_ATTN, *PREFILL_ATTN],
-        "flash_attention_bwd": [LM_TRAIN_ATTN]}
+                   for n in (16, 48, 128, 256, PREFILL_B * PREFILL_LEN)]
+        + [f"[{n},{PHI3_D}]x[{PHI3_D},17920]" for n in (SLOTS, BWD_ROWS)]
+        + [f"[{SLOTS},{QWEN_D}]x[{QWEN_D},49152]"],
+        "flash_decode": [*SC2_DECODE, *(
+            label for (kern, label) in rows if kern == "flash_decode"
+            and label.startswith(("phi3", "qwen", "paligemma")))],
+        "flash_attention_fwd": [LM_TRAIN_ATTN, *PREFILL_ATTN,
+                                PHI3_TRAIN_ATTN, *VLM_ATTN],
+        "flash_attention_bwd": [LM_TRAIN_ATTN, PHI3_TRAIN_ATTN, *VLM_ATTN]}
     kernels = []
     for name in (SERVING_KERNELS + TRAINING_KERNELS + SYNC_KERNELS
                  + BACKWARD_KERNELS):
@@ -2704,7 +3075,8 @@ def main() -> int:
             extra["lm_path"] = [
                 {key: rows[name, label][key] for key in (
                     "shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                    "bound_by", "bound_fp32_ms", "max_abs_err")
+                    "bound_by", "bound_fp32_ms", "max_abs_err", "path",
+                    "bitwise_strided_path")
                  if key in rows[name, label]}
                 for label in lm_shapes[name]]
         kernels.append(dict(

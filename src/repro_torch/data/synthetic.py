@@ -6,10 +6,13 @@ package's numpy code copied exactly — the same RandomState seeds and draws
 — so both packages see bitwise the same batches; only the return type
 differs (CPU torch tensors here, moved to the run's device by the engine).
 `make_train_batch` stacks the W workers' token batches as the reference's
-host path does; its vlm and audio branches raise (those families are not
+host path does; a vlm batch also carries `prefix_embeds`, 0.02 · normal
+from a `torch.Generator` seeded from the step as the reference seeds its
+`PRNGKey` (`step * 131 + 7`): the reference's distribution, not its bits
+(`jax.random` has no twin).  Its audio branch raises (whisper is not
 ported).  The reference's `device_batch_fn` draws its batches inside the
-jitted round from `jax.random`, which has no PyTorch twin: the port runs
-the host stream only (`RoundEngine(data="host")`).
+jitted round from `jax.random`, which has no PyTorch twin either: the port
+runs the host stream only (`RoundEngine(data="host")`).
 """
 from __future__ import annotations
 
@@ -93,9 +96,16 @@ def vision_batch_fn(stream: VisionStream, workers: int, b_loc: int):
 def make_train_batch(cfg, stream: TokenStream, step: int, w: int, b_loc: int,
                      seq: int) -> dict:
     """Stacked per-worker batch {"tokens", "labels"} [W, B_loc, seq] (CPU
-    int32) for the local-gradient runtime."""
-    if cfg.family in ("vlm", "audio"):
-        raise ConfigError(f"{cfg.family} training batches: not ported yet")
+    int32) for the local-gradient runtime; a vlm config's also holds
+    "prefix_embeds" [W, B_loc, n_img_tokens, d_model] (CPU fp32, 0.02 ·
+    normal, a function of the step alone)."""
+    if cfg.family == "audio":
+        raise ConfigError("audio training batches: not ported yet")
     toks, labels = zip(*[stream.batch(step, k, b_loc, seq)
                          for k in range(w)])
-    return {"tokens": torch.stack(toks), "labels": torch.stack(labels)}
+    batch = {"tokens": torch.stack(toks), "labels": torch.stack(labels)}
+    if cfg.family == "vlm":
+        gen = torch.Generator().manual_seed(step * 131 + 7)
+        batch["prefix_embeds"] = 0.02 * torch.randn(
+            (w, b_loc, cfg.n_img_tokens, cfg.d_model), generator=gen)
+    return batch

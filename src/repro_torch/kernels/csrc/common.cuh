@@ -26,6 +26,26 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// cp.async of 16 bytes from global into shared memory, past L1 (both
+// addresses 16-byte aligned); the copies a thread issued complete, as a
+// group, at `cp_async_commit` + `cp_async_wait<N>` (N groups may stay in
+// flight)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)

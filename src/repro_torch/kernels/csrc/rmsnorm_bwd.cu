@@ -69,19 +69,6 @@ constexpr int kRedStripes = 4;             // ... stripes of a block at once
 // the paths (template VEC > 0: registers, VEC float4s a lane)
 constexpr int kScalar = -1, kStaged = -2;
 
-// cp.async of 16 bytes from global into shared memory, past L1
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
-
 // The staged path: cp.async copies of a lane's float4s of row `row` of x
 // and dy into the staging rows xs4, xs4 + d4 (the whole row in flight).
 __device__ __forceinline__ void stage_row(const float* x, const float* dy,
@@ -92,8 +79,8 @@ __device__ __forceinline__ void stage_row(const float* x, const float* dy,
   const float4* x4 = reinterpret_cast<const float4*>(x + off);
   const float4* g4 = reinterpret_cast<const float4*>(dy + off);
   for (int i = lane; i < d4; i += 32) {
-    cp_async16(xs4 + i, x4 + i);
-    cp_async16(xs4 + d4 + i, g4 + i);
+    repro::cp_async16(xs4 + i, x4 + i);
+    repro::cp_async16(xs4 + d4 + i, g4 + i);
   }
 }
 
@@ -235,7 +222,8 @@ rmsnorm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
           acc + static_cast<size_t>(warps) * d + static_cast<size_t>(warp) * 2 * d);
       const float4* const gs4 = xs4 + d4;
       stage_row(x, dy, row, d, xs4, lane);
-      cp_async_wait_all();
+      repro::cp_async_commit();
+      repro::cp_async_wait<0>();
 #pragma unroll 4
       for (int i = lane; i < d4; i += 32) {   // the forward's order
         const float4 xv = xs4[i], gv = gs4[i], s = __ldg(s4 + i);

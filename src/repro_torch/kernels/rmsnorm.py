@@ -29,7 +29,12 @@ MAX_BWD_D = 232448 // 4
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    """x [..., D] fp32 contiguous on CUDA; scale [D] -> [..., D]."""
+    """x [..., D] fp32 contiguous on CUDA; scale [D] -> [..., D].  One
+    launch: rows of up to 3072 floats in registers, wider ones (phi3's
+    5120, qwen's 8192) staged in shared memory by cp.async, float4 either
+    way where D % 4 == 0 and every operand is 16-byte aligned, else the
+    strided path; each path sums in the same order, so the output's bits
+    depend on D alone (`csrc/rmsnorm.cu`)."""
     build.require_cuda("rms_norm x", x)
     d = x.shape[-1]
     build.require("rms_norm x", x, device=x.device, dtype=torch.float32)

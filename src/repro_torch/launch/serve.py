@@ -10,7 +10,10 @@
           --slots 2 --batch 4 --gen 16
 
 Both serve `--batch` requests of `--prompt-len` random tokens on the card,
-with weights drawn on the device from `--seed`.  `--smoke` takes the arch's
+with weights drawn on the device from `--seed`.  A VLM (paligemma-3b)
+gets a stub image prefix in one-shot mode (`image_prefix`); the service
+loop serves it text-only, as the reference's `ContinuousBatcher` does (it
+carries no per-request prefix).  `--smoke` takes the arch's
 smoke config, `--device cpu` runs the plain versions on the CPU (the default
 is CUDA, and no card is an error).  With `--slots`: `--watch DIR` polls DIR
 between decode steps for weights a training run published there
@@ -40,32 +43,41 @@ from repro_torch.models import api
 
 def generate(cfg, params, prompts, *, gen_len: int, max_len: int | None = None,
              window_override: int = 0, temperature: float = 0.0,
-             seed: int = 0) -> torch.Tensor:
+             seed: int = 0, extra: dict | None = None) -> torch.Tensor:
     """prompts [B, P] int -> tokens [B, P + gen_len] (int32, on the params'
     device).
 
     params: the model tree (for example `ServingWeights.as_tree()`); the
-    prompts move to its device.  Greedy at temperature 0; above it, one
-    categorical draw per row and step from a `torch.Generator` seeded with
-    `seed` — the reference's distribution, not its samples (`jax.random`
-    has no twin).  Runs without autograd."""
+    prompts, and `extra` (prefill's keyword inputs: a VLM's
+    `prefix_embeds` [B, n_img_tokens, D]), move to its device.  A VLM's
+    prefix takes the cache's first `n_img_tokens` rows: it counts in the
+    default `max_len` and in every decode position, as the reference's.
+    Greedy at temperature 0; above it, one categorical draw per row and
+    step from a `torch.Generator` seeded with `seed` — the reference's
+    distribution, not its samples (`jax.random` has no twin).  Runs without
+    autograd."""
     if window_override > 0:
         raise ConfigError("window_override > 0 (the ring-buffer cache and "
                           "its ring prefill): not ported yet")
     mod = api.get_module(cfg)
     dev = next(iter(params["embed"].values())).device
     prompts = torch.as_tensor(np.asarray(prompts), device=dev)
+    extra = {k: torch.as_tensor(v, device=dev)
+             for k, v in (extra or {}).items()}
     b, plen = prompts.shape
-    max_len = max_len or (plen + gen_len)
-    if plen + gen_len > max_len:
+    prefix_len = cfg.n_img_tokens if cfg.family == "vlm" else 0
+    need = plen + prefix_len + gen_len
+    max_len = max_len or need
+    if need > max_len:
         raise ValueError(
-            f"prompt ({plen}) + gen_len ({gen_len}) = {plen + gen_len} "
-            f"tokens exceed the KV cache length {max_len}; raise max_len")
+            f"prompt ({plen}) + prefix ({prefix_len}) + gen_len ({gen_len}) "
+            f"= {need} tokens exceed the KV cache length {max_len}; raise "
+            "max_len")
     gen = torch.Generator(device=dev).manual_seed(seed)
     out = [prompts.to(torch.int32)]
     with torch.no_grad():
         cache = mod.init_cache(cfg, b, max_len, device=dev)
-        logits, cache = mod.prefill(cfg, params, prompts, cache)
+        logits, cache = mod.prefill(cfg, params, prompts, cache, **extra)
         for i in range(gen_len):
             if temperature > 0:
                 probs = torch.softmax(logits / temperature, -1)
@@ -75,8 +87,22 @@ def generate(cfg, params, prompts, *, gen_len: int, max_len: int | None = None,
             tok = tok.to(torch.int32)
             out.append(tok[:, None])
             logits, cache = mod.decode_step(cfg, params, tok, cache,
-                                            plen + i)
+                                            plen + prefix_len + i,
+                                            prefix_len=prefix_len)
     return torch.cat(out, 1)
+
+
+def image_prefix(cfg, batch: int, device) -> dict:
+    """The one-shot CLI's stub image prefix for a VLM: {"prefix_embeds":
+    0.02 · normal [batch, n_img_tokens, D]} from a generator seeded with 2
+    (the reference's `PRNGKey(2)`: its distribution, not its bits); {} for
+    any other family."""
+    if cfg.family != "vlm":
+        return {}
+    gen = torch.Generator(device=device).manual_seed(2)
+    return {"prefix_embeds": 0.02 * torch.randn(
+        (batch, cfg.n_img_tokens, cfg.d_model), generator=gen,
+        device=device)}
 
 
 def run_service(cfg, weights, prompts, *, slots: int, max_new: int,
@@ -213,9 +239,11 @@ def _service(cfg, weights, prompts, watch, args):
 
 def _generate_main(cfg, weights, prompts, args):
     """The one-shot entry: returns the tokens [B, P + gen] on the host."""
+    extra = image_prefix(cfg, len(prompts), weights.device)
     t0 = time.perf_counter()
     toks = generate(cfg, weights.as_tree(), prompts, gen_len=args.gen,
-                    temperature=args.temperature, seed=args.seed).cpu()
+                    temperature=args.temperature, seed=args.seed,
+                    extra=extra).cpu()
     dt = time.perf_counter() - t0
     print(f"generated {args.batch}x{args.gen} tokens in {dt:.2f}s "
           f"({args.batch * args.gen / dt:.1f} tok/s) on {weights.device}")

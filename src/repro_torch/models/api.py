@@ -7,8 +7,9 @@ Every module exposes:
   forward(cfg, params, ...) -> logits (the transformer: (logits, aux))
   cache_spec / init_cache / prefill / decode_step   (the transformer)
 
-Ported so far: the dense transformer (training, prefill and decode) and the
-vision classifier (training)."""
+Ported so far: the dense transformer and the prefix-LM (`vlm`: the same
+module, `prefix_embeds` in the batch) for training, prefill and decode, and
+the vision classifier (training)."""
 from __future__ import annotations
 
 import torch
@@ -17,7 +18,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.errors import ConfigError
 from repro_torch.models import transformer, vit
 
-_FAMILY = {"dense": transformer, "vision": vit}
+_FAMILY = {"dense": transformer, "vlm": transformer, "vision": vit}
 
 
 def get_module(cfg: ModelConfig):

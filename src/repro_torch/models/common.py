@@ -14,9 +14,11 @@ Numerics: this module turns TF32 off for matmuls and for cuDNN
 card runs in full fp32, as the reference does.
 
 Ported so far: rmsnorm and layernorm, rope, every branch of `attn_apply`
-(decode with a cache, full-sequence self-attention, cross-attention) and
-its `_attn_chunked` query blocking, the SwiGLU and GELU MLPs, embedding and
-the tied unembedding, and `lm_loss`.  qkv_bias (qwen only) is not ported.
+(decode with a cache, full-sequence self-attention, cross-attention) with
+the optional QKV bias (qwen: `bq`, `bk`, `bv` added after the projections,
+before rope, in plain torch, as the reference leaves them to XLA) and its
+`_attn_chunked` query blocking, the SwiGLU and GELU MLPs, embedding, the
+tied unembedding and the untied `head`, and `lm_loss`.
 """
 from __future__ import annotations
 
@@ -86,15 +88,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def attn_defs(cfg: ModelConfig) -> dict:
-    if cfg.qkv_bias:
-        raise ConfigError("qkv_bias: not ported yet")
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    return {
+    defs = {
         "wq": ParamDef((d, hq * hd), ("embed", "heads")),
         "wk": ParamDef((d, hkv * hd), ("embed", "kv")),
         "wv": ParamDef((d, hkv * hd), ("embed", "kv")),
         "wo": ParamDef((hq * hd, d), ("heads", "embed")),
     }
+    if cfg.qkv_bias:
+        defs["bq"] = ParamDef((hq * hd,), ("heads",), "zeros")
+        defs["bk"] = ParamDef((hkv * hd,), ("kv",), "zeros")
+        defs["bv"] = ParamDef((hkv * hd,), ("kv",), "zeros")
+    return defs
 
 
 def _attn_chunked(q, k, v, *, causal, window, prefix_len, q_offset,
@@ -147,6 +152,10 @@ def attn_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     q = (x @ p["wq"]).reshape(b, s, hq, hd)
     k = (src @ p["wk"]).reshape(b, src.shape[1], hkv, hd)
     v = (src @ p["wv"]).reshape(b, src.shape[1], hkv, hd)
+    if cfg.qkv_bias:
+        q = q + p["bq"].reshape(hq, hd)
+        k = k + p["bk"].reshape(hkv, hd)
+        v = v + p["bv"].reshape(hkv, hd)
     if use_rope and kv_source is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)

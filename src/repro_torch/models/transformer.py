@@ -1,15 +1,19 @@
 """Decoder-only transformer LM (port of `repro/models/transformer.py`).
 
 Covers the dense family: gemma3-4b (rmsnorm + SwiGLU, 5:1 local:global
-windows) and starcoder2-3b (layernorm + GELU, every layer windowed).
+windows), starcoder2-3b (layernorm + GELU, every layer windowed),
+phi3-medium-14b (an untied head) and qwen1.5-110b (QKV bias); and the
+prefix-LM paligemma-3b (the `vlm` family): `prefix_embeds [B,P,D]` (stub
+image embeddings) go before the embedded tokens, attended bidirectionally
+(`prefix_len = P`), and only the text positions' logits come out.
 Parameters keep the reference's stacked `[L, ...]` layout; the reference's
 `lax.scan` over layers becomes a Python loop over those stacked tensors,
 with each layer's sliding window as a Python int, and its `jax.checkpoint`
 per layer (remat) becomes `torch.utils.checkpoint`.  `forward`/`loss_fn`
-train, `prefill` fills a KV cache from the prompt in one full-sequence pass
-(on the card the `flash_attention` kernel), and `decode_step` extends it by
-one token (the `flash_decode` kernel).  MoE layers and the VLM prefix
-(`prefix_embeds`) are not ported yet.
+train, `prefill` fills a KV cache from the prefix and prompt in one
+full-sequence pass (on the card the `flash_attention` kernel), and
+`decode_step` extends it by one token (the `flash_decode` kernel), with
+the prefix's `prefix_len`.  MoE layers are not ported yet.
 """
 from __future__ import annotations
 
@@ -52,42 +56,50 @@ def _block(cfg, p, h, *, positions, window, prefix_len, cache, cache_pos,
     return h + cm.mlp_apply(cfg, p["mlp"], hn), cache
 
 
-def _no_prefix(prefix_embeds) -> None:
-    if prefix_embeds is not None:
-        raise ConfigError("prefix_embeds (the VLM image prefix): not ported "
-                          "yet")
+def _embed(cfg, params, tokens, prefix_embeds):
+    """(h [B,P+S,D], P): the prefix embeddings, cast to the activations'
+    dtype, before the embedded tokens."""
+    h = cm.embed_apply(cfg, params["embed"], tokens)
+    if prefix_embeds is None:
+        return h, 0
+    return torch.cat([prefix_embeds.to(h.dtype), h], 1), prefix_embeds.shape[1]
 
 
-def _layer(cfg, lp, h, positions, window):
+def _layer(cfg, lp, h, positions, window, prefix_len):
     """One layer of the full-sequence forward (no cache): the unit remat
     recomputes."""
     return _block(cfg, lp, h, positions=positions, window=window,
-                  prefix_len=0, cache=None, cache_pos=None)[0]
+                  prefix_len=prefix_len, cache=None, cache_pos=None)[0]
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             prefix_embeds=None, remat=True):
     """Full-sequence forward. tokens [B,S] int -> (logits [B,S,V] fp32,
-    aux_loss), aux 0 for the dense family.  remat: each layer's activations
-    are recomputed in the backward (`torch.utils.checkpoint`), as the
-    reference's `jax.checkpoint` does."""
-    _no_prefix(prefix_embeds)
-    h = cm.embed_apply(cfg, params["embed"], tokens)
+    aux_loss), aux 0 for the dense family.  prefix_embeds [B,P,D]: a
+    bidirectional prefix before the tokens (paligemma's image tokens);
+    the logits are the text positions' only.  remat: each layer's
+    activations are recomputed in the backward (`torch.utils.checkpoint`),
+    as the reference's `jax.checkpoint` does."""
+    h, prefix_len = _embed(cfg, params, tokens, prefix_embeds)
     positions = torch.arange(h.shape[1], device=h.device)
     for layer, window in enumerate(_windows(cfg)):
         lp = T.map(lambda t: t[layer], params["layers"])
         if remat:
             h = torch.utils.checkpoint.checkpoint(
-                _layer, cfg, lp, h, positions, window, use_reentrant=False)
+                _layer, cfg, lp, h, positions, window, prefix_len,
+                use_reentrant=False)
         else:
-            h = _layer(cfg, lp, h, positions, window)
+            h = _layer(cfg, lp, h, positions, window, prefix_len)
     h = cm.norm_apply(cfg, params["final_norm"], h)
+    if prefix_len:
+        h = h[:, prefix_len:]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return cm.unembed_apply(cfg, params["embed"], h), aux
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *, remat=True):
-    """batch {"tokens", "labels"} [B,S] -> mean next-token loss (0-d)."""
+    """batch {"tokens", "labels"} [B,S] (and, for a VLM, "prefix_embeds"
+    [B,P,D]) -> mean next-token loss over the text (0-d)."""
     logits, aux = forward(cfg, params, batch["tokens"],
                           prefix_embeds=batch.get("prefix_embeds"),
                           remat=remat)
@@ -135,16 +147,17 @@ def _scan_cached(cfg, params, h, *, positions, prefix_len, cache, cache_pos,
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             cache: dict, *, prefix_embeds=None):
-    """Run the prompt tokens [B,P] through the model, filling the cache from
-    position 0 (in place).  On CUDA tensors every attention runs the
-    full-sequence `flash_attention` kernel, every norm `rms_norm` and every
-    MLP `swiglu` (over B·P rows).  Returns (logits of the last position
-    [B,V] fp32, cache)."""
-    _no_prefix(prefix_embeds)
-    h = cm.embed_apply(cfg, params["embed"], tokens)
+    """Run the prompt tokens [B,S] through the model, filling the cache from
+    position 0 (in place): after prefix_embeds [B,P,D] where given (a
+    VLM's image tokens, attended bidirectionally, cache rows 0..P-1; the
+    decode steps then take `prefix_len=P`).  On CUDA tensors every
+    attention runs the full-sequence `flash_attention` kernel, every norm
+    `rms_norm` and every MLP `swiglu` (over B·(P+S) rows).  Returns (logits
+    of the last position [B,V] fp32, cache)."""
+    h, prefix_len = _embed(cfg, params, tokens, prefix_embeds)
     positions = torch.arange(h.shape[1], device=h.device)
     h, cache = _scan_cached(cfg, params, h, positions=positions,
-                            prefix_len=0, cache=cache, cache_pos=0)
+                            prefix_len=prefix_len, cache=cache, cache_pos=0)
     h = cm.norm_apply(cfg, params["final_norm"], h[:, -1:].contiguous())
     return cm.unembed_apply(cfg, params["embed"], h)[:, 0], cache
 

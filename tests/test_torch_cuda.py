@@ -419,8 +419,8 @@ def test_flash_decode_and_rms_norm_bitwise_repeatable(dev):
 @pytest.mark.parametrize("n", [1, 2, 8, 8192])
 @pytest.mark.parametrize("d", [4, 6, 256, 2560, 16384])
 def test_rms_norm_matches_plain_and_each_row_alone(dev, n, d):
-    """Row in registers (d % 4 == 0, d <= 3072) or the strided path (d = 6,
-    16384): within tolerance of the plain version, and each row bitwise the
+    """Row in registers (d % 4 == 0, d <= 3072), staged in shared memory
+    (16384) or the strided path (d = 6): within tolerance of the plain version, and each row bitwise the
     same as that row normalised alone."""
     x, sc = _t(100, n, d), _t(101, d)
     got = t_rn.rms_norm(x, sc)
@@ -855,14 +855,15 @@ def _grads_of(fn, ins, dout):
     return out.detach(), torch.autograd.grad(out, xs, dout)
 
 
-@pytest.mark.parametrize("d", [256, 2560, 2562, 3072, 5120])
+@pytest.mark.parametrize("d", [256, 2560, 2562, 3072, 5120, 8192])
 @pytest.mark.parametrize("n", [1, 8, 9, 48, 1024])
 def test_rms_norm_and_swiglu_under_autograd_match_plain(dev, n, d):
     """`ops.rms_norm` / `ops.swiglu` under autograd on the card (the
     `_RmsNorm` / `_SwiGLU` Functions: the forward kernel, then
     `rms_norm_bwd` / `swiglu_bwd`) against autograd of the plain versions:
     one launch of each; d = 2562 takes rms_norm's strided path and
-    swiglu's unaligned x rows, 5120 (phi3's width) the strided path."""
+    swiglu's unaligned x rows, 5120 (phi3's width) and 8192 (qwen's) the
+    staged paths of both rms_norm kernels."""
     x, sc, dy = _t(1, n, d), _t(2, d), _t(3, n, d)
     f = 256
     wg, wi = _t(4, d, f, scale=d ** -0.5), _t(5, d, f, scale=d ** -0.5)
@@ -927,6 +928,39 @@ def test_rms_norm_bwd_matches_plain_on_every_path(dev, n, d):
     torch.testing.assert_close(dx, wdx, rtol=RMS_TOL, atol=RMS_TOL * max(
         1.0, float(wdx.abs().max())))
     torch.testing.assert_close(ds, wds, rtol=0.0, atol=_dscale_tol(x, dy))
+
+
+# the forward's staged rows (aligned, 3072 < d: phi3's 5120, qwen's 8192)
+RMS_STAGED_D = [3076, 5120, 8192]
+
+
+def _one_float_off(t):
+    """A copy of `t` 4 bytes past 16-byte alignment."""
+    buf = torch.empty(t.numel() + 1, device=t.device)
+    out = buf[1:].view(t.shape).copy_(t)
+    assert out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.parametrize("d", RMS_STAGED_D)
+@pytest.mark.parametrize("n", RMS_BWD_N)
+def test_rms_norm_staged_rows_keep_the_strided_paths_bits(dev, n, d):
+    """Aligned rows past the registers are staged in shared memory; the
+    same rows one float off alignment take the strided path, which every
+    such row took before the staged one: bitwise the same output, and
+    within tolerance of the plain version."""
+    x, sc = _t(30, n, d), _t(31, d)
+    got = t_rn.rms_norm(x, sc)
+    torch.testing.assert_close(got, tref.rms_norm(x, sc), rtol=RMS_TOL,
+                               atol=RMS_TOL)
+    assert torch.equal(got, t_rn.rms_norm(_one_float_off(x),
+                                          _one_float_off(sc)))
+
+
+@pytest.mark.parametrize("d", RMS_STAGED_D)
+def test_rms_norm_staged_rows_are_bitwise_repeatable(dev, d):
+    x, sc = _t(32, 1031, d), _t(33, d)
+    assert torch.equal(t_rn.rms_norm(x, sc), t_rn.rms_norm(x, sc))
 
 
 @pytest.mark.parametrize("d", [2560, 5120])

@@ -1,5 +1,6 @@
 """The port's LM path against the JAX package: the token stream, the dense
-transformer's forward, loss and gradients, prefill and one-shot generate,
+transformer's forward, loss and gradients (with a bidirectional prefix
+too), prefill and one-shot generate,
 QSR rounds of starcoder2-smoke and gemma3-smoke through the RoundEngine's
 built-in token stream, and the training CLI for both.
 
@@ -145,12 +146,20 @@ def test_token_stream_batches_are_bitwise_jax(step, worker, batch, seq):
 
 
 def test_unported_batch_families_raise():
+    """audio batches still raise; a vlm batch is the dense one with the
+    image prefix beside it (`test_torch_dense_families.py` holds its
+    draw)."""
     ts = tsyn.TokenStream(vocab=16)
-    for family in ("vlm", "audio"):
-        cfg = dataclasses.replace(TR.get_smoke_config("starcoder2-3b"),
-                                  family=family)
-        with pytest.raises(ConfigError, match="not ported yet"):
-            tsyn.make_train_batch(cfg, ts, 0, 2, 2, 4)
+    base = TR.get_smoke_config("starcoder2-3b")
+    with pytest.raises(ConfigError, match="not ported yet"):
+        tsyn.make_train_batch(dataclasses.replace(base, family="audio"), ts,
+                              0, 2, 2, 4)
+    vlm = dataclasses.replace(base, family="vlm", n_img_tokens=3)
+    got = tsyn.make_train_batch(vlm, ts, 0, 2, 2, 4)
+    want = tsyn.make_train_batch(base, ts, 0, 2, 2, 4)
+    assert set(got) == {"tokens", "labels", "prefix_embeds"}
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert got["prefix_embeds"].shape == (2, 2, 3, base.d_model)
 
 
 # --------------------------------------------------- forward, loss, grad --
@@ -214,14 +223,35 @@ def test_remat_changes_nothing(setup):
 
 
 def test_prefix_embeds_are_not_ported(setup):
-    _, tcfg, _, npt = setup
+    """(Named for what it pinned before the prefix was ported.)  The dense
+    family takes a bidirectional prefix too, as the reference's forward
+    and prefill do: the text positions' logits and the cache match the JAX
+    package's."""
+    jcfg, tcfg, jp, npt = setup
     tp = tpm.from_numpy_tree(npt, "cpu")
-    toks = torch.zeros(1, 4, dtype=torch.int32)
-    with pytest.raises(ConfigError, match="not ported yet"):
-        ttf.forward(tcfg, tp, toks, prefix_embeds=torch.zeros(1, 2, 8))
-    with pytest.raises(ConfigError, match="not ported yet"):
-        ttf.prefill(tcfg, tp, toks, ttf.init_cache(tcfg, 1, 8, device="cpu"),
-                    prefix_embeds=torch.zeros(1, 2, 8))
+    toks, _ = _tokens(tcfg, 2, 6, seed=3)
+    pre = (0.02 * np.random.default_rng(3).standard_normal(
+        (2, 5, tcfg.d_model))).astype(np.float32)
+    want, _ = jtf.forward(jcfg, jp, jnp.asarray(toks),
+                          prefix_embeds=jnp.asarray(pre), remat=False)
+    with torch.no_grad():
+        got, _ = ttf.forward(tcfg, tp, torch.from_numpy(toks),
+                             prefix_embeds=torch.from_numpy(pre),
+                             remat=False)
+    assert got.shape == (2, 6, tcfg.vocab)
+    _close(got, want, LOGIT_TOL)
+    jlog, jcache = jtf.prefill(
+        jcfg, jp, jnp.asarray(toks),
+        jtf.init_cache(jcfg, 2, 16, dtype=jnp.float32),
+        prefix_embeds=jnp.asarray(pre))
+    with torch.no_grad():
+        tlog, tcache = ttf.prefill(
+            tcfg, tp, torch.from_numpy(toks),
+            ttf.init_cache(tcfg, 2, 16, device="cpu"),
+            prefix_embeds=torch.from_numpy(pre))
+    _close(tlog, jlog, LOGIT_TOL)
+    for k in ("k", "v"):
+        _close(tcache[k], jcache[k], LOGIT_TOL)
 
 
 # ------------------------------------------------------ prefill, generate --

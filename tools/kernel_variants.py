@@ -25,7 +25,10 @@ with ctypes beside the unchanged library (`base`).
 For every `rms_norm`, `swiglu` and `flash_decode` case of chip_smoke.py, and
 `swiglu` at gemma3-4b's widths at the row counts where its row and tile
 paths meet (`SWIGLU_ROWS`), each variant
-is held against the plain version at chip_smoke's tolerance; at every case
+is held against the plain version at chip_smoke's tolerance (`rms_norm`
+also bitwise against the base: `rf_*` variants of its rows past 3072
+floats, or the parent's source as `file:`, keep the base's sum order, so
+their output is bitwise the same); at every case
 chip_smoke times, the variants and the source are timed in turns (each
 variant, the source, the source, each variant again) with chip_smoke's
 `Timer`, the library call once beside them, and a read-only sum over 64
@@ -358,8 +361,82 @@ RB_REREAD = {
               "rmsnorm_bwd_kernel<kScalar>;"):
         "else if (!vec) kern = rmsnorm_bwd_kernel<kScalar>;\n"
         "  else if (per_lane > kMaxVec) kern = rmsnorm_bwd_kernel<kWide>;"}
+# the forward rms_norm's wide rows (past 3072 floats) read twice from
+# global memory in float4 chunks of kChunk a lane (each chunk's loads in
+# flight before its sums, the second pass mostly from L2), in place of
+# staged in shared memory
+RF_REREAD_BODY = """\
+  } else if constexpr (VEC == kWide) {
+    const int d4 = d >> 2;
+    const float4* x4 = reinterpret_cast<const float4*>(xr);
+    const float4* s4 = reinterpret_cast<const float4*>(scale);
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    const int per_lane = (d4 + 31) / 32;
+    for (int c0 = 0; c0 < per_lane; c0 += kChunk) {
+      float4 xv[kChunk];
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        const int i = lane + 32 * (c0 + c);
+        xv[c] = i < d4 ? __ldg(x4 + i) : zero;
+      }
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        ss = fmaf(xv[c].x, xv[c].x, ss);
+        ss = fmaf(xv[c].y, xv[c].y, ss);
+        ss = fmaf(xv[c].z, xv[c].z, ss);
+        ss = fmaf(xv[c].w, xv[c].w, ss);
+      }
+    }
+    ss = repro::warp_sum(ss);
+    const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+    float4* o4 = reinterpret_cast<float4*>(orow);
+    for (int c0 = 0; c0 < per_lane; c0 += kChunk) {
+      float4 xv[kChunk], sv[kChunk];
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        const int i = lane + 32 * (c0 + c);
+        xv[c] = i < d4 ? __ldg(x4 + i) : zero;
+        sv[c] = i < d4 ? __ldg(s4 + i) : zero;
+      }
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c) {
+        const int i = lane + 32 * (c0 + c);
+        if (i < d4)
+          o4[i] = make_float4(xv[c].x * r * sv[c].x, xv[c].y * r * sv[c].y,
+                              xv[c].z * r * sv[c].z, xv[c].w * r * sv[c].w);
+      }
+    }
+"""
+RF_REREAD = {
+    re.escape("constexpr int kStrided = 0, kStaged = -2;"):
+        "constexpr int kStrided = 0, kStaged = -2, kWide = -3;\n"
+        "constexpr int kChunk = 16;",
+    re.escape("  } else {\n    for (int i0 = 4 * lane; i0 < d; i0 += 128)"):
+        RF_REREAD_BODY + "  } else {\n    for (int i0 = 4 * lane; i0 < d; i0 += 128)",
+    re.escape("if (vec && per_lane > kMaxVec && d <= kStageMaxD) {"):
+        "if (false) {",
+    re.escape("if (!vec || per_lane > kMaxVec) REPRO_LAUNCH(kStrided);"):
+        "if (!vec) REPRO_LAUNCH(kStrided);\n"
+        "  else if (per_lane > kMaxVec) REPRO_LAUNCH(kWide);"}
+# the forward rms_norm's staged rows with the scale read through L1
+# (__ldg) in the second pass, in place of staged once a block beside them
+RF_SCALE_LDG = {
+    re.escape("    for (int i = threadIdx.x; i < d4; i += blockDim.x)\n"
+              "      repro::cp_async16(sc4 + i, s4 + i);\n"): "",
+    re.escape("const float4 v = xs4[i], s = sc4[i];"):
+        "const float4 v = xs4[i], s = __ldg(s4 + i);",
+    re.escape("smem4 + static_cast<size_t>((threadIdx.x >> 5) + 1) * d4;"):
+        "smem4 + static_cast<size_t>(threadIdx.x >> 5) * d4;",
+    re.escape("const int fit = kSmemMax / (4 * d) - 1;"):
+        "const int fit = kSmemMax / (4 * d);",
+    re.escape("4 * static_cast<size_t>(d) * (warps + 1), s>>>("):
+        "4 * static_cast<size_t>(d) * warps, s>>>("}
 VARIANTS = {
     "base": {},
+    # rms_norm's rows past the registers: read twice from global memory in
+    # float4 chunks; staged with the scale read through L1
+    "rf_reread": {RN: RF_REREAD},
+    "rf_scale_ldg": {RN: RF_SCALE_LDG},
     # rms_norm_bwd: two launches with one resident block an SM (fewer
     # partial rows, more rows a warp); the cooperative launch with one block
     # an SM; wide rows read twice from global memory (in float4 chunks, the
@@ -383,7 +460,8 @@ VARIANTS = {
         "        const int nk = min(TK, sk - t);\n        float p[",
         r"        t = next_tile<TK>\(t \+ TK, k1, a\);\n      \}\n      cp_wait<0>\(\);\n      __syncthreads\(\);  ":
         "        }\n        t = next_tile<TK>(t + TK, k1, a);\n      }\n      cp_wait<0>();\n      __syncthreads();  "}},
-    # rms_norm: rows (warps) per block
+    # rms_norm: rows (warps) per block, on every path (the staged one: 8
+    # warps a block at 5120, 6 at 8192, one block an SM)
     "rms_2_rows": {RN: {r"kRows = 4;": "kRows = 2;"}},
     "rms_8_rows": {RN: {r"kRows = 4;": "kRows = 8;"}},
     # swiglu's tile path: the rings' depth; the k-steps of a chunk not
@@ -906,6 +984,7 @@ def main(argv) -> int:
         want = cs.run_kernel(torch, plain, name, a)
         tol = cs.TOL[name] * max(float(want.abs().max()), 1.0)
         users = [n for n in names if n == "base" or kern[n].has(name)]
+        base_out = None
         for n in users:
             using(kern[n])
             got = cs.run_kernel(torch, wrap, name, a)
@@ -913,6 +992,12 @@ def main(argv) -> int:
             err = float((got - want).abs().max())
             res[n]["cases"][f"{name} {label}"] = dict(
                 max_abs_err=err, within_tol=err <= tol, ms=[])
+            if n == "base":
+                base_out = got
+            elif name == "rms_norm":
+                res[n]["cases"][f"{name} {label}"]["bitwise_base"] = bool(
+                    torch.equal(got, base_out))
+        del base_out
         if timed:
             for n in turns:
                 if n in users:
