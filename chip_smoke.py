@@ -16,7 +16,10 @@ training rows (`rms_norm_bwd` also at phi3's d = 5120 and qwen's 8192,
 memory, each row bitwise the strided path's output; `swiglu`,
 `flash_decode` and `flash_attention` also at phi3-medium-14b's,
 qwen1.5-110b's and paligemma-3b's shapes, the last with its 256-token
-image prefix).
+image prefix; `flash_attention` and `flash_decode` also at whisper-base's
+shapes: its encoder over 1500 frames, its decoder, its cross-attention
+from a prompt and from one decode row; `flash_decode` on gemma3-4b's
+1024-row ring).
 Then it drives both of the port's paths on the card:
 
 * serving: gemma3-4b at full width (random weights drawn on the card from
@@ -33,7 +36,11 @@ Then it drives both of the port's paths on the card:
   one-shot `generate` after its 256-token image prefix (prefill against
   decode) and a timed prefill of 4 x (256 + 1024) rows; and the card
   against the CPU for the three (phi3 at 2 layers, qwen at 1, paligemma
-  at 2 with the prefix);
+  at 2 with the prefix); whisper-base at full width and depth through
+  one-shot `generate` after stub frames (prefill against decode, card
+  against CPU); and gemma3-4b at all 34 layers through one-shot
+  `generate` at `--window 512` (a 1024-row ring cache, 40 decode steps
+  past its wrap), its card against the CPU at 2 layers past the wrap;
 * training: ViT-B/16 at full width with Local AdamW under the QSR schedule
   through `train()` (W = 4 workers, 32 images each, 10 rounds), the flat
   layout with the quantized sync for 2 rounds, and the card against the
@@ -60,7 +67,10 @@ Then it drives both of the port's paths on the card:
   on phi3-medium-14b (W = 2 x 1 x 1024: every norm on the staged rms_norm
   instances, forward and backward) and paligemma-3b (W = 4 x 1 x (256 +
   1024), attention with prefix_len 256), each with its card against the
-  CPU at 2 layers;
+  CPU at 2 layers; whisper-base at full depth (W = 4 x 8 x 64) on host
+  and on device data, and its card against the CPU (the decoder at 2
+  layers); and starcoder2-3b's path on device data (two engines with one
+  seed draw the same batches);
 * checkpoints: ViT-B/16's W = 4 state saved in the tree layout after 2
   rounds and resumed in the flat layout, bitwise the run without the
   checkpoint, with save and restore rates; and train to serve: starcoder2-3b
@@ -71,8 +81,9 @@ Then it drives both of the port's paths on the card:
 
 Each path runs with the kernels' launch counters set to 0 just before it
 and read just after, and fails unless every kernel of the path ran.  One
-JSON line per phase; any mismatch or error raises, so the exit code is not
-0.  The last line is `{"ok": true, "device": {...}}`.
+JSON line per phase (the new phases and the whole run with their
+seconds); any mismatch or error raises, so the exit code is not 0.  The
+last line is `{"ok": true, "device": {...}}`.
 
 Imports nothing of JAX or of the JAX package.  Needs one CUDA card; without
 one (or without the rest of the repository beside it) it exits non-zero
@@ -234,11 +245,42 @@ GEN_B, GEN_PLEN, GEN_NEW = 4, 32, 16
 # paligemma-3b's one-shot cache: the image prefix, the prompt, the new tokens
 VLM_GEN_LEN = VLM_PREFIX + GEN_PLEN + GEN_NEW
 PREFILL_B, PREFILL_LEN = 4, 1024
+# whisper-base (the audio family: an encoder over 1500 stub frames, a
+# causal decoder with cross-attention, layernorm and GELU) at full width
+# and depth: one-shot generate of WH_B prompts x WH_PLEN tokens after stub
+# frames, WH_NEW new; trained W = 4 x 8 x 64 tokens (the training CLI's
+# defaults) with the LM recipe, on host and on device data; parameters and
+# tree leaves (AdamW launches a step)
+WH_ARCH = "whisper-base"
+WH_B, WH_PLEN, WH_NEW = 4, 32, 32
+WH_W, WH_BLOC, WH_SEQ = 4, 8, 64
+WH_PARAMS, WH_LEAVES = 70_627_840, 31
+WH_ATTN = {
+    "enc": "whisper-base encoder q[4,1500,8,64] non-causal",
+    "enc_train": "whisper-base encoder train q[8,1500,8,64] non-causal",
+    "dec": "whisper-base decoder q[4,32,8,64] causal",
+    "dec_train": "whisper-base decoder train q[8,64,8,64] causal",
+    "cross": "whisper-base cross q[4,32,8,64] kv[4,1500,8,64] non-causal",
+    "cross_train": ("whisper-base cross train q[8,64,8,64] kv[8,1500,8,64] "
+                    "non-causal"),
+    "cross_decode": ("whisper-base decode cross q[4,1,8,64] kv[4,1500,8,64] "
+                     "non-causal")}
+# ring serving: gemma3-4b one-shot at --window 512 (every local layer keeps
+# its 1024-key window, so the ring cache holds 1024 rows), RING_B prompts x
+# RING_PLEN tokens and RING_NEW new ones: 40 decode steps past the wrap.
+# Card against CPU at 2 layers: a RING_CPU_PROMPT-token prefill, then
+# teacher-forced ring decode steps to the same end, 8 before the wrap
+RING_WINDOW, RING_B, RING_PLEN, RING_NEW = 512, 2, 64, 1000
+RING_ROWS, RING_CPU_PROMPT = 1024, 1016
 # prefill's last-position logits against the prompt fed through
 # decode_step, x max(|logits|, 1): fp32 sums in another order in every
 # product (the full-sequence attention kernel in 3xTF32 against the decode
 # kernel's fp32 FMAs, cuBLAS at another M) through 34 layers
 PREFILL_TOL = 2e-4
+# serving logits, card against CPU at the same weights (absolute): fp32
+# sums in another order in every product, through the layers and the
+# unembedding
+SERVE_TOL = 2e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -416,6 +458,13 @@ def kernel_cases(torch, main_len: int):
     fd(GEN_B, VLM_GEN_LEN, window=0, prefix_len=VLM_PREFIX,
        qoff=[VLM_GEN_LEN - 1] * GEN_B, heads=(8, 1, 256),
        arch="paligemma-3b ")
+    # whisper-base's decode step (G = 1, D = 64) at its one-shot path's last
+    # position, and gemma3-4b's local layer on the --window ring of 1024
+    # rows after its wrap
+    fd(WH_B, WH_PLEN + WH_NEW, window=0, qoff=[WH_PLEN + WH_NEW - 1] * WH_B,
+       heads=(8, 8, 64), arch="whisper-base ")
+    fd(RING_B, RING_ROWS, window=1024, ring=True, arch="gemma3-4b ",
+       note=" (the --window ring)")
     # swiglu's tile path (from 9 rows): prefills of 16 to 128 rows, timed;
     # edges one past a tile (9, 129, 4097 rows), and D = 98, a k-tail that
     # is neither a multiple of the 32-wide chunk nor of 4
@@ -674,6 +723,23 @@ def attention_cases(rnd):
         *(fa(label, b, VLM_PREFIX + LM_SEQ, VLM_PREFIX + LM_SEQ, 1, 8, 256,
              True, prefix_len=VLM_PREFIX, timed=True)
           for label, b in zip(VLM_ATTN, (1, PREFILL_B))),
+        # whisper-base (8 heads of 64, one kv head each): the encoder's 1500
+        # frames at the serving batch and at a training lane's (dS in key
+        # chunks), the decoder's causal prompt, its cross-attention from the
+        # prompt and from one decode row
+        fa(WH_ATTN["enc"], WH_B, 1500, 1500, 8, 1, 64, False, timed=True),
+        fa(WH_ATTN["enc_train"], WH_BLOC, 1500, 1500, 8, 1, 64, False,
+           timed=True),
+        fa(WH_ATTN["dec"], WH_B, WH_PLEN, WH_PLEN, 8, 1, 64, True,
+           timed=True),
+        fa(WH_ATTN["dec_train"], WH_BLOC, WH_SEQ, WH_SEQ, 8, 1, 64, True,
+           timed=True),
+        fa(WH_ATTN["cross"], WH_B, WH_PLEN, 1500, 8, 1, 64, False,
+           timed=True),
+        fa(WH_ATTN["cross_train"], WH_BLOC, WH_SEQ, 1500, 8, 1, 64, False,
+           timed=True),
+        fa(WH_ATTN["cross_decode"], WH_B, 1, 1500, 8, 1, 64, False,
+           timed=True),
     ]
 
 
@@ -1284,6 +1350,22 @@ def device_step_ms(torch, cfg, weights, slots, max_len, positions,
     return ev[0].elapsed_time(ev[1]) / reps
 
 
+def logits_compare(tol):
+    """A card-vs-CPU logits comparison: `compare(card, cpu)` keeps the
+    largest difference and counts the rows whose greedy token the CPU's
+    top-2 margin decides (> 2 tol) and those the card's argmax agrees on."""
+    state = dict(worst=0.0, agree=0, decided=0)
+
+    def compare(lc, lh):
+        lc = lc.cpu()
+        state["worst"] = max(state["worst"], float((lc - lh).abs().max()))
+        top2 = lh.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        state["decided"] += int(sure.sum())
+        state["agree"] += int(((lc.argmax(-1) == lh.argmax(-1)) & sure).sum())
+    return compare, state
+
+
 def phase_card_vs_cpu(torch, np, arch=ARCH, n_layers=2):
     """`arch`'s widths at `n_layers` layers: same weights on the card
     (kernels) and on the CPU (plain versions; a QKV-bias model's biases
@@ -1308,18 +1390,8 @@ def phase_card_vs_cpu(torch, np, arch=ARCH, n_layers=2):
     # fp32 sums over D (2048 to 8192) and F (10240 to 49152) in another
     # order on each side: ~1e-6 relative per product, through 2 layers and
     # the unembedding (100,352 to 262,144 ways)
-    tol = 2e-4
-    worst, agree, decided = 0.0, 0, 0
-
-    def compare(lc, lh):
-        nonlocal worst, agree, decided
-        lc = lc.cpu()
-        worst = max(worst, float((lc - lh).abs().max()))
-        top2 = torch.topk(lh, 2, dim=-1).values
-        sure = (top2[:, 0] - top2[:, 1]) > 2 * tol
-        same = lc.argmax(-1) == lh.argmax(-1)
-        decided += int(sure.sum())
-        agree += int((same & sure).sum())
+    tol = SERVE_TOL
+    compare, res = logits_compare(tol)
 
     start = 0
     with torch.no_grad():
@@ -1342,14 +1414,15 @@ def phase_card_vs_cpu(torch, np, arch=ARCH, n_layers=2):
             lh, _ = mod.decode_step(cfg, cpu.as_tree(), tok, caches["cpu"],
                                     pos, prefix_len=prefix)
             compare(lc, lh)
-    check(worst <= tol, f"{cfg.name} card vs CPU logits differ by {worst} "
-          f"> {tol}")
-    check(agree == decided, f"{cfg.name} greedy tokens differ: "
-          f"{agree}/{decided}")
+    check(res["worst"] <= tol, f"{cfg.name} card vs CPU logits differ by "
+          f"{res['worst']} > {tol}")
+    check(res["agree"] == res["decided"], f"{cfg.name} greedy tokens differ: "
+          f"{res['agree']}/{res['decided']}")
     emit("card_vs_cpu", arch=cfg.name, layers=cfg.n_layers,
          d_model=cfg.d_model, vocab=cfg.vocab, qkv_bias=cfg.qkv_bias,
-         prefix_len=prefix, steps=n_steps, batch=b, max_abs_logit_err=worst,
-         tol=tol, greedy_agree=agree, greedy_decided=decided)
+         prefix_len=prefix, steps=n_steps, batch=b,
+         max_abs_logit_err=res["worst"], tol=tol,
+         greedy_agree=res["agree"], greedy_decided=res["decided"])
     del card, cpu, caches
     torch.cuda.empty_cache()
 
@@ -2279,6 +2352,20 @@ def lm_forward_flops(cfg, seqs: int, seq: int,
             + 2.0 * rows * d * cfg.vocab)
 
 
+def whisper_forward_flops(cfg, seqs: int, seq: int) -> float:
+    """Matmul + attention FLOPs of whisper's forward over `seqs` sequences
+    of `seq` tokens: the encoder over enc_seq frames (bidirectional), the
+    decoder's causal self-attention, its cross-attention (the keys and
+    values projected from the memory) and the tied unembedding."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.enc_seq
+    enc = cfg.n_enc_layers * (2.0 * e * (4 * d * d + 2 * d * f)
+                              + 4.0 * e * e * d)
+    dec = cfg.n_layers * (2.0 * seq * (4 * d * d + 2 * d * d + 2 * d * f)
+                          + 2.0 * e * 2 * d * d
+                          + 4.0 * d * (seq * (seq + 1) / 2 + seq * e))
+    return seqs * (enc + dec + 2.0 * seq * d * cfg.vocab)
+
+
 def lm_step_flops(cfg, seqs: int, seq: int) -> float:
     """One local step of the LM: forward + backward = 3x the forward."""
     return 3.0 * lm_forward_flops(cfg, seqs, seq)
@@ -2339,21 +2426,25 @@ def profile_device_ms(torch, fn, top: int = 12, by_op: bool = False,
 
 def lm_setup(n_layers, arch=LM_ARCH, **run_overrides):
     """(cfg, run config) of the LM recipe: `arch` (starcoder2-3b by
-    default) at full width cut to `n_layers`."""
+    default) at full width cut to `n_layers` decoder layers (None: the
+    full depth)."""
     from repro_torch.configs import registry as R
     from repro_torch.configs.base import RunConfig
-    cfg = dataclasses.replace(R.get_config(arch), n_layers=n_layers)
+    cfg = R.get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     return cfg, RunConfig(**{**LM_RUN, **run_overrides})
 
 
-def lm_engine(*, n_layers, workers, b_loc, seq, arch=LM_ARCH,
+def lm_engine(*, n_layers, workers, b_loc, seq, arch=LM_ARCH, data="host",
               **run_overrides):
     """(cfg, run config, engine on the card) of the LM recipe, the engine
-    drawing from its built-in token stream."""
+    drawing from its built-in token stream on the host (`data="host"`)
+    or on the card (`data="device"`)."""
     from repro_torch.core.engine import RoundEngine
     cfg, run = lm_setup(n_layers, arch, **run_overrides)
     eng = RoundEngine(cfg, run, workers=workers, b_loc=b_loc, seq=seq,
-                      data="host")
+                      data=data)
     return cfg, run, eng
 
 
@@ -2387,7 +2478,7 @@ def run_lm(torch, np, phase, cfg, run, eng, trace, n_params=None):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, hist = train(cfg, run, workers=eng.workers, b_loc=eng.b_loc,
-                        seq=eng.seq, data="host", eng=eng, eval_fn=eval_fn,
+                        seq=eng.seq, data=eng.data, eng=eng, eval_fn=eval_fn,
                         log_every=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0 - check_s[0]
@@ -2409,11 +2500,17 @@ def phase_train_lm(torch, np):
     tokens from the built-in token stream, 8 steps.  Then the device time
     of one local step (CUDA events, the batch already on the card) and its
     kernels by name (torch.profiler)."""
-    attn = LM_LAYERS * LM_W * LM_STEPS    # one call per layer per worker
-    return train_lm_path(
-        torch, np, "train_lm", LM_ARCH, LM_W, LM_B, LM_SEQ, LM_PARAMS[2],
-        dict(flash_attention_fwd=attn, flash_attention_bwd=attn,
-             adamw_update=LM_LEAVES * LM_STEPS))
+    return train_lm_path(torch, np, "train_lm", LM_ARCH, LM_W, LM_B, LM_SEQ,
+                         LM_PARAMS[2], lm_launches())
+
+
+def lm_launches() -> dict:
+    """starcoder2-3b's kernel launches in LM_STEPS steps at 2 layers and W
+    = LM_W: attention forward and backward once a layer and worker, AdamW
+    once a leaf."""
+    attn = LM_LAYERS * LM_W * LM_STEPS
+    return dict(flash_attention_fwd=attn, flash_attention_bwd=attn,
+                adamw_update=LM_LEAVES * LM_STEPS)
 
 
 def phase_train_gemma3(torch, np):
@@ -2469,36 +2566,44 @@ def train_rms_swiglu(torch, np, phase, arch, w, n_params, leaves,
         dict(rms_norm=norms, rms_norm_bwd=norms, swiglu=layers,
              swiglu_bwd=layers, flash_attention_fwd=layers,
              flash_attention_bwd=layers, adamw_update=leaves * LM_STEPS),
-        kernel_calls=calls)
+        kernel_calls=calls)[0]
 
 
 def train_lm_path(torch, np, phase, arch, w, b, seq, n_params, launches,
-                  kernel_calls=None):
-    """`arch` at full width cut to 2 layers through `train()` (W = w x b
-    sequences of `seq` tokens, LM_STEPS steps of the LM recipe), its launch
-    counts exactly `launches` (every other kernel 0), then one local step's
-    device time and profile, in which the device kernels whose names hold
-    each key of `kernel_calls` ran exactly its value times (gemma3: one
-    swiglu forward tile a layer and lane, which keeps the pair, and its dW
-    and dX launches: the backward recomputes no forward product).  Returns
-    the counts."""
-    from repro_torch import tree as T
-    from repro_torch.core import local_update as LU
-    from repro_torch.data.synthetic import make_train_batch
-
-    cfg, run, eng = lm_engine(n_layers=2, workers=w, b_loc=b, seq=seq,
-                              arch=arch)
+                  kernel_calls=None, n_layers=2, data="host"):
+    """`arch` at full width cut to `n_layers` layers (None: full depth)
+    through `train()` (W = w x b sequences of `seq` tokens, LM_STEPS steps
+    of the LM recipe, batches drawn on the host or on the card by `data`),
+    its launch counts exactly `launches` (every other kernel 0), then one
+    local step's device time and profile, in which the device kernels whose
+    names hold each key of `kernel_calls` ran exactly its value times
+    (gemma3: one swiglu forward tile a layer and lane, which keeps the
+    pair, and its dW and dX launches: the backward recomputes no forward
+    product), and the time to have one step's batch on the card.  Returns
+    (the counts, the phase's line)."""
+    t_phase = time.perf_counter()
+    cfg, run, eng = lm_engine(n_layers=n_layers, workers=w, b_loc=b,
+                              seq=seq, arch=arch, data=data)
     state, rounds, counts, wall, peak_gb = run_lm(
         torch, np, phase, cfg, run, eng, LM_TRACE, n_params)
+    data_s = eng.data_seconds
     want = {k: 0 for k in counts}
     want.update(launches)
     check(counts == want, f"{phase}: launch counts {counts} != {want}")
     for r in rounds:
         emit(f"{phase}_round", **r)
 
+    from repro_torch.core import local_update as LU
     step_fn = LU.make_local_step(cfg, run, with_metrics=True)
-    batch = T.map(lambda x: x.cuda(), make_train_batch(
-        cfg, eng.stream, 0, w, b, seq))
+    # one step's batch on the card: drawn on the host and copied, or drawn
+    # on the card (host clock, synchronised)
+    batch_ms = []
+    for step in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = eng._batch(step)
+        torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
     state, _ = step_fn(state, batch, 1e-6)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     torch.cuda.synchronize()
@@ -2516,27 +2621,32 @@ def train_lm_path(torch, np, phase, arch, w, b, seq, n_params, launches,
 
     tokens = w * b * seq
     prefix = cfg.n_img_tokens if cfg.family == "vlm" else 0
-    flops = 3.0 * lm_forward_flops(cfg, w * b, prefix + seq,
-                                   unembed_rows=tokens)
+    if cfg.family == "audio":
+        flops = 3.0 * whisper_forward_flops(cfg, w * b, seq)
+    else:
+        flops = 3.0 * lm_forward_flops(cfg, w * b, prefix + seq,
+                                       unembed_rows=tokens)
     wall_ms = wall / LM_STEPS * 1e3
-    emit(phase, arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-         params=n_params, workers=w, b_loc=b, seq=seq, prefix_len=prefix,
-         steps=LM_STEPS,
-         rounds=len(rounds), h_trace=eng.h_trace, layout="tree",
-         sync="blocking", wall_s=wall, wall_ms_per_step=wall_ms,
-         data_ms_per_step=eng.data_seconds / LM_STEPS * 1e3,
-         device_ms_per_step=device_ms,
-         device_busy_share=device_ms / wall_ms,
-         tokens_per_s=tokens * LM_STEPS / wall, flop_per_step=flops,
-         flop_floor_ms_per_step=flops / PEAK_FP32_FLOP_PER_S * 1e3,
-         achieved_tflop_s=flops / device_ms / 1e9,
-         profiled_step=prof, launches=counts,
-         launches_per_step={k: v / LM_STEPS for k, v in counts.items()},
-         peak_mem_gb=peak_gb, state_gb_p_m_v_grad=16.0 * n_params * w / 1e9,
-         final_loss=rounds[-1]["loss"], lanes_equal_after_sync=True)
+    row = dict(
+        arch=cfg.name, layers=cfg.n_layers, enc_layers=cfg.n_enc_layers,
+        d_model=cfg.d_model, params=n_params, workers=w, b_loc=b, seq=seq,
+        prefix_len=prefix, steps=LM_STEPS, data=data, rounds=len(rounds),
+        h_trace=eng.h_trace, layout="tree", sync="blocking", wall_s=wall,
+        wall_ms_per_step=wall_ms, data_ms_per_step=data_s / LM_STEPS * 1e3,
+        batch_on_card_ms=sorted(batch_ms)[1], device_ms_per_step=device_ms,
+        device_busy_share=device_ms / wall_ms,
+        tokens_per_s=tokens * LM_STEPS / wall, flop_per_step=flops,
+        flop_floor_ms_per_step=flops / PEAK_FP32_FLOP_PER_S * 1e3,
+        achieved_tflop_s=flops / device_ms / 1e9,
+        profiled_step=prof, launches=counts,
+        launches_per_step={k: v / LM_STEPS for k, v in counts.items()},
+        peak_mem_gb=peak_gb, state_gb_p_m_v_grad=16.0 * n_params * w / 1e9,
+        final_loss=rounds[-1]["loss"], lanes_equal_after_sync=True,
+        seconds=time.perf_counter() - t_phase)
+    emit(phase, **row)
     del state, batch, eng
     torch.cuda.empty_cache()
-    return counts
+    return counts, row
 
 
 def phase_train_lm_full_depth(torch, np):
@@ -2601,14 +2711,16 @@ def plain_versions_on_card():
 TRAIN_CARD_VS_CPU = {LM_ARCH: "train_lm_card_vs_cpu",
                      G3_ARCH: "train_gemma3_card_vs_cpu",
                      PHI3_ARCH: "train_phi3_card_vs_cpu",
-                     VLM_ARCH: "train_paligemma_card_vs_cpu"}
+                     VLM_ARCH: "train_paligemma_card_vs_cpu",
+                     WH_ARCH: "train_whisper_card_vs_cpu"}
 
 
 def phase_train_lm_card_vs_cpu(torch, np, arch=LM_ARCH):
     """`arch` (starcoder2-3b, or an RMSNorm + SwiGLU model through the
     rms_norm / swiglu backward kernels: gemma3-4b, phi3-medium-14b,
-    paligemma-3b with its image prefix) at full width cut to 2 layers, W =
-    2, 1 sequence of 128 tokens each, one round of H = 2 at the recipe's
+    paligemma-3b with its image prefix; or whisper-base, its decoder cut to
+    2 layers, its 6 encoder layers over the batches' 1500 stub frames) at
+    full width cut to 2 layers, W = 2, 1 sequence of 128 tokens each, one round of H = 2 at the recipe's
     peak lr: the same weights and batches on the card (kernels) and on the
     CPU (plain versions).  Loss and grad norm within 1e-4 relative;
     params: at most 1 element in 2,000 of each leaf beyond 1e-5 (AdamW's
@@ -2623,7 +2735,10 @@ def phase_train_lm_card_vs_cpu(torch, np, arch=LM_ARCH):
     the plain versions (`plain_versions_on_card`) and each leaf's elements
     beyond 1e-5 are held to at most 1.5 times that run's count against the
     CPU (or 1 in 2,000): the kernels may move the trajectory no further
-    than the card's own sum order does.
+    than the card's own sum order does.  whisper's round is held the same
+    way: its attention kernels run at shapes no other gate has (the cross
+    backward at Sq 128 against Sk 1500, the encoder's with dS in key
+    chunks).
 
     The CPU holds 16 bytes a parameter a worker (gemma3-4b: 27.5 GB at W =
     2); W drops to 1 where the host's available memory is under twice
@@ -2639,6 +2754,7 @@ def phase_train_lm_card_vs_cpu(torch, np, arch=LM_ARCH):
     gc.collect()                          # earlier phases' cycles (run_lm)
     cfg, run = lm_setup(2, arch)
     backward_kernels = cfg.norm == "rmsnorm"
+    yardstick = backward_kernels or cfg.family == "audio"
     lr = run.peak_lr
     defs = api.get_module(cfg).param_defs(cfg)
     state_gb = 16.0 * pm.count_params(defs) * 2 / 1e9
@@ -2678,7 +2794,7 @@ def phase_train_lm_card_vs_cpu(torch, np, arch=LM_ARCH):
     def beyond(a, b):
         return int(((a - b).abs() > 1e-5 * (1 + b.abs())).sum())
     plain_off = None
-    if backward_kernels:
+    if yardstick:
         with plain_versions_on_card():
             plain, *_ = rollout("cuda")
         plain_off = [beyond(a, b) for a, b in zip(plain, host)]
@@ -2940,6 +3056,325 @@ def phase_generate_paligemma(torch, np, rows):
     return counts
 
 
+def step_times(torch, fn, reps: int = 5) -> dict:
+    """One call of `fn` (a decode step or a prefill, eager) on the card:
+    `ms`, CUDA events around `reps` calls back to back (the host's launch
+    gaps included), and `kernel_ms`, the sum of the device kernels of one
+    profiled call (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(reps):
+        fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    prof = profile_device_ms(torch, fn, top=6)
+    return dict(ms=ev[0].elapsed_time(ev[1]) / reps,
+                kernel_ms=prof["kernel_ms"], top=prof["top"])
+
+
+def phase_generate_whisper(torch, np):
+    """whisper-base at full width and depth (random weights from seed 0 on
+    the card): one-shot `generate` of WH_B prompts x WH_PLEN tokens after
+    the CLI's stub frames (`serve.audio_frames`), WH_NEW new, greedy, with
+    the launch counts at 0 just before and read just after: the prefill
+    runs one `flash_attention` forward an encoder layer and two a decoder
+    layer (self, cross), each decode step one `flash_decode` (G = 1, D =
+    64) and one cross forward (a single query row onto 1500 frames) a
+    decoder layer.  Its prefill's last-position logits equal those of the
+    frames and first token prefilled and the rest fed through
+    `decode_step` (PREFILL_TOL), and other frames move them.  The device
+    time of a prefill and of a decode step.  Card against CPU on the same
+    weights and frames: prefill and 8 teacher-forced decode steps, logits
+    within SERVE_TOL and the greedy tokens the CPU's margin
+    decides equal.  Returns the generate path's counts."""
+    from repro_torch.configs import registry as R
+    from repro_torch.kernels import ops
+    from repro_torch.launch import weights as W
+    from repro_torch.launch.serve import audio_frames, generate
+    from repro_torch.models import api
+
+    t_phase = time.perf_counter()
+    cfg = R.get_config(WH_ARCH)
+    n_e, n_l = cfg.n_enc_layers, cfg.n_layers
+    mod = api.get_module(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    weights = W.ServingWeights.from_seed(cfg, 0, device="cuda")
+    n_params = sum(b.numel() for b in weights.bufs.values())
+    check(n_params == WH_PARAMS, f"whisper has {n_params} params")
+    tree = weights.as_tree()
+    rng = np.random.default_rng(9)
+    prompts = rng.integers(0, cfg.vocab, (WH_B, WH_PLEN), dtype=np.int32)
+    fr = audio_frames(cfg, WH_B, "cuda")["frames"]
+    ops.reset_launch_counts()             # the path: counts at 0 ...
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = generate(cfg, tree, prompts, gen_len=WH_NEW, extra={"frames": fr})
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    counts = ops.launch_counts()          # ... read just after
+    want = {k: 0 for k in counts}
+    want.update(flash_attention_fwd=n_e + 2 * n_l + n_l * WH_NEW,
+                flash_decode=n_l * WH_NEW)
+    check(counts == want, f"whisper generate: launches {counts} != {want}")
+    check(tuple(toks.shape) == (WH_B, WH_PLEN + WH_NEW)
+          and bool(torch.equal(toks[:, :WH_PLEN].cpu(),
+                               torch.from_numpy(prompts)))
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
+          f"whisper generate: tokens of shape {tuple(toks.shape)}")
+
+    pt = torch.from_numpy(prompts).cuda()
+    with torch.no_grad():
+        lp, _ = mod.prefill(cfg, tree, pt, mod.init_cache(
+            cfg, WH_B, WH_PLEN, device="cuda"), frames=fr)
+        cache = mod.init_cache(cfg, WH_B, WH_PLEN, device="cuda")
+        _, cache = mod.prefill(cfg, tree, pt[:, :1], cache, frames=fr)
+        for i in range(1, WH_PLEN):
+            ld, cache = mod.decode_step(cfg, tree, pt[:, i], cache, i)
+        lz, _ = mod.prefill(cfg, tree, pt, mod.init_cache(
+            cfg, WH_B, WH_PLEN, device="cuda"), frames=torch.zeros_like(fr))
+    err, scale = float((lp - ld).abs().max()), float(ld.abs().max())
+    tol = PREFILL_TOL * max(scale, 1.0)
+    check(err <= tol, f"whisper prefill vs decode logits differ by {err} > "
+          f"{tol}")
+    check(bool(torch.equal(lp.argmax(-1), ld.argmax(-1))),
+          "whisper prefill vs decode: another greedy token")
+    moved = float((lp - lz).abs().max())
+    check(moved > tol, f"whisper: the frames do not move the logits ({moved})")
+    del cache, lp, ld, lz
+
+    # device times: a prefill of the prompt after the frames, and a decode
+    # step at the first new token's position
+    cache = mod.init_cache(cfg, WH_B, WH_PLEN + WH_NEW, device="cuda")
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        pre = step_times(torch, lambda: mod.prefill(cfg, tree, pt, cache,
+                                                    frames=fr))
+        pre_counts = {k: v for k, v in ops.launch_counts().items() if v}
+        ops.reset_launch_counts()
+        dec = step_times(torch, lambda: mod.decode_step(
+            cfg, tree, pt[:, -1], cache, WH_PLEN))
+        dec_counts = {k: v for k, v in ops.launch_counts().items() if v}
+    calls = 1 + 5 + 1                     # warm-up, timed, profiled
+    check(pre_counts == {"flash_attention_fwd": (n_e + 2 * n_l) * calls},
+          f"whisper prefill launches {pre_counts}")
+    check(dec_counts == {"flash_attention_fwd": n_l * calls,
+                         "flash_decode": n_l * calls},
+          f"whisper decode step launches {dec_counts}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del cache
+
+    # card against CPU: the same weights and frames, teacher-forced
+    host = W.ServingWeights(cfg, weights.spec.unflatten(
+        {b: v.cpu() for b, v in weights.bufs.items()}), device="cpu")
+    compare, res = logits_compare(SERVE_TOL)
+    n_steps, max_len = 8, WH_PLEN + 8
+    caches = {dev: mod.init_cache(cfg, WH_B, max_len, device=dev)
+              for dev in ("cuda", "cpu")}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lc, _ = mod.prefill(cfg, tree, pt, caches["cuda"], frames=fr)
+        lh, _ = mod.prefill(cfg, host.as_tree(), pt.cpu(), caches["cpu"],
+                            frames=fr.cpu())
+        compare(lc, lh)
+        for i in range(n_steps):
+            tok = torch.from_numpy(rng.integers(0, cfg.vocab, WH_B))
+            lc, _ = mod.decode_step(cfg, tree, tok.cuda(), caches["cuda"],
+                                    WH_PLEN + i)
+            lh, _ = mod.decode_step(cfg, host.as_tree(), tok, caches["cpu"],
+                                    WH_PLEN + i)
+            compare(lc, lh)
+    cpu_s = time.perf_counter() - t0
+    check(res["worst"] <= SERVE_TOL, f"whisper card vs CPU logits differ by "
+          f"{res['worst']} > {SERVE_TOL}")
+    check(res["agree"] == res["decided"], f"whisper greedy tokens differ: "
+          f"{res['agree']}/{res['decided']}")
+    emit("generate_whisper", arch=cfg.name, enc_layers=n_e, layers=n_l,
+         params=n_params, enc_seq=cfg.enc_seq, prompts=WH_B,
+         prompt_len=WH_PLEN, new_tokens=WH_NEW, wall_s=gen_wall,
+         tokens_per_s=WH_B * WH_NEW / gen_wall, launches=counts,
+         launches_per_decode_step={k: v // calls for k, v in
+                                   dec_counts.items()},
+         prefill_ms=pre["ms"], prefill_kernel_ms=pre["kernel_ms"],
+         prefill_top=pre["top"], decode_step_ms=dec["ms"],
+         decode_step_kernel_ms=dec["kernel_ms"], decode_step_top=dec["top"],
+         prefill_vs_decode_max_abs_err=err, prefill_vs_decode_tol=tol,
+         zero_frames_max_abs_diff=moved, card_vs_cpu_max_abs_logit_err=
+         res["worst"], card_vs_cpu_tol=SERVE_TOL, greedy_agree=res["agree"],
+         greedy_decided=res["decided"], card_vs_cpu_steps=n_steps,
+         card_vs_cpu_s=cpu_s, peak_mem_gb=peak_gb,
+         seconds=time.perf_counter() - t_phase)
+    del weights, tree, host, caches, toks, fr, pt
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_generate_ring(torch, np):
+    """gemma3-4b at full width and all 34 layers, one-shot `generate` at
+    `--window` RING_WINDOW: every local layer keeps its 1024-key window, so
+    the KV cache is a ring of 1024 rows, and RING_B prompts x RING_PLEN
+    tokens with RING_NEW new ones run 40 decode steps past its wrap, every
+    decode attention through `flash_decode` with ring positions.  Launch
+    counts exact; the device time of a ring decode step before and after
+    the wrap.  Card against CPU at 2 layers: a RING_CPU_PROMPT-token
+    prefill, then teacher-forced ring decode steps to position RING_PLEN +
+    RING_NEW - 1, logits within SERVE_TOL and the greedy
+    tokens the CPU's margin decides equal.  Returns the generate path's
+    counts."""
+    from repro_torch.configs import registry as R
+    from repro_torch.kernels import ops
+    from repro_torch.launch import weights as W
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import api
+
+    t_phase = time.perf_counter()
+    cfg = R.get_config(ARCH)
+    mod = api.get_module(cfg)
+    max_len = RING_PLEN + RING_NEW
+    ring_len = mod.cache_spec(cfg, RING_B, max_len, RING_WINDOW)["k"][2]
+    check(ring_len == RING_ROWS < max_len, f"ring cache of {ring_len} rows")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    weights = W.ServingWeights.from_seed(cfg, 0, device="cuda")
+    tree = weights.as_tree()
+    rng = np.random.default_rng(13)
+    prompts = rng.integers(0, cfg.vocab, (RING_B, RING_PLEN), dtype=np.int32)
+    ops.reset_launch_counts()             # the path: counts at 0 ...
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = generate(cfg, tree, prompts, gen_len=RING_NEW,
+                    window_override=RING_WINDOW)
+    torch.cuda.synchronize()
+    gen_wall = time.perf_counter() - t0
+    counts = ops.launch_counts()          # ... read just after
+    want = {k: 0 for k in counts}
+    want.update(generate_launches(cfg, RING_NEW))
+    check(counts == want, f"ring generate: launches {counts} != {want}")
+    check(tuple(toks.shape) == (RING_B, max_len)
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
+          f"ring generate: tokens of shape {tuple(toks.shape)}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # a ring decode step before the wrap and after it
+    cache = mod.init_cache(cfg, RING_B, max_len, device="cuda",
+                           window_override=RING_WINDOW)
+    tok = toks[:, -1].contiguous()
+    times = {}
+    with torch.no_grad():
+        for where, pos in (("before_wrap", ring_len - 24),
+                           ("after_wrap", max_len - 1)):
+            times[where] = step_times(torch, lambda: mod.decode_step(
+                cfg, tree, tok, cache, pos, ring=True))
+    del cache, weights, tree
+
+    # card against CPU at 2 layers
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    card = W.ServingWeights.from_seed(cfg2, 3, device="cuda")
+    host = W.ServingWeights(cfg2, card.spec.unflatten(
+        {b: v.cpu() for b, v in card.bufs.items()}), device="cpu")
+    caches = {dev: mod.init_cache(cfg2, RING_B, max_len, device=dev,
+                                  window_override=RING_WINDOW)
+              for dev in ("cuda", "cpu")}
+    check(caches["cpu"]["k"].shape[2] == RING_ROWS, "2-layer ring cache")
+    compare, res = logits_compare(SERVE_TOL)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           (RING_B, RING_CPU_PROMPT)))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lc, _ = mod.prefill(cfg2, card.as_tree(), prompt.cuda(),
+                            caches["cuda"])
+        lh, _ = mod.prefill(cfg2, host.as_tree(), prompt, caches["cpu"])
+        compare(lc, lh)
+        for pos in range(RING_CPU_PROMPT, max_len):
+            t = torch.from_numpy(rng.integers(0, cfg.vocab, RING_B))
+            lc, _ = mod.decode_step(cfg2, card.as_tree(), t.cuda(),
+                                    caches["cuda"], pos, ring=True)
+            lh, _ = mod.decode_step(cfg2, host.as_tree(), t, caches["cpu"],
+                                    pos, ring=True)
+            compare(lc, lh)
+    cpu_s = time.perf_counter() - t0
+    check(res["worst"] <= SERVE_TOL, f"ring card vs CPU logits differ by "
+          f"{res['worst']} > {SERVE_TOL}")
+    check(res["agree"] == res["decided"], f"ring greedy tokens differ: "
+          f"{res['agree']}/{res['decided']}")
+    emit("generate_ring", arch=cfg.name, layers=cfg.n_layers,
+         window_override=RING_WINDOW, ring_rows=ring_len, prompts=RING_B,
+         prompt_len=RING_PLEN, new_tokens=RING_NEW,
+         steps_past_wrap=max_len - ring_len, wall_s=gen_wall,
+         ms_per_token_step=gen_wall / RING_NEW * 1e3,
+         tokens_per_s=RING_B * RING_NEW / gen_wall, launches=counts,
+         decode_step=times, peak_mem_gb=peak_gb,
+         card_vs_cpu_layers=2, card_vs_cpu_prompt=RING_CPU_PROMPT,
+         card_vs_cpu_steps_after_wrap=max_len - ring_len,
+         card_vs_cpu_max_abs_logit_err=res["worst"],
+         card_vs_cpu_tol=SERVE_TOL,
+         greedy_agree=res["agree"], greedy_decided=res["decided"],
+         card_vs_cpu_s=cpu_s, seconds=time.perf_counter() - t_phase)
+    del card, host, caches, toks
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_whisper(torch, np, data):
+    """whisper-base at full width and depth (6 + 6 layers, 70,627,840
+    parameters, 31 leaves) through `train_lm_path`: W = 4 x 8 sequences of
+    64 tokens (the training CLI's defaults) with the LM recipe, 8 steps,
+    each lane's batch carrying frames [8, 1500, 512], drawn on the host
+    (`data="host"`) or on the card (`data="device"`).  Per step and worker
+    18 attention forwards and backwards (6 encoder, 6 decoder self, 6
+    cross: the cross backward at Sq = 64 against Sk = 1500, the encoder's
+    with dS in key chunks), AdamW once a leaf.  Returns (counts, line)."""
+    from repro_torch.configs import registry as R
+    cfg = R.get_config(WH_ARCH)
+    attn = (cfg.n_enc_layers + 2 * cfg.n_layers) * WH_W * LM_STEPS
+    return train_lm_path(
+        torch, np, f"train_whisper_{data}", WH_ARCH, WH_W, WH_BLOC, WH_SEQ,
+        WH_PARAMS, dict(flash_attention_fwd=attn, flash_attention_bwd=attn,
+                        adamw_update=WH_LEAVES * LM_STEPS),
+        n_layers=None, data=data)
+
+
+def phase_train_lm_device(torch, np, host_row):
+    """`data="device"` on the LM path: starcoder2-3b at 2 layers, W = 4 x 4
+    x 1024, the `train_lm` recipe with its batches drawn on the card
+    (`device_batch_fn`), its data and wall ms a step beside `train_lm`'s
+    host data.  Two engines with one seed draw bitwise-equal batches;
+    every token is in the vocab and the labels are the tokens shifted by
+    one."""
+    from repro_torch.core.engine import RoundEngine
+    counts, row = train_lm_path(torch, np, "train_lm_device", LM_ARCH, LM_W,
+                                LM_B, LM_SEQ, LM_PARAMS[2], lm_launches(),
+                                data="device")
+    cfg, run = lm_setup(LM_LAYERS)
+    engines = [RoundEngine(cfg, run, workers=LM_W, b_loc=LM_B, seq=LM_SEQ,
+                           data="device") for _ in range(2)]
+    a, b = (eng._batch(5) for eng in engines)
+    check(all(bool(torch.equal(a[k], b[k])) for k in a),
+          "device data: two engines with one seed draw different batches")
+    check(a["tokens"].shape == (LM_W, LM_B, LM_SEQ)
+          and a["tokens"].device.type == "cuda"
+          and int(a["tokens"].min()) >= 0
+          and int(a["labels"].max()) < cfg.vocab
+          and bool(torch.equal(a["tokens"][..., 1:], a["labels"][..., :-1])),
+          "device data: tokens out of range or labels not shifted")
+    other = engines[0]._batch(6)
+    check(not bool(torch.equal(other["tokens"], a["tokens"])),
+          "device data: another step draws the same batch")
+    emit("train_lm_device_vs_host", arch=cfg.name, layers=cfg.n_layers,
+         workers=LM_W, b_loc=LM_B, seq=LM_SEQ,
+         **{k: {"host": host_row[k], "device": row[k]}
+            for k in ("data_ms_per_step", "batch_on_card_ms",
+                      "wall_ms_per_step", "device_ms_per_step")},
+         bitwise_equal_engines=True, tokens_in_vocab=True,
+         labels_shifted=True)
+    del engines, a, b, other
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2950,6 +3385,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.models import common  # noqa: F401  (turns TF32 off)
 
+    t_run = time.perf_counter()
     smi = nvidia_smi()
     # whether this machine has msgpack: nothing uses it (the checkpoints
     # are read and written by repro_torch/checkpoint/wire.py)
@@ -3007,6 +3443,11 @@ def main() -> int:
     phase_card_vs_cpu(torch, np, PHI3_ARCH)
     phase_card_vs_cpu(torch, np, QWEN_ARCH, n_layers=1)
     phase_card_vs_cpu(torch, np, VLM_ARCH)
+    # whisper-base (the audio family), and ring-buffer serving
+    add(phase_generate_whisper(torch, np),
+        ("flash_decode", "flash_attention_fwd"))
+    add(phase_generate_ring(torch, np),
+        SERVING_KERNELS + ("flash_attention_fwd",))
     add(phase_train(torch, np), TRAINING_KERNELS[:3])
     flat, flat_state = phase_train_flat_quantized(torch, np)
     add(flat, ("sync_flat_update",))
@@ -3018,8 +3459,10 @@ def main() -> int:
     add(phase_train_partial(torch, np), ("sync_apply_update",))
     add(phase_train_ring(torch, np), SYNC_KERNELS)
     phase_train_card_vs_cpu_overlap(torch, np)
-    # the LM training path
-    add(phase_train_lm(torch, np), TRAINING_KERNELS[:3])
+    # the LM training path, on host and on device data
+    lm_counts, lm_row = phase_train_lm(torch, np)
+    add(lm_counts, TRAINING_KERNELS[:3])
+    add(phase_train_lm_device(torch, np, lm_row), TRAINING_KERNELS[:3])
     phase_train_lm_full_depth(torch, np)
     phase_train_lm_card_vs_cpu(torch, np)
     # gemma3 training: the rms_norm / swiglu backward kernels
@@ -3031,6 +3474,9 @@ def main() -> int:
     phase_train_lm_card_vs_cpu(torch, np, PHI3_ARCH)
     add(phase_train_paligemma(torch, np), rms_swiglu)
     phase_train_lm_card_vs_cpu(torch, np, VLM_ARCH)
+    for data in ("host", "device"):
+        add(phase_train_whisper(torch, np, data)[0], TRAINING_KERNELS[:3])
+    phase_train_lm_card_vs_cpu(torch, np, WH_ARCH)
     # checkpoints: resume across layouts, and train to serve
     try:
         phase_ckpt_resume(torch, np)
@@ -3060,10 +3506,15 @@ def main() -> int:
         + [f"[{SLOTS},{QWEN_D}]x[{QWEN_D},49152]"],
         "flash_decode": [*SC2_DECODE, *(
             label for (kern, label) in rows if kern == "flash_decode"
-            and label.startswith(("phi3", "qwen", "paligemma")))],
+            and label.startswith(("phi3", "qwen", "paligemma", "whisper",
+                                  "gemma3-4b")))],
         "flash_attention_fwd": [LM_TRAIN_ATTN, *PREFILL_ATTN,
-                                PHI3_TRAIN_ATTN, *VLM_ATTN],
-        "flash_attention_bwd": [LM_TRAIN_ATTN, PHI3_TRAIN_ATTN, *VLM_ATTN]}
+                                PHI3_TRAIN_ATTN, *VLM_ATTN,
+                                *WH_ATTN.values()],
+        "flash_attention_bwd": [LM_TRAIN_ATTN, PHI3_TRAIN_ATTN, *VLM_ATTN,
+                                *(WH_ATTN[k] for k in ("enc_train",
+                                                       "dec_train",
+                                                       "cross_train"))]}
     kernels = []
     for name in (SERVING_KERNELS + TRAINING_KERNELS + SYNC_KERNELS
                  + BACKWARD_KERNELS):
@@ -3086,6 +3537,7 @@ def main() -> int:
             plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], shape=t["shape"], **extra))
+    emit("run", seconds=time.perf_counter() - t_run)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

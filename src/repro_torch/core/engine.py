@@ -20,7 +20,10 @@ kernel launch per round per bucket; bitwise the tree trajectory).  Data:
 "host", from a `batch_fn(step) -> batch [W, B_loc, ...]` or, without one,
 the built-in `TokenStream(vocab, seed)` through `make_train_batch`, as the
 reference's host path draws it (CPU tensors, moved to the run's device
-here); `data_seconds` accumulates the host time spent drawing batches.
+here); "device", drawn on the run's device by `device_batch_fn` from the
+same stream's transition table, as the reference's device path (no host
+stack, no host-to-device copy); `data_seconds` accumulates the host time
+spent drawing batches (for device data, the time to issue the draw).
 
 Sync modes:
   * "blocking": every round ends fully synced.
@@ -44,8 +47,7 @@ H-trace, W and the layout record), so a resumed run lands on the next round
 boundary, and `restore` converts a checkpoint written under the other
 layout through the tree layout.
 
-Anything else of the reference — device data (drawn from `jax.random`
-inside the jitted round: no twin), flat_sharded, meshes, adaptive batch,
+Anything else of the reference — flat_sharded, meshes, adaptive batch,
 `save_sharded` / `restore_elastic` — raises `ConfigError("not ported
 yet")`.
 """
@@ -64,7 +66,8 @@ from repro_torch.core import flat
 from repro_torch.core import local_update as LU
 from repro_torch.core.sync import (make_sync, make_sync_apply,
                                    make_sync_begin, make_sync_partial)
-from repro_torch.data.synthetic import TokenStream, make_train_batch
+from repro_torch.data.synthetic import (TokenStream, device_batch_fn,
+                                        make_train_batch)
 from repro_torch.device import resolve_device
 from repro_torch.errors import ConfigError
 from repro_torch.models import api, param as pm
@@ -159,11 +162,6 @@ class RoundEngine:
         if sync != "blocking" and mode != "bucketed":
             raise ConfigError(
                 "overlap/partial sync runs through the bucketed program")
-        if data == "device":
-            raise ConfigError(
-                "data='device': not ported yet (the reference draws those "
-                "batches from jax.random inside its jitted round, which has "
-                "no twin); pass data='host'")
         for bad, what in ((layout == "flat_sharded", "layout='flat_sharded'"),
                           (mesh is not None, "a mesh"),
                           (adaptive_batch, "adaptive_batch")):
@@ -176,6 +174,7 @@ class RoundEngine:
         self.sync_mode, self.overlap_depth = sync, overlap_depth
         self.stream = TokenStream(vocab=max(cfg.vocab, 2), seed=seed)
         self._batch_fn = batch_fn           # None: the built-in stream
+        self._synth = self._device_synth()  # None: host data
         self.spec = None                    # FlatParamSpace (layout="flat")
         self._step = self._sync = None
         self._pending = None                # overlap: the in-flight reduce
@@ -186,6 +185,24 @@ class RoundEngine:
         self.h_trace: list[tuple[int, int]] = []    # (t_start, h) executed
         self.round_metrics: list[dict] = []         # per round, device scalars
         self.data_seconds = 0.0                     # host time in batch_fn
+
+    def _device_synth(self):
+        """data="device": the on-device synthesizer at the current W (a
+        closure over the stream and the shapes, not over the engine)."""
+        if self.data != "device":
+            return None
+        return device_batch_fn(self.cfg, self.stream, self.workers,
+                               self.b_loc, self.seq, self.device)
+
+    def _batch(self, step: int) -> Tree:
+        """The batch of local step `step` on the engine's device; the host
+        time of its draw (a host batch's copy to the device left out) goes
+        to `data_seconds`."""
+        t0 = time.perf_counter()
+        draw = self._synth if self._synth is not None else self._host_batch
+        batch = draw(step)
+        self.data_seconds += time.perf_counter() - t0
+        return T.map(lambda x: x.to(self.device), batch)
 
     def _host_batch(self, step: int) -> Tree:
         """The batch of local step `step`: `batch_fn`'s, or the built-in
@@ -274,10 +291,7 @@ class RoundEngine:
                 with torch.no_grad():
                     state = sync[1](state, pending, entry)
                 pending = None
-            t0 = time.perf_counter()
-            batch = self._host_batch(t + i)
-            self.data_seconds += time.perf_counter() - t0
-            batch = T.map(lambda x: x.to(self.device), batch)
+            batch = self._batch(t + i)
             state, (loss, gn) = step(state, batch, lr_fn(t + i))
             losses.append(loss)
             gns.append(gn)
@@ -390,6 +404,7 @@ class RoundEngine:
         self.workers = len(lanes)
         self.spec = None
         self._step = self._sync = None
+        self._synth = self._device_synth()
         if self.layout == "tree":
             return tree_state
         params_single = T.map(lambda x: x[0], tree_state["params"])

@@ -6,13 +6,18 @@ package's numpy code copied exactly — the same RandomState seeds and draws
 — so both packages see bitwise the same batches; only the return type
 differs (CPU torch tensors here, moved to the run's device by the engine).
 `make_train_batch` stacks the W workers' token batches as the reference's
-host path does; a vlm batch also carries `prefix_embeds`, 0.02 · normal
-from a `torch.Generator` seeded from the step as the reference seeds its
-`PRNGKey` (`step * 131 + 7`): the reference's distribution, not its bits
-(`jax.random` has no twin).  Its audio branch raises (whisper is not
-ported).  The reference's `device_batch_fn` draws its batches inside the
-jitted round from `jax.random`, which has no PyTorch twin either: the port
-runs the host stream only (`RoundEngine(data="host")`).
+host path does; a vlm batch also carries `prefix_embeds`, 0.02 · normal,
+and an audio batch `frames`, 0.1 · normal, each from a `torch.Generator`
+seeded from the step as the reference seeds its `PRNGKey` (`step * 131 +
+7` and `+ 11`): the reference's distributions, not its bits (`jax.random`
+has no twin).
+
+`device_batch_fn` is the port of the reference's on-device synthesis
+(`RoundEngine(data="device")`): the same Markov process and extras, drawn
+on the run's device from a `torch.Generator` seeded from (stream seed,
+step) alone, so a batch needs no host draw and no host-to-device copy.
+Like the reference's, it gives the same language as `TokenStream`, not the
+same batches.
 """
 from __future__ import annotations
 
@@ -21,7 +26,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.errors import ConfigError
 
 
 @dataclasses.dataclass
@@ -93,14 +97,69 @@ def vision_batch_fn(stream: VisionStream, workers: int, b_loc: int):
     return batch_fn
 
 
+def device_batch_fn(cfg, stream: TokenStream, w: int, b_loc: int, seq: int,
+                    device):
+    """On-device batch synthesis: `synth(step) -> batch [W, B_loc, ...]` on
+    `device`, as the reference's `device_batch_fn`.
+
+    The order-1 Markov process of `TokenStream.batch` (the same transition
+    table `stream.succ`, `branch` and noise rate): a first token uniform
+    over the vocab, then each next token a uniform pick among the current
+    token's `branch` successors, replaced with probability `noise` by a
+    uniform token.  `tokens` are the first `seq` of the `seq + 1` tokens,
+    `labels` the last `seq` (the next token).  A vlm config's batch also
+    holds `prefix_embeds` [W, B_loc, n_img_tokens, D] (0.02 · normal), an
+    audio config's `frames` [W, B_loc, enc_seq, D] (0.1 · normal).  Every
+    number comes from one `torch.Generator` on `device`, seeded from
+    (stream.seed, step) and nothing else: a batch is a function of the two,
+    whatever ran before."""
+    device = torch.device(device)
+    succ = torch.as_tensor(stream.succ, dtype=torch.int64,
+                           device=device).reshape(-1)      # [vocab * branch]
+    vocab, branch, noise = stream.vocab, stream.branch, stream.noise
+
+    def synth(step: int) -> dict:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(stream.seed) * 2**32 + int(step))
+
+        def randint(hi, shape):
+            return torch.randint(0, hi, shape, generator=gen, device=device)
+
+        shape = (seq, w, b_loc)
+        tok = randint(vocab, (w, b_loc))
+        pick = randint(branch, shape)
+        flip = torch.rand(shape, generator=gen, device=device) < noise
+        other = randint(vocab, shape)
+        chain = torch.empty((seq + 1, w, b_loc), dtype=torch.int64,
+                            device=device)
+        chain[0] = tok
+        for t in range(seq):        # 3 launches a token: add, gather, where
+            tok = torch.where(flip[t], other[t],
+                              succ[torch.add(pick[t], tok, alpha=branch)],
+                              out=chain[t + 1])
+        chain = chain.permute(1, 2, 0).to(torch.int32)      # [W, B, seq+1]
+        batch = {"tokens": chain[..., :-1].contiguous(),
+                 "labels": chain[..., 1:].contiguous()}
+        if cfg.family == "vlm":
+            batch["prefix_embeds"] = 0.02 * torch.randn(
+                (w, b_loc, cfg.n_img_tokens, cfg.d_model), generator=gen,
+                device=device)
+        if cfg.family == "audio":
+            batch["frames"] = 0.1 * torch.randn(
+                (w, b_loc, cfg.enc_seq, cfg.d_model), generator=gen,
+                device=device)
+        return batch
+
+    return synth
+
+
 def make_train_batch(cfg, stream: TokenStream, step: int, w: int, b_loc: int,
                      seq: int) -> dict:
     """Stacked per-worker batch {"tokens", "labels"} [W, B_loc, seq] (CPU
     int32) for the local-gradient runtime; a vlm config's also holds
-    "prefix_embeds" [W, B_loc, n_img_tokens, d_model] (CPU fp32, 0.02 ·
-    normal, a function of the step alone)."""
-    if cfg.family == "audio":
-        raise ConfigError("audio training batches: not ported yet")
+    "prefix_embeds" [W, B_loc, n_img_tokens, d_model], an audio config's
+    "frames" [W, B_loc, enc_seq, d_model] (CPU fp32, 0.02 · and 0.1 ·
+    normal, functions of the step alone)."""
     toks, labels = zip(*[stream.batch(step, k, b_loc, seq)
                          for k in range(w)])
     batch = {"tokens": torch.stack(toks), "labels": torch.stack(labels)}
@@ -108,4 +167,8 @@ def make_train_batch(cfg, stream: TokenStream, step: int, w: int, b_loc: int,
         gen = torch.Generator().manual_seed(step * 131 + 7)
         batch["prefix_embeds"] = 0.02 * torch.randn(
             (w, b_loc, cfg.n_img_tokens, cfg.d_model), generator=gen)
+    if cfg.family == "audio":
+        gen = torch.Generator().manual_seed(step * 131 + 11)
+        batch["frames"] = 0.1 * torch.randn(
+            (w, b_loc, cfg.enc_seq, cfg.d_model), generator=gen)
     return batch

@@ -10,18 +10,22 @@
           --slots 2 --batch 4 --gen 16
 
 Both serve `--batch` requests of `--prompt-len` random tokens on the card,
-with weights drawn on the device from `--seed`.  A VLM (paligemma-3b)
-gets a stub image prefix in one-shot mode (`image_prefix`); the service
-loop serves it text-only, as the reference's `ContinuousBatcher` does (it
-carries no per-request prefix).  `--smoke` takes the arch's
-smoke config, `--device cpu` runs the plain versions on the CPU (the default
-is CUDA, and no card is an error).  With `--slots`: `--watch DIR` polls DIR
-between decode steps for weights a training run published there
-(`launch/weights.py publish_weights`, for example from `train(...,
-async_observer=True)`) and hot-swaps them; `--swap-demo` publishes fresh
+with weights drawn on the device from `--seed`.  In one-shot mode a VLM
+(paligemma-3b) gets a stub image prefix (`image_prefix`) and an audio
+model (whisper-base) stub frames (`audio_frames`); the service loop serves
+the decoder families only and refuses vlm, audio and vision configs, as
+the reference's does (the batcher carries no per-request extras).
+`--smoke` takes the arch's smoke config, `--device cpu` runs the plain
+versions on the CPU (the default is CUDA, and no card is an error).
+With `--slots`: `--watch DIR` polls DIR between decode steps for weights
+a training run published there (`launch/weights.py publish_weights`,
+for example from `train(..., async_observer=True)`) and hot-swaps them; `--swap-demo` publishes fresh
 weights into the watch dir (a temporary one without `--watch`) mid-decode;
-`--audit FILE` writes the swap-epoch audit trail as JSON.  `--window > 0`
-(the ring-buffer cache and its ring prefill) is not ported yet.
+`--audit FILE` writes the swap-epoch audit trail as JSON.  `--window W`
+serves one-shot `generate` from a ring-buffer KV cache of at most W rows a
+layer (a sliding-window layer keeps its own window); with `--slots` it
+raises, since ragged positions and a ring cache do not go together (the
+reference's service loop ignores the flag).
 """
 from __future__ import annotations
 
@@ -49,16 +53,17 @@ def generate(cfg, params, prompts, *, gen_len: int, max_len: int | None = None,
 
     params: the model tree (for example `ServingWeights.as_tree()`); the
     prompts, and `extra` (prefill's keyword inputs: a VLM's
-    `prefix_embeds` [B, n_img_tokens, D]), move to its device.  A VLM's
-    prefix takes the cache's first `n_img_tokens` rows: it counts in the
-    default `max_len` and in every decode position, as the reference's.
-    Greedy at temperature 0; above it, one categorical draw per row and
-    step from a `torch.Generator` seeded with `seed` — the reference's
-    distribution, not its samples (`jax.random` has no twin).  Runs without
-    autograd."""
-    if window_override > 0:
-        raise ConfigError("window_override > 0 (the ring-buffer cache and "
-                          "its ring prefill): not ported yet")
+    `prefix_embeds` [B, n_img_tokens, D], an audio model's `frames` [B,
+    enc_seq, D]), move to its device.  A VLM's prefix takes the cache's
+    first `n_img_tokens` rows: it counts in the default `max_len` and in
+    every decode position, as the reference's.  `window_override > 0`
+    caps the KV cache (`init_cache`); when that leaves it shorter than
+    `max_len` it is a ring buffer the decode steps wrap around, and only
+    the prefill, which writes the prefix and prompt whole from row 0, must
+    fit it.  Greedy at temperature 0; above it, one categorical draw per
+    row and step from a `torch.Generator` seeded with `seed` — the
+    reference's distribution, not its samples (`jax.random` has no twin).
+    Runs without autograd."""
     mod = api.get_module(cfg)
     dev = next(iter(params["embed"].values())).device
     prompts = torch.as_tensor(np.asarray(prompts), device=dev)
@@ -68,15 +73,23 @@ def generate(cfg, params, prompts, *, gen_len: int, max_len: int | None = None,
     prefix_len = cfg.n_img_tokens if cfg.family == "vlm" else 0
     need = plen + prefix_len + gen_len
     max_len = max_len or need
-    if need > max_len:
+    cache = mod.init_cache(cfg, b, max_len, device=dev,
+                           window_override=window_override)
+    kv_len = cache["k"].shape[2]
+    ring = window_override > 0 and kv_len < max_len
+    if not ring and need > kv_len:
         raise ValueError(
             f"prompt ({plen}) + prefix ({prefix_len}) + gen_len ({gen_len}) "
-            f"= {need} tokens exceed the KV cache length {max_len}; raise "
-            "max_len")
+            f"= {need} tokens exceed the KV cache length {kv_len}; raise "
+            "max_len or serve with a ring window")
+    if ring and plen + prefix_len > kv_len:
+        raise ValueError(
+            f"prompt ({plen}) + prefix ({prefix_len}) = "
+            f"{plen + prefix_len} tokens exceed the ring KV cache length "
+            f"{kv_len}: the prefill writes them whole from row 0")
     gen = torch.Generator(device=dev).manual_seed(seed)
     out = [prompts.to(torch.int32)]
     with torch.no_grad():
-        cache = mod.init_cache(cfg, b, max_len, device=dev)
         logits, cache = mod.prefill(cfg, params, prompts, cache, **extra)
         for i in range(gen_len):
             if temperature > 0:
@@ -88,7 +101,7 @@ def generate(cfg, params, prompts, *, gen_len: int, max_len: int | None = None,
             out.append(tok[:, None])
             logits, cache = mod.decode_step(cfg, params, tok, cache,
                                             plen + prefix_len + i,
-                                            prefix_len=prefix_len)
+                                            prefix_len=prefix_len, ring=ring)
     return torch.cat(out, 1)
 
 
@@ -103,6 +116,18 @@ def image_prefix(cfg, batch: int, device) -> dict:
     return {"prefix_embeds": 0.02 * torch.randn(
         (batch, cfg.n_img_tokens, cfg.d_model), generator=gen,
         device=device)}
+
+
+def audio_frames(cfg, batch: int, device) -> dict:
+    """The one-shot CLI's stub frames for an audio model: {"frames": 0.1 ·
+    normal [batch, enc_seq, D]} from a generator seeded with 3 (the
+    reference's `PRNGKey(3)`: its distribution, not its bits); {} for any
+    other family."""
+    if cfg.family != "audio":
+        return {}
+    gen = torch.Generator(device=device).manual_seed(3)
+    return {"frames": 0.1 * torch.randn(
+        (batch, cfg.enc_seq, cfg.d_model), generator=gen, device=device)}
 
 
 def run_service(cfg, weights, prompts, *, slots: int, max_new: int,
@@ -159,7 +184,8 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--window", type=int, default=0,
-                    help="ring-buffer KV window (not ported yet)")
+                    help="ring-buffer KV window (long-context serving; "
+                         "one-shot mode only)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--slots", type=int, default=0,
@@ -173,11 +199,16 @@ def main(argv=None):
                     help="publish fresh weights into the watch dir "
                          "mid-decode and hot-swap them")
     args = ap.parse_args(argv)
-    if args.window > 0:
-        raise ConfigError("--window (the ring-buffer cache and its ring "
-                          "prefill): not ported yet")
+    if args.slots > 0 and args.window > 0:
+        raise ConfigError("--window with --slots: the service loop's ragged "
+                          "positions do not run on a ring cache; serve "
+                          "--window one-shot (without --slots)")
 
     cfg = R.get_smoke_config(args.arch) if args.smoke else R.get_config(args.arch)
+    if args.slots > 0 and cfg.family in ("vlm", "audio", "vision"):
+        raise SystemExit(f"--slots serves decoder families; {cfg.family} "
+                         "prompts need per-request extras the batcher does "
+                         "not carry yet")
     weights = W.ServingWeights.from_seed(cfg, args.seed, device=args.device)
     rng = np.random.default_rng(args.seed + 1)
     prompts = [rng.integers(0, cfg.vocab, args.prompt_len, dtype=np.int32)
@@ -239,9 +270,11 @@ def _service(cfg, weights, prompts, watch, args):
 
 def _generate_main(cfg, weights, prompts, args):
     """The one-shot entry: returns the tokens [B, P + gen] on the host."""
-    extra = image_prefix(cfg, len(prompts), weights.device)
+    extra = {**image_prefix(cfg, len(prompts), weights.device),
+             **audio_frames(cfg, len(prompts), weights.device)}
     t0 = time.perf_counter()
     toks = generate(cfg, weights.as_tree(), prompts, gen_len=args.gen,
+                    window_override=args.window,
                     temperature=args.temperature, seed=args.seed,
                     extra=extra).cpu()
     dt = time.perf_counter() - t0

@@ -13,8 +13,10 @@ The CLI trains an LM on the built-in token stream, on the card unless
         --smoke --device cpu --steps 30 --workers 2 --batch 2 --seq 16
 
 Its flags and defaults are the reference's, with one difference: `--data`
-defaults to `host` (the reference's `device` draws its batches from
-`jax.random` inside the jitted round, which has no twin).  `--ckpt DIR`
+defaults to `host` (the numpy `TokenStream`, bitwise the reference's host
+batches); `--data device` draws the same language on the card
+(`data/synthetic.py device_batch_fn`), as the reference's device path
+does, but not its bits (`jax.random` has no twin).  `--ckpt DIR`
 checkpoints the run into DIR (every `steps // 4` steps and at the end) and
 resumes from it when it holds one, in either layout; `--async-observer`
 writes the mid-run checkpoints from a background thread
@@ -214,8 +216,9 @@ def main(argv=None):
                     help="kept for the reference's CLI: the port runs "
                          "eagerly, with nothing to compile or cache")
     ap.add_argument("--data", default="host", choices=["device", "host"],
-                    help="host: the numpy TokenStream (the port's only "
-                         "source; device is not ported)")
+                    help="host: the numpy TokenStream, copied to the device "
+                         "each step; device: the same Markov language "
+                         "drawn on the device from a seeded generator")
     ap.add_argument("--param-layout", default="tree",
                     choices=["tree", "flat", "flat_sharded"],
                     help="tree: state mirrors the model tree; flat: one "
@@ -287,7 +290,7 @@ def main(argv=None):
           f"{n_sync} communication rounds for {args.steps} steps "
           f"(comm volume {n_sync/args.steps:.1%} of data-parallel); "
           f"XLA round programs: not applicable (eager PyTorch on "
-          f"{eng.device}; host data {eng.data_seconds:.2f}s)")
+          f"{eng.device}; {eng.data} data {eng.data_seconds:.2f}s)")
     return state, hist
 
 

@@ -5,20 +5,22 @@ Every module exposes:
   param_defs(cfg) -> ParamDef tree
   loss_fn(cfg, params, batch, *, remat) -> scalar loss
   forward(cfg, params, ...) -> logits (the transformer: (logits, aux))
-  cache_spec / init_cache / prefill / decode_step   (the transformer)
+  cache_spec / init_cache / prefill / decode_step   (the LMs)
 
 Ported so far: the dense transformer and the prefix-LM (`vlm`: the same
-module, `prefix_embeds` in the batch) for training, prefill and decode, and
-the vision classifier (training)."""
+module, `prefix_embeds` in the batch) and the whisper encoder-decoder
+(`audio`: `frames` in the batch, the encoder's memory in the cache) for
+training, prefill and decode, and the vision classifier (training)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.errors import ConfigError
-from repro_torch.models import transformer, vit
+from repro_torch.models import transformer, vit, whisper
 
-_FAMILY = {"dense": transformer, "vlm": transformer, "vision": vit}
+_FAMILY = {"dense": transformer, "vlm": transformer, "audio": whisper,
+           "vision": vit}
 
 
 def get_module(cfg: ModelConfig):
@@ -29,9 +31,10 @@ def get_module(cfg: ModelConfig):
 
 def zero_cache_slots(cache: dict, slots) -> dict:
     """Zero the given batch lanes of a decode cache in place and return it.
-    Every cache leaf carries the batch axis at position 1 (KV
-    [L,B,S,Hkv,hd]), so this is the slot-recycle invariant the
-    ContinuousBatcher relies on, for any family the port adds later."""
+    Every cache leaf of the decoder families carries the batch axis at
+    position 1 (KV [L,B,S,Hkv,hd]), so this is the slot-recycle invariant
+    the ContinuousBatcher relies on.  Whisper's `memory` [B, enc_seq, D]
+    breaks it; the service loop refuses audio configs."""
     for c in cache.values():
         idx = torch.as_tensor(slots, dtype=torch.long, device=c.device)
         c[:, idx] = 0

@@ -1232,3 +1232,73 @@ def test_observer_snapshot_on_card_does_not_alias_the_next_round(dev):
     assert moved                     # round r+1 moved the state
     for a, b in zip(T.leaves(want), T.leaves(seen[0])):
         assert b.device.type == "cpu" and torch.equal(a, b)
+
+
+# whisper-base's attention (8 heads of 64, one kv head each): the encoder's
+# bidirectional 1500 frames (forward at B = 4, the backward at a training
+# lane's B = 8, whose dS runs in key chunks), the decoder's causal prompt,
+# its cross-attention from 32 / 64 prompt rows and from one decode row onto
+# the 1500 frames.  (B, Sq, Sk, causal)
+WHISPER_ATTN = [(4, 1500, 1500, False), (8, 1500, 1500, False),
+                (4, 32, 32, True), (4, 32, 1500, False), (8, 64, 1500, False),
+                (4, 1, 1500, False)]
+
+
+@pytest.mark.parametrize("case", WHISPER_ATTN)
+def test_flash_attention_at_whisper_shapes_matches_plain(dev, case):
+    b, sq, sk, causal = case
+    kw = dict(causal=causal, window=0, prefix_len=0, q_offset=0)
+    q, k, v = _t(70, b, sq, 8, 64), _t(71, b, sk, 8, 64), _t(72, b, sk, 8, 64)
+    do = _t(73, b, sq, 8, 64)
+    ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    got = t_fa.flash_attention(*ins, **kw)
+    want = tref.attention(q, k, v, **kw)
+    torch.testing.assert_close(got, want, rtol=PROD_TOL, atol=PROD_TOL)
+    g_got = torch.autograd.grad(got, ins, do)
+    del want
+    ref_ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    g_want = torch.autograd.grad(tref.attention(*ref_ins, **kw), ref_ins, do)
+    for a, b_ in zip(g_got, g_want):
+        torch.testing.assert_close(a, b_, rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+@pytest.mark.parametrize("ring", [None, 30])
+def test_flash_decode_at_whisper_shape_matches_plain(dev, ring):
+    """whisper-base's decode self-attention: G = 1, D = 64 over a 64-row
+    cache, as the cache fills and as a ring after its wrap."""
+    q, k, v = _t(80, 4, 1, 8, 64), _t(81, 4, 64, 8, 64), _t(82, 4, 64, 8, 64)
+    kpos, qoff = None, [63, 40, 5, 0]
+    if ring is not None:
+        kpos = torch.arange(64, dtype=torch.int32, device=dev) + ring
+        qoff = [93, 93, 93, 93]
+    kw = dict(window=0, prefix_len=0, k_positions=kpos,
+              q_offset=torch.tensor(qoff, dtype=torch.int32, device=dev))
+    torch.testing.assert_close(t_fa.flash_decode(q, k, v, **kw),
+                               tref.attention(q, k, v, **kw),
+                               rtol=PROD_TOL, atol=PROD_TOL)
+
+
+def test_whisper_generate_on_card_launches_kernels_and_matches_cpu(dev):
+    """whisper-smoke's one-shot generate on the card: the prefill runs an
+    attention forward a layer of the encoder and two a decoder layer (self,
+    cross), a decode step L flash_decode and L cross forwards, with a ring
+    window too; greedy tokens equal the CPU's on the same weights and
+    frames."""
+    from repro_torch.launch import serve as tserve
+    cfg = TR.get_smoke_config("whisper-base")
+    card = W.ServingWeights.from_seed(cfg, 0, device=dev)
+    host = card.spec.unflatten({b: t.cpu() for b, t in card.bufs.items()})
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (2, 6))
+    frames = tserve.audio_frames(cfg, 2, "cpu")
+    L, new = cfg.n_layers, 40
+    for window in (0, 16):
+        ops.reset_launch_counts()
+        got = tserve.generate(cfg, card.as_tree(), prompts, gen_len=new,
+                              window_override=window, extra=frames)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        assert counts == {"flash_attention_fwd":
+                          cfg.n_enc_layers + 2 * L + L * new,
+                          "flash_decode": L * new}
+        want = tserve.generate(cfg, host, prompts, gen_len=new,
+                               window_override=window, extra=frames)
+        assert torch.equal(got.cpu(), want)

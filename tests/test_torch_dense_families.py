@@ -51,7 +51,6 @@ from repro_torch.configs.base import RunConfig as TRun
 from repro_torch.core import engine as teng
 from repro_torch.core import schedules as tsched
 from repro_torch.data import synthetic as tsyn
-from repro_torch.errors import ConfigError
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
@@ -383,7 +382,7 @@ def test_engine_five_qsr_rounds_match_jax(arch):
 def test_vlm_train_batches_carry_the_image_prefix():
     """The port's own draw (not the reference's bits): [W, B, P, D] fp32,
     0.02 · normal, a function of the step alone; the tokens are the dense
-    batch's; audio still raises."""
+    batch's, as are an audio batch's beside its frames."""
     cfg = TR.get_smoke_config("paligemma-3b")
     stream = tsyn.TokenStream(vocab=cfg.vocab)
     a = tsyn.make_train_batch(cfg, stream, 3, 2, 4, 8)
@@ -401,9 +400,12 @@ def test_vlm_train_batches_carry_the_image_prefix():
                                   stream, 3, 2, 4, 8)
     assert torch.equal(dense["tokens"], a["tokens"])
     assert torch.equal(dense["labels"], a["labels"])
-    with pytest.raises(ConfigError, match="not ported yet"):
-        tsyn.make_train_batch(dataclasses.replace(cfg, family="audio"),
-                              stream, 0, 2, 2, 4)
+    audio = tsyn.make_train_batch(
+        dataclasses.replace(cfg, family="audio", enc_seq=6), stream, 3, 2, 4,
+        8)
+    assert set(audio) == {"tokens", "labels", "frames"}
+    assert audio["frames"].shape == (2, 4, 6, cfg.d_model)
+    assert torch.equal(audio["tokens"], a["tokens"])
 
 
 # ------------------------------------------------------------------ CLIs --
@@ -425,13 +427,18 @@ def test_serve_cli_one_shot_generate(arch):
     assert torch.equal(toks, want)
 
 
-def test_serve_cli_slots_serves_a_vlm_text_only():
-    """The service loop carries no per-request prefix: a VLM's requests
-    are served as text, as the reference's ContinuousBatcher serves them."""
-    audit = tserve.main(["--smoke", "--device", "cpu", "--arch",
-                         "paligemma-3b", "--slots", "2", "--batch", "3",
-                         "--prompt-len", "4", "--gen", "3"])
-    assert audit["family"] == "vlm" and audit["tokens_emitted"] == 9
+@pytest.mark.parametrize("arch", ["paligemma-3b", "whisper-base",
+                                  "vit-b16"])
+def test_serve_cli_slots_refuses_families_with_extras(arch):
+    """The service loop carries no per-request extras (an image prefix,
+    audio frames, images): `--slots` refuses the vlm, audio and vision
+    families with the reference's message, before it builds weights."""
+    family = TR.get_smoke_config(arch).family
+    with pytest.raises(SystemExit, match=f"--slots serves decoder families; "
+                       f"{family} prompts need per-request extras"):
+        tserve.main(["--smoke", "--device", "cpu", "--arch", arch,
+                     "--slots", "2", "--batch", "3", "--prompt-len", "4",
+                     "--gen", "3"])
 
 
 CLI = ["--smoke", "--device", "cpu", "--steps", "6", "--workers", "2",

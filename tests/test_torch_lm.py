@@ -146,14 +146,19 @@ def test_token_stream_batches_are_bitwise_jax(step, worker, batch, seq):
 
 
 def test_unported_batch_families_raise():
-    """audio batches still raise; a vlm batch is the dense one with the
-    image prefix beside it (`test_torch_dense_families.py` holds its
-    draw)."""
+    """Named for what it pinned when audio batches raised.  An audio batch
+    is the dense one with stub `frames` [W, B, enc_seq, D] beside it, and a
+    vlm batch the dense one with the image prefix
+    (`test_torch_dense_families.py` and `test_torch_whisper.py` hold their
+    draws)."""
     ts = tsyn.TokenStream(vocab=16)
     base = TR.get_smoke_config("starcoder2-3b")
-    with pytest.raises(ConfigError, match="not ported yet"):
-        tsyn.make_train_batch(dataclasses.replace(base, family="audio"), ts,
-                              0, 2, 2, 4)
+    audio = dataclasses.replace(base, family="audio", enc_seq=5)
+    got = tsyn.make_train_batch(audio, ts, 0, 2, 2, 4)
+    want = tsyn.make_train_batch(base, ts, 0, 2, 2, 4)
+    assert set(got) == {"tokens", "labels", "frames"}
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    assert got["frames"].shape == (2, 2, 5, base.d_model)
     vlm = dataclasses.replace(base, family="vlm", n_img_tokens=3)
     got = tsyn.make_train_batch(vlm, ts, 0, 2, 2, 4)
     want = tsyn.make_train_batch(base, ts, 0, 2, 2, 4)
@@ -304,16 +309,21 @@ def test_generate_greedy_tokens_equal_jax(setup):
 
 
 def test_generate_samples_and_refuses_the_ring(setup):
+    """Named for what it pinned when the ring cache raised.  Sampling is
+    deterministic under a seed, on the full cache and on a ring window past
+    its wrap (69 positions: past both smoke configs' ring caches, gemma3's
+    32 rows and starcoder2's 64); a cache too short without a ring raises.
+    `test_torch_serving.py` holds the ring's greedy tokens against the JAX
+    package."""
     _, tcfg, _, npt = setup
     tp = tpm.from_numpy_tree(npt, "cpu")
     prompts, _ = _tokens(tcfg, 2, 5, seed=8)
-    a = tserve.generate(tcfg, tp, prompts, gen_len=6, temperature=0.8, seed=3)
-    b = tserve.generate(tcfg, tp, prompts, gen_len=6, temperature=0.8, seed=3)
-    assert torch.equal(a, b)
-    assert torch.equal(a[:, :5], torch.from_numpy(prompts))
-    assert int(a.max()) < tcfg.vocab and int(a.min()) >= 0
-    with pytest.raises(ConfigError, match="not ported yet"):
-        tserve.generate(tcfg, tp, prompts, gen_len=2, window_override=8)
+    for kw in ({"gen_len": 6}, {"gen_len": 64, "window_override": 8}):
+        a = tserve.generate(tcfg, tp, prompts, temperature=0.8, seed=3, **kw)
+        b = tserve.generate(tcfg, tp, prompts, temperature=0.8, seed=3, **kw)
+        assert torch.equal(a, b)
+        assert torch.equal(a[:, :5], torch.from_numpy(prompts))
+        assert int(a.max()) < tcfg.vocab and int(a.min()) >= 0
     with pytest.raises(ValueError, match="exceed the KV cache"):
         tserve.generate(tcfg, tp, prompts, gen_len=6, max_len=8)
 
@@ -323,8 +333,20 @@ def test_serve_cli_one_shot_generate():
                         "starcoder2-3b", "--batch", "2", "--prompt-len", "5",
                         "--gen", "4"])
     assert toks.shape == (2, 9)
-    with pytest.raises(ConfigError, match="not ported yet"):
-        tserve.main(["--smoke", "--device", "cpu", "--window", "8"])
+    cfg = TR.get_smoke_config("starcoder2-3b")
+    params = tserve.W.ServingWeights.from_seed(cfg, 0, device="cpu")
+    rng = np.random.default_rng(1)
+    prompts = np.stack([rng.integers(0, cfg.vocab, 5, dtype=np.int32)
+                        for _ in range(2)])
+    ring = tserve.main(["--smoke", "--device", "cpu", "--arch",
+                        "starcoder2-3b", "--batch", "2", "--prompt-len", "5",
+                        "--gen", "64", "--window", "8"])
+    want = tserve.generate(cfg, params.as_tree(), prompts, gen_len=64,
+                           window_override=8)
+    assert torch.equal(ring, want)
+    with pytest.raises(ConfigError, match="--window with --slots"):
+        tserve.main(["--smoke", "--device", "cpu", "--slots", "2",
+                     "--window", "8"])
 
 
 # ----------------------------------------------------- QSR engine rounds --
@@ -495,11 +517,22 @@ def test_serving_modules_leave_torch_dynamo_unloaded():
 
 
 def test_engine_refuses_device_data_and_points_to_host():
+    """Named for what it pinned when device data raised.  The engine's
+    default `data="device"` now draws its batches on the engine's device
+    (`device_batch_fn`) and trains; `tests/test_torch_device_data.py` holds
+    the draws."""
     cfg = TR.get_smoke_config("starcoder2-3b")
-    with pytest.raises(ConfigError, match="data='device': not ported yet"
-                       ".*pass data='host'"):
-        teng.RoundEngine(cfg, TRun(), workers=2, b_loc=2, seq=8,
-                         device="cpu")
+    run = TRun(**{**RUN, "total_steps": 4})
+    eng = teng.RoundEngine(cfg, run, workers=2, b_loc=2, seq=8,
+                           device="cpu")
+    assert eng.data == "device"
+    _, hist = ttrain.train(cfg, run, workers=2, b_loc=2, seq=8, eng=eng,
+                           log_every=0)
+    assert hist[-1][0] == 4
+    assert all(np.isfinite(loss) for _, _, loss, _ in hist)
+    with pytest.raises(ConfigError, match="batch_fn is a host-data source"):
+        teng.RoundEngine(cfg, run, workers=2, b_loc=2, seq=8,
+                         batch_fn=lambda step: {}, device="cpu")
 
 
 # ---------------------------------------------------------- training CLI --

@@ -12,12 +12,14 @@ rejoins the same stream.
 import json
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.configs import registry as JR
 from repro.launch import batching as jbatching
+from repro.launch import serve as jserve
 from repro.launch import weights as jweights
 from repro.models import api as japi
 from repro.models import param as jpm
@@ -28,6 +30,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import weights as W
 from repro_torch.launch.batching import ContinuousBatcher, Request
+from repro_torch.models import api as tapi
 from repro_torch.models import param as tpm
 from torch_one_thread import one_torch_thread  # noqa: F401
 
@@ -318,6 +321,71 @@ def test_serve_cli_on_cpu_with_swap_demo(tmp_path):
     assert json.loads(path.read_text())["decode_steps"] == \
         audit["decode_steps"]
     assert set(ops.launch_counts().values()) == {0}    # CPU: plain versions
-    with pytest.raises(ConfigError, match="not ported yet"):
+    # ragged positions do not run on a ring cache (in both packages'
+    # attn_apply): the service loop refuses --window, where the
+    # reference's ignores it
+    with pytest.raises(ConfigError, match="--window with --slots"):
         tserve.main(["--smoke", "--device", "cpu", "--slots", "2",
                      "--window", "8"])
+
+
+# ------------------------------------------------- ring-buffer serving --
+
+RING_ARCHS = ("gemma3-4b", "starcoder2-3b", "whisper-base")
+
+
+def _ring_setup(arch):
+    jcfg, tcfg = JR.get_smoke_config(arch), TR.get_smoke_config(arch)
+    jp = jpm.init_params(japi.get_module(jcfg).param_defs(jcfg),
+                         jax.random.PRNGKey(0))
+    extra = {}
+    if tcfg.family == "audio":
+        extra["frames"] = (0.1 * np.random.default_rng(3).standard_normal(
+            (2, tcfg.enc_seq, tcfg.d_model))).astype(np.float32)
+    return jcfg, tcfg, jp, _port(jax.tree.map(np.asarray, jp)), extra
+
+
+@pytest.mark.parametrize("window", [16, 8])
+@pytest.mark.parametrize("arch", RING_ARCHS)
+def test_ring_generate_equals_jax(arch, window):
+    """One-shot generate with `window_override`: 6 prompt + 70 new tokens
+    run past every smoke config's ring cache (gemma3's 32 rows, its local
+    window; starcoder2's 64; whisper's `window` rows), and the greedy
+    tokens equal the JAX package's."""
+    jcfg, tcfg, jp, tp, extra = _ring_setup(arch)
+    prompts = np.stack([_prompt(s, 6) for s in (1, 2)])
+    want = jserve.generate(jcfg, jp, jnp.asarray(prompts), gen_len=70,
+                           window_override=window,
+                           extra={k: jnp.asarray(v) for k, v in
+                                  extra.items()})
+    cache = tapi.get_module(tcfg).init_cache(
+        tcfg, 2, 76, device="cpu", window_override=window)
+    assert cache["k"].shape[2] < 76                  # a ring, not the stream
+    got = tserve.generate(tcfg, tp, prompts, gen_len=70,
+                          window_override=window, extra=extra)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_ring_tokens_differ_from_the_full_cache():
+    """gemma3-smoke at window 16: past its 32-row ring the global layer
+    sees only the last 32 positions, so the tokens part from the full
+    cache's."""
+    _, tcfg, _, tp, _ = _ring_setup("gemma3-4b")
+    prompts = np.stack([_prompt(s, 6) for s in (1, 2)])
+    ring = tserve.generate(tcfg, tp, prompts, gen_len=70, window_override=16)
+    full = tserve.generate(tcfg, tp, prompts, gen_len=70)
+    assert torch.equal(ring[:, :38], full[:, :38])   # before the wrap
+    assert not torch.equal(ring, full)
+
+
+@pytest.mark.parametrize("arch", RING_ARCHS)
+def test_ring_refuses_a_prompt_longer_than_the_ring(arch):
+    """The prefill writes the prompt whole from row 0: a prompt longer than
+    the ring cache raises, naming both lengths, and never writes out of
+    range."""
+    _, tcfg, _, tp, extra = _ring_setup(arch)
+    prompts = np.stack([_prompt(s, 70) for s in (1, 2)])
+    with pytest.raises(ValueError, match=r"prompt \(70\) \+ prefix \(0\) = "
+                       r"70 tokens exceed the ring KV cache length \d+"):
+        tserve.generate(tcfg, tp, prompts, gen_len=4, window_override=8,
+                        extra=extra)

@@ -335,9 +335,11 @@ def test_unported_training_options_raise():
                      (dict(adaptive_batch=True), "adaptive_batch")):
         with pytest.raises(ConfigError, match=f"{what}: not ported yet"):
             teng.RoundEngine(tcfg, run, **{**base, **kw})
-    with pytest.raises(ConfigError, match="data='device': not ported yet"):
-        teng.RoundEngine(TR.get_smoke_config("gemma3-4b"), run, workers=2,
-                         b_loc=2, seq=8, device="cpu")
+    # device data (the engine's default) is ported: an LM engine builds
+    # its on-device synthesizer (`tests/test_torch_device_data.py`)
+    lm = teng.RoundEngine(TR.get_smoke_config("gemma3-4b"), run, workers=2,
+                          b_loc=2, seq=8, device="cpu")
+    assert lm.data == "device" and lm._batch(0)["tokens"].shape == (2, 2, 8)
     with pytest.raises(ConfigError, match="need data='host'"):
         teng.RoundEngine(tcfg, run, workers=2, b_loc=2, seq=1, device="cpu")
     with pytest.raises(ConfigError, match="not ported yet"):
