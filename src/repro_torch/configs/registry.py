@@ -2,8 +2,9 @@
 
 Only the architectures the port runs so far are importable (the dense LMs
 gemma3-4b, starcoder2-3b, phi3-medium-14b and qwen1.5-110b, the VLM
-paligemma-3b, the encoder-decoder whisper-base, and vit-b16); every other
-id of the JAX package's registry raises `ConfigError("not ported yet")`.
+paligemma-3b, the encoder-decoder whisper-base, the SSM mamba2-130m, the
+hybrid zamba2-1.2b, and vit-b16); every other id of the JAX package's
+registry raises `ConfigError("not ported yet")`.
 """
 from __future__ import annotations
 
@@ -17,10 +18,12 @@ ARCHS: dict[str, str] = {"gemma3-4b": "gemma3_4b",
                          "phi3-medium-14b": "phi3_medium_14b",
                          "qwen1.5-110b": "qwen1p5_110b",
                          "paligemma-3b": "paligemma_3b",
-                         "whisper-base": "whisper_base", "vit-b16": "vit_b"}
+                         "whisper-base": "whisper_base",
+                         "mamba2-130m": "mamba2_130m",
+                         "zamba2-1.2b": "zamba2_1p2b", "vit-b16": "vit_b"}
 
 # ids the JAX package registers that this package does not cover yet
-NOT_PORTED = ("zamba2-1.2b", "mamba2-130m", "dbrx-132b", "kimi-k2-1t-a32b")
+NOT_PORTED = ("dbrx-132b", "kimi-k2-1t-a32b")
 
 
 def _mod(arch: str):

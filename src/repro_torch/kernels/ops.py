@@ -109,6 +109,12 @@ def swiglu(x, wg, wi):
     return ref.swiglu(x, wg, wi)
 
 
+# the plain AdamW runs on the CPU in chunks of this many elements, so its
+# dozen elementwise passes stay in cache (the same bits: each element's
+# arithmetic is its own); about twice as fast on a leaf of 1e8 elements
+CPU_ADAMW_CHUNK = 1 << 20
+
+
 def adamw_update(p, m, v, g, *, lr, beta1, beta2, eps, weight_decay, step):
     """Fused AdamW update for one tensor.  Returns (new_p, new_m, new_v): on
     CUDA the kernel updates p, m, v in place and returns them; on the CPU the
@@ -117,7 +123,20 @@ def adamw_update(p, m, v, g, *, lr, beta1, beta2, eps, weight_decay, step):
               weight_decay=weight_decay, step=step)
     if _on_cuda(p, "adamw_update"):
         return _ad.adamw_update(p, m, v, g, **kw)
-    return ref.adamw_update(p, m, v, g, **kw)
+    n = p.numel()
+    if n <= CPU_ADAMW_CHUNK or not all(
+            t.is_contiguous() and t.shape == p.shape for t in (m, v, g)):
+        return ref.adamw_update(p, m, v, g, **kw)
+    outs = (torch.empty_like(p), torch.empty(m.shape, dtype=torch.float32),
+            torch.empty(v.shape, dtype=torch.float32))
+    flat = [t.reshape(-1) for t in (p, m, v, g)]
+    out_flat = [t.view(-1) for t in outs]
+    for i in range(0, n, CPU_ADAMW_CHUNK):
+        part = ref.adamw_update(*(t[i:i + CPU_ADAMW_CHUNK] for t in flat),
+                                **kw)
+        for o, r in zip(out_flat, part):
+            o[i:i + CPU_ADAMW_CHUNK] = r
+    return outs
 
 
 def sync_flat_update(p, anchor, *, scale=None, mu=None, momentum: float = 0.0):

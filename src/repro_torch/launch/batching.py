@@ -33,6 +33,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from repro_torch.errors import ConfigError
 from repro_torch.launch.weights import ServingWeights, WeightSubscriber
 from repro_torch.models import api
 
@@ -54,12 +55,24 @@ def sample_generator(seed: int, rid: int, t: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(state[0]) & ((1 << 63) - 1))
 
 
+# why the service loop refuses the hybrid family (zamba2)
+HYBRID_SLOTS = (
+    "--slots: the hybrid family's decode step takes one position for the "
+    "whole batch; the reference's zamba2.decode_step builds positions "
+    "pos[None, None] and fails on the batcher's per-slot positions, so the "
+    "service loop refuses it; serve it one-shot (without --slots)")
+
+
 class ContinuousBatcher:
-    """Fixed `slots`-wide decode batch over a shared KV cache."""
+    """Fixed `slots`-wide decode batch over a shared KV cache (or an SSM's
+    recurrent state, which `api.zero_cache_slots` clears on admission).
+    Refuses the hybrid family (`HYBRID_SLOTS`)."""
 
     def __init__(self, cfg, params, *, slots: int, max_len: int,
                  temperature: float = 0.0, seed: int = 0,
                  subscriber: WeightSubscriber | None = None, device=None):
+        if cfg.family == "hybrid":
+            raise ConfigError(HYBRID_SLOTS)
         self.cfg = cfg
         self.mod = api.get_module(cfg)
         if isinstance(params, ServingWeights):       # carries its device

@@ -14,7 +14,9 @@ with weights drawn on the device from `--seed`.  In one-shot mode a VLM
 (paligemma-3b) gets a stub image prefix (`image_prefix`) and an audio
 model (whisper-base) stub frames (`audio_frames`); the service loop serves
 the decoder families only and refuses vlm, audio and vision configs, as
-the reference's does (the batcher carries no per-request extras).
+the reference's does (the batcher carries no per-request extras), and
+the hybrid family (zamba2), whose decode step takes one position for the
+whole batch (the reference's batcher fails on its first step there).
 `--smoke` takes the arch's smoke config, `--device cpu` runs the plain
 versions on the CPU (the default is CUDA, and no card is an error).
 With `--slots`: `--watch DIR` polls DIR between decode steps for weights
@@ -41,7 +43,8 @@ import torch
 from repro_torch.configs import registry as R
 from repro_torch.errors import ConfigError
 from repro_torch.launch import weights as W
-from repro_torch.launch.batching import ContinuousBatcher, Request
+from repro_torch.launch.batching import (HYBRID_SLOTS, ContinuousBatcher,
+                                         Request)
 from repro_torch.models import api
 
 
@@ -63,7 +66,14 @@ def generate(cfg, params, prompts, *, gen_len: int, max_len: int | None = None,
     fit it.  Greedy at temperature 0; above it, one categorical draw per
     row and step from a `torch.Generator` seeded with `seed` — the
     reference's distribution, not its samples (`jax.random` has no twin).
-    Runs without autograd."""
+    Runs without autograd.
+
+    The SSM families (mamba2, zamba2) prefill the prompt in SSD chunks of
+    `min(ssm_chunk, P)` tokens: a prompt of fewer than `ssm_conv - 1` (3)
+    tokens, or one longer than `ssm_chunk` (256 in the full configs) whose
+    length it does not divide, raises ShapeError before any layer runs.
+    mamba2's state has no sequence axis, so it takes no max_len or ring;
+    zamba2's shared block keeps a KV cache (`attn_k`) like a transformer's."""
     mod = api.get_module(cfg)
     dev = next(iter(params["embed"].values())).device
     prompts = torch.as_tensor(np.asarray(prompts), device=dev)
@@ -75,9 +85,12 @@ def generate(cfg, params, prompts, *, gen_len: int, max_len: int | None = None,
     max_len = max_len or need
     cache = mod.init_cache(cfg, b, max_len, device=dev,
                            window_override=window_override)
-    kv_len = cache["k"].shape[2]
-    ring = window_override > 0 and kv_len < max_len
-    if not ring and need > kv_len:
+    kv_len = None                # an SSM's state has no sequence axis
+    for key in ("k", "attn_k"):
+        if key in cache:
+            kv_len = cache[key].shape[2]
+    ring = window_override > 0 and kv_len is not None and kv_len < max_len
+    if not ring and kv_len is not None and need > kv_len:
         raise ValueError(
             f"prompt ({plen}) + prefix ({prefix_len}) + gen_len ({gen_len}) "
             f"= {need} tokens exceed the KV cache length {kv_len}; raise "
@@ -209,6 +222,8 @@ def main(argv=None):
         raise SystemExit(f"--slots serves decoder families; {cfg.family} "
                          "prompts need per-request extras the batcher does "
                          "not carry yet")
+    if args.slots > 0 and cfg.family == "hybrid":
+        raise SystemExit(HYBRID_SLOTS)
     weights = W.ServingWeights.from_seed(cfg, args.seed, device=args.device)
     rng = np.random.default_rng(args.seed + 1)
     prompts = [rng.integers(0, cfg.vocab, args.prompt_len, dtype=np.int32)

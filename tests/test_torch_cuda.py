@@ -1302,3 +1302,82 @@ def test_whisper_generate_on_card_launches_kernels_and_matches_cpu(dev):
         want = tserve.generate(cfg, host, prompts, gen_len=new,
                                window_override=window, extra=frames)
         assert torch.equal(got.cpu(), want)
+
+
+def _ssm_norms(cfg):
+    """rms_norm launches of one pass of mamba2 / zamba2: two a mamba layer
+    (its norm, the gated norm), two a use of zamba2's shared block, the
+    final norm; and the shared block's uses."""
+    uses = cfg.n_layers // cfg.shared_attn_period \
+        if cfg.family == "hybrid" else 0
+    return 2 * cfg.n_layers + 2 * uses + 1, uses
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b"])
+def test_ssm_generate_on_card_launches_kernels_and_matches_cpu(dev, arch):
+    """mamba2-smoke's and zamba2-smoke's one-shot generate on the card
+    (zamba2 also through a 16-row ring): every norm through rms_norm,
+    zamba2's shared block through flash_attention in the prefill and
+    flash_decode in a decode step; greedy tokens equal the CPU's on the
+    same weights."""
+    from repro_torch.launch import serve as tserve
+    cfg = TR.get_smoke_config(arch)
+    card = W.ServingWeights.from_seed(cfg, 0, device=dev)
+    host = card.spec.unflatten({b: t.cpu() for b, t in card.bufs.items()})
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab, (2, 16))
+    norms, uses = _ssm_norms(cfg)
+    new = 24
+    for window in ((0, 16) if uses else (0,)):
+        ops.reset_launch_counts()
+        got = tserve.generate(cfg, card.as_tree(), prompts, gen_len=new,
+                              window_override=window)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        want = {"rms_norm": norms * (new + 1)}
+        if uses:
+            want.update(flash_attention_fwd=uses, flash_decode=uses * new)
+        assert counts == want
+        assert torch.equal(got.cpu(), tserve.generate(
+            cfg, host, prompts, gen_len=new, window_override=window))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b"])
+def test_ssm_loss_and_grads_on_card_match_cpu(dev, arch):
+    """mamba2-smoke's and zamba2-smoke's loss and every gradient leaf on the
+    card (the norms through `_RmsNorm` and rms_norm_bwd, zamba2's attention
+    through the attention kernels) against the CPU's plain versions on the
+    same weights and tokens (two 16-token SSD chunks): the loss within
+    RMS_TOL, each leaf within GRAD_TOL of its largest |value| (at least
+    1)."""
+    from repro_torch.models import api, param as pm
+    cfg = TR.get_smoke_config(arch)
+    mod = api.get_module(cfg)
+    host = pm.init_params(mod.param_defs(cfg),
+                          torch.Generator().manual_seed(5))
+    rng = np.random.default_rng(6)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32)))
+             for k in ("tokens", "labels")}
+    norms, uses = _ssm_norms(cfg)
+
+    def loss_and_grads(device):
+        leaves, treedef = T.flatten(host)
+        alias = [x.to(device).requires_grad_(True) for x in leaves]
+        loss = mod.loss_fn(cfg, T.unflatten(treedef, alias),
+                           {k: v.to(device) for k, v in batch.items()},
+                           remat=False)
+        return loss, torch.autograd.grad(loss, alias)
+
+    ops.reset_launch_counts()
+    loss, grads = loss_and_grads(dev)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    want = {"rms_norm": norms, "rms_norm_bwd": norms}
+    if uses:
+        want.update(flash_attention_fwd=uses, flash_attention_bwd=uses)
+    assert counts == want
+    wloss, wgrads = loss_and_grads("cpu")
+    assert abs(float(loss) - float(wloss)) <= RMS_TOL * max(
+        abs(float(wloss)), 1.0)
+    for g, w in zip(grads, wgrads):
+        assert bool(torch.isfinite(g).all())
+        assert float((g.cpu() - w).abs().max()) <= GRAD_TOL * max(
+            float(w.abs().max()), 1.0)

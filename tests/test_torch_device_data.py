@@ -26,7 +26,8 @@ from torch_one_thread import one_torch_thread  # noqa: F401
 RUN = dict(schedule="qsr", optimizer="adamw", total_steps=6, peak_lr=3e-3,
            alpha=0.002, h_base=2, warmup_steps=1, remat=False)
 FAMILIES = {"starcoder2-3b": set(), "paligemma-3b": {"prefix_embeds"},
-            "whisper-base": {"frames"}}
+            "whisper-base": {"frames"}, "mamba2-130m": set(),
+            "zamba2-1.2b": set()}
 
 
 def _synth(arch, w=2, b=3, seq=8, seed=0):

@@ -394,3 +394,22 @@ def test_ops_rejects_devices_without_a_kernel():
     x = torch.zeros(2, 8, device="meta")
     with pytest.raises(ConfigError, match="no kernel for device"):
         ops.rms_norm(x, torch.ones(8, device="meta"))
+
+
+@pytest.mark.parametrize("n", [7, ops.CPU_ADAMW_CHUNK,
+                               2 * ops.CPU_ADAMW_CHUNK + 5])
+def test_cpu_adamw_in_chunks_is_bitwise_the_plain_version(n):
+    """On the CPU the dispatch seam runs the plain AdamW in chunks of
+    CPU_ADAMW_CHUNK elements (a leaf's passes then stay in cache): the same
+    bits, dtypes and shapes as one call over the whole leaf."""
+    rng = np.random.default_rng(n)
+    shape = (2, (n + 1) // 2)
+    p, m, g = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               for _ in range(3))
+    v = torch.from_numpy(rng.random(shape).astype(np.float32)) * 1e-3
+    kw = dict(lr=torch.tensor(3e-3), beta1=0.9, beta2=0.999, eps=1e-8,
+              weight_decay=0.01, step=torch.tensor(3.0))
+    for got, want in zip(ops.adamw_update(p, m, v, g, **kw),
+                         tref.adamw_update(p, m, v, g, **kw)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got, want)

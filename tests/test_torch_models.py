@@ -51,7 +51,7 @@ def test_configs_match_the_jax_package():
 
 def test_unported_archs_raise():
     with pytest.raises(ConfigError, match="not ported yet"):
-        TR.get_config("mamba2-130m")
+        TR.get_config("dbrx-132b")
     with pytest.raises(ConfigError, match="unknown arch"):
         TR.get_config("no-such-arch")
     assert set(TR.NOT_PORTED) | set(TR.ARCHS) == set(JR.ARCHS)
