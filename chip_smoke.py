@@ -20,7 +20,10 @@ image prefix; `flash_attention` and `flash_decode` also at whisper-base's
 shapes: its encoder over 1500 frames, its decoder, its cross-attention
 from a prompt and from one decode row; `flash_decode` on gemma3-4b's
 1024-row ring; `rms_norm` and `rms_norm_bwd` at mamba2-130m's and
-zamba2-1.2b's widths, the attention kernels at zamba2's 32 heads of 64).
+zamba2-1.2b's widths, the attention kernels at zamba2's 32 heads of 64;
+`flash_decode` and `flash_attention` at dbrx-132b's G = 6 and kimi-k2's
+G = 8, `rms_norm`, `rms_norm_bwd`, `swiglu` and `swiglu_bwd` at kimi-k2's
+d = 7168 and its shared expert's [., 7168] x [7168, 2048]).
 Then it drives both of the port's paths on the card:
 
 * serving: gemma3-4b at full width (random weights drawn on the card from
@@ -47,7 +50,12 @@ Then it drives both of the port's paths on the card:
   zamba2-1.2b (the hybrid family) at all 38 layers one-shot, flat and at
   `--window 64` past the wrap (`--slots` refused), each with a timed 4 x
   1024 prefill and its card against the CPU (mamba2 at 2 layers, zamba2
-  at 8, flat and through a ring);
+  at 8, flat and through a ring); the MoE family: dbrx-132b at full width
+  and 4 of its 40 layers (all 16 experts), kimi-k2-1t at 1 of its 61
+  layers with 128 of its 384 experts, each through the same loop and
+  `generate` (equal tokens) with a timed 4 x 1024 prefill, and each held
+  against the CPU at 1 layer (kimi with 16 experts) with the card's
+  plain versions beside the kernels;
 * training: ViT-B/16 at full width with Local AdamW under the QSR schedule
   through `train()` (W = 4 workers, 32 images each, 10 rounds), the flat
   layout with the quantized sync for 2 rounds, and the card against the
@@ -80,6 +88,9 @@ Then it drives both of the port's paths on the card:
   seed draw the same batches); mamba2-130m at full depth (W = 4 x 4 x
   1024) and zamba2-1.2b at 8 layers (W = 4 x 1 x 1024) through the
   rms_norm backward kernel, each with its card against the CPU;
+  kimi-k2-1t at 1 layer and 16 experts (W = 1 x 1 x 1024, remat): the
+  MoE backward and its aux loss, held against the card's plain versions
+  (its 51.7 GB state has no CPU side);
 * checkpoints: ViT-B/16's W = 4 state saved in the tree layout after 2
   rounds and resumed in the flat layout, bitwise the run without the
   checkpoint, with save and restore rates; and train to serve: starcoder2-3b
@@ -105,6 +116,7 @@ import dataclasses
 import gc
 import importlib.util
 import json
+import math
 import os
 import re
 import shutil
@@ -317,6 +329,36 @@ Z2_ATTN = {
     "train": "zamba2-1.2b train q[1,1024,32,64] kv[.,.,32,.] causal",
     "prefill": (f"zamba2-1.2b prefill q[4,1024,32,64] "
                 f"kv[4,{SSM_PREFILL_CACHE},32,64] causal")}
+# the MoE family at full width: dbrx-132b (16 experts, top-4, layernorm,
+# 48 query heads over 8 kv heads: G = 6) served at DBRX_LAYERS of its 40
+# layers (57.1 GB of fp32 weights: 13.0 GB a layer, 4.9 GB of embedding
+# and untied head); kimi-k2-1t-a32b (384 experts, top-8, one shared
+# expert, RMSNorm at d = 7168, G = 8) served at 1 of its 61 layers with
+# KIMI_SERVE_EXPERTS of its 384 experts (32.7 GB; one layer with all 384
+# is 77.8 GB, which leaves ~7 GB of the card for everything else) and
+# trained at 1 layer with KIMI_TRAIN_EXPERTS, W = 1 x 1 x 1024, remat
+# (3.23 G parameters x 16 B of params, m, v and grad = 51.7 GB); their
+# card-vs-CPU gates at 1 layer (kimi with KIMI_TRAIN_EXPERTS experts).
+# Parameters by depth (dbrx) and by experts at 1 layer (kimi); kimi's
+# tree leaves (AdamW launches a step)
+DBRX_ARCH, KIMI_ARCH = "dbrx-132b", "kimi-k2-1t-a32b"
+DBRX_LAYERS, KIMI_SERVE_EXPERTS, KIMI_TRAIN_EXPERTS = 4, 128, 16
+DBRX_PARAMS = {1: 4_492_234_752, 4: 14_269_526_016}
+KIMI_PARAMS = {128: 8_163_054_592, 16: 3_229_750_272}
+KIMI_LEAVES, KIMI_D, KIMI_F = 16, 7168, 2048
+# an MoE model's one-shot generate: 2 prompts x 4 tokens, so that its
+# prefill's 8 tokens fit the capacity's floor of 8 rows an expert and drop
+# no pick, as no decode step of the --slots 2 service (2 tokens) does: the
+# two paths then emit the same tokens by the semantics.  (A prefill of
+# more tokens sizes its capacity to them, ceil(T k 1.25 / E), and can drop
+# picks the one-token-a-step service keeps.)
+MOE_GEN = (2, 4)
+# card against CPU: a prefill of 2 x 32 tokens, then 4 greedy decode steps
+MOE_CPU_B, MOE_CPU_PROMPT, MOE_CPU_STEPS = 2, 32, 4
+DBRX_PREFILL_ATTN = ("dbrx-132b prefill q[4,1024,48,128] kv[.,.,8,.] "
+                     "causal")
+KIMI_ATTN = tuple(f"kimi-k2-1t-a32b {what} q[{b},1024,64,128] kv[.,.,8,.] "
+                  "causal" for what, b in (("train", 1), ("prefill", 4)))
 # prefill's last-position logits against the prompt fed through
 # decode_step, x max(|logits|, 1): fp32 sums in another order in every
 # product (the full-sequence attention kernel in 3xTF32 against the decode
@@ -424,6 +466,12 @@ SSM_NORM_ROWS = ((PREFILL_B * PREFILL_LEN, 1536),
                  (PREFILL_B * PREFILL_LEN, 4096), (SLOTS, 768), (SLOTS, 2048))
 
 
+# kimi-k2's d = 7168 (staged) at its decode step's 2 rows, a training
+# lane's 1024 and a 4 x 1024 prefill
+KIMI_NORM_ROWS = ((SLOTS, KIMI_D), (BWD_ROWS, KIMI_D),
+                  (PREFILL_B * PREFILL_LEN, KIMI_D))
+
+
 def kernel_cases(torch, main_len: int):
     """(kernel, label, inputs dict, is_main_path_shape, timed).  Shapes are
     gemma3-4b's: D 2560, F 10240, Hq 8, Hkv 4, head_dim 256."""
@@ -449,7 +497,7 @@ def kernel_cases(torch, main_len: int):
     # prefill's 4096; qwen1.5-110b's 8192 at 1024 and 4096
     for n, dd in ((SLOTS, PHI3_D), (BWD_ROWS, PHI3_D),
                   (PREFILL_B * PREFILL_LEN, PHI3_D), (BWD_ROWS, QWEN_D),
-                  (PREFILL_B * PREFILL_LEN, QWEN_D)) + SSM_NORM_ROWS:
+                  (PREFILL_B * PREFILL_LEN, QWEN_D)) + SSM_NORM_ROWS + KIMI_NORM_ROWS:
         cases.append(("rms_norm", f"[{n},{dd}]",
                       dict(x=rnd(n, dd), scale=rnd(dd)), False, True))
 
@@ -533,6 +581,11 @@ def kernel_cases(torch, main_len: int):
        arch="zamba2-1.2b ")
     fd(Z2_RING_B, Z2_RING_WINDOW, window=0, ring=True, heads=(32, 32, 64),
        arch="zamba2-1.2b ", note=" (the --window ring)")
+    # the MoE family's decode steps: dbrx-132b's G = 6 (the G = 8 instance
+    # with g = 6) and kimi-k2's G = 8, D = 128, at the serving step
+    fd(SLOTS, main_len, window=0, heads=(48, 8, 128), arch="dbrx-132b ")
+    fd(SLOTS, main_len, window=0, heads=(64, 8, 128),
+       arch="kimi-k2-1t-a32b ")
     # swiglu's tile path (from 9 rows): prefills of 16 to 128 rows, timed;
     # edges one past a tile (9, 129, 4097 rows), and D = 98, a k-tail that
     # is neither a multiple of the 32-wide chunk nor of 4
@@ -547,6 +600,10 @@ def kernel_cases(torch, main_len: int):
     sw(SLOTS, PHI3_D, 17920)
     sw(BWD_ROWS, PHI3_D, 17920)
     sw(SLOTS, QWEN_D, 49152)
+    # kimi-k2's shared expert at its decode step, a training lane's rows
+    # and a 4 x 1024 prefill
+    for n in (SLOTS, BWD_ROWS, PREFILL_B * PREFILL_LEN):
+        sw(n, KIMI_D, KIMI_F)
     return cases
 
 
@@ -814,6 +871,12 @@ def attention_cases(rnd):
         fa(Z2_ATTN["train"], 1, LM_SEQ, LM_SEQ, 32, 1, 64, True, timed=True),
         fa(Z2_ATTN["prefill"], PREFILL_B, PREFILL_LEN, SSM_PREFILL_CACHE, 32,
            1, 64, True, timed=True),
+        # the MoE family: dbrx-132b's prefill (G = 6), kimi-k2's training
+        # lane and prefill (G = 8), D = 128
+        fa(DBRX_PREFILL_ATTN, PREFILL_B, PREFILL_LEN, PREFILL_LEN, 8, 6, 128,
+           True, timed=True),
+        *(fa(label, b, LM_SEQ, LM_SEQ, 8, 8, 128, True, timed=True)
+          for label, b in zip(KIMI_ATTN, (1, PREFILL_B))),
     ]
 
 
@@ -1210,7 +1273,8 @@ def phase_backward_kernels(torch):
     for n, d, main in ((BWD_ROWS, 2560, True), (BWD_ROWS, PHI3_D, False),
                        (BWD_ROWS, QWEN_D, False),
                        (M2_B * LM_SEQ, 1536, False), (Z2_B * LM_SEQ, 4096,
-                                                      False)):
+                                                      False),
+                       (BWD_ROWS, KIMI_D, False)):
         x, sc, dy = rnd(n, d), rnd(d), rnd(n, d)
         dx, ds = _rn.rms_norm_bwd(x, sc, dy)
         dx2, ds2 = _rn.rms_norm_bwd(x, sc, dy)
@@ -1260,6 +1324,10 @@ def phase_backward_kernels(torch):
         if k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
                  "bound_fp32_ms", "gate_ms", "dw_ms", "dx_ms",
                  "max_abs_err")}
+    # kimi-k2's shared expert at a training lane's rows
+    row = swiglu_bwd_row(torch, timer, rnd, BWD_ROWS, KIMI_D, KIMI_F,
+                         main=False)
+    rows["swiglu_bwd", row["shape"]] = row
     torch.cuda.empty_cache()
     return summary, rows
 
@@ -1559,9 +1627,10 @@ def norms_per_pass(cfg) -> int:
 def decode_launches(cfg) -> dict:
     """Kernel launches of one decode step of `cfg`: flash_decode once a
     layer, and an RMSNorm model's rms_norm twice a layer and once for the
-    final norm, a SwiGLU model's swiglu once a layer; an SSM's rms_norm
-    `norms_per_pass`, zamba2's flash_decode once a use of its shared
-    block."""
+    final norm, a SwiGLU model's swiglu once a layer (an MoE model's only
+    for its shared expert: the routed experts are batched products); an
+    SSM's rms_norm `norms_per_pass`, zamba2's flash_decode once a use of
+    its shared block."""
     if cfg.family in ("ssm", "hybrid"):
         out = dict(rms_norm=norms_per_pass(cfg))
         if ssm_uses(cfg):
@@ -1571,7 +1640,7 @@ def decode_launches(cfg) -> dict:
     out = dict(flash_decode=n_l)
     if cfg.norm == "rmsnorm":
         out["rms_norm"] = 2 * n_l + 1
-    if cfg.act == "swiglu":
+    if cfg.act == "swiglu" and (cfg.n_shared_experts or not cfg.n_experts):
         out["swiglu"] = n_l
     return out
 
@@ -1635,15 +1704,17 @@ def phase_service_qwen(torch, np):
         "card's 80 GB")
 
 
-def service_path(torch, np, phase, cfg, n_params, depth=None):
+def service_path(torch, np, phase, cfg, n_params, depth=None,
+                 gen=(GEN_B, GEN_PLEN), then=None):
     """`cfg` at full width (random weights from seed 0 on the card; a QKV
     bias model's biases random too) through the continuous-batching loop:
     2 slots, the 4 requests of PROMPT_LENS, MAX_NEW new tokens each, with
     the launch counts at 0 just before and read just after; then one-shot
-    `generate` of GEN_B prompts, its tokens equal to the `--slots 2`
-    service's; then the device time of one decode step (a CUDA graph)
-    beside its bytes floor, its launches (`decode_launches`) and its
-    kernels by name.  Returns (the service's counts, generate's
+    `generate` of `gen` = (prompts, prompt tokens), its tokens equal to the
+    `--slots 2` service's; then the device time of one decode step (a CUDA
+    graph) beside its bytes floor, its launches (`decode_launches`) and
+    its kernels by name.  `then(weights)`, when given, runs after the
+    line, on the same weights.  Returns (the service's counts, generate's
     counts)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import weights as W
@@ -1680,7 +1751,8 @@ def service_path(torch, np, phase, cfg, n_params, depth=None):
     check(counts == want, f"{phase}: launches {counts} != {want}")
 
     rng = np.random.default_rng(13)
-    gp = rng.integers(0, cfg.vocab, (GEN_B, GEN_PLEN), dtype=np.int32)
+    gen_b, gen_plen = gen
+    gp = rng.integers(0, cfg.vocab, (gen_b, gen_plen), dtype=np.int32)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     toks = generate(cfg, weights.as_tree(), gp, gen_len=GEN_NEW)
@@ -1691,11 +1763,11 @@ def service_path(torch, np, phase, cfg, n_params, depth=None):
     want.update(generate_launches(cfg, GEN_NEW))
     check(gen_counts == want, f"{phase} generate: launches {gen_counts} != "
           f"{want}")
-    got = toks[:, GEN_PLEN:].cpu().tolist()
-    check(tuple(toks.shape) == (GEN_B, GEN_PLEN + GEN_NEW),
+    got = toks[:, gen_plen:].cpu().tolist()
+    check(tuple(toks.shape) == (gen_b, gen_plen + GEN_NEW),
           f"{phase} generate: tokens of shape {tuple(toks.shape)}")
     sreqs, _ = run_service(cfg, weights, list(gp), slots=SLOTS,
-                           max_new=GEN_NEW, max_len=GEN_PLEN + GEN_NEW)
+                           max_new=GEN_NEW, max_len=gen_plen + GEN_NEW)
     for r in sreqs:
         check(r.out == got[r.rid], f"{phase} generate row {r.rid}: "
               f"{got[r.rid]} != the --slots {SLOTS} service's {r.out}")
@@ -1729,6 +1801,13 @@ def service_path(torch, np, phase, cfg, n_params, depth=None):
     floor_ms = (step_w_bytes + kv_bytes) / PEAK_BYTES_PER_S * 1e3
     tokens = audit["tokens_emitted"]
     extra = {} if depth is None else {"depth": depth}
+    if cfg.n_experts:
+        # every expert runs on every decode step (a capacity of at least 8
+        # rows an expert): the floor above counts every expert's weights
+        extra.update(experts=cfg.n_experts, top_k=cfg.top_k,
+                     shared_experts=cfg.n_shared_experts,
+                     capacity_factor=cfg.capacity_factor,
+                     decode_capacity=moe_capacity(cfg, SLOTS))
     emit(phase, arch=cfg.name, layers=n_l,
          d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
          head_dim=cfg.hd, qkv_bias=cfg.qkv_bias,
@@ -1743,11 +1822,15 @@ def service_path(torch, np, phase, cfg, n_params, depth=None):
          step_bytes=step_w_bytes + kv_bytes, floor_ms_datasheet=floor_ms,
          floor_share=floor_ms / device_ms, launches=counts,
          launches_per_step=step_counts, profiled_step=prof,
+         generate_prompts=gen_b, generate_prompt_len=gen_plen,
          generate_wall_s=gen_wall,
-         generate_tokens_per_s=GEN_B * GEN_NEW / gen_wall,
+         generate_tokens_per_s=gen_b * GEN_NEW / gen_wall,
          generate_launches=gen_counts, generate_equals_slots_service=True,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, **extra)
-    del weights, reqs, sreqs, toks
+    del reqs, sreqs, toks
+    if then is not None:
+        then(weights)
+    del weights
     torch.cuda.empty_cache()
     return counts, gen_counts
 
@@ -2540,25 +2623,26 @@ def profile_device_ms(torch, fn, top: int = 12, by_op: bool = False,
     return out
 
 
-def lm_setup(n_layers, arch=LM_ARCH, **run_overrides):
+def lm_setup(n_layers, arch=LM_ARCH, cut=None, **run_overrides):
     """(cfg, run config) of the LM recipe: `arch` (starcoder2-3b by
     default) at full width cut to `n_layers` decoder layers (None: the
-    full depth)."""
+    full depth) and by `cut`'s other fields (kimi-k2's experts)."""
     from repro_torch.configs import registry as R
     from repro_torch.configs.base import RunConfig
     cfg = R.get_config(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    cfg = dataclasses.replace(cfg, **(cut or {}))
     return cfg, RunConfig(**{**LM_RUN, **run_overrides})
 
 
 def lm_engine(*, n_layers, workers, b_loc, seq, arch=LM_ARCH, data="host",
-              **run_overrides):
+              cut=None, **run_overrides):
     """(cfg, run config, engine on the card) of the LM recipe, the engine
     drawing from its built-in token stream on the host (`data="host"`)
     or on the card (`data="device"`)."""
     from repro_torch.core.engine import RoundEngine
-    cfg, run = lm_setup(n_layers, arch, **run_overrides)
+    cfg, run = lm_setup(n_layers, arch, cut, **run_overrides)
     eng = RoundEngine(cfg, run, workers=workers, b_loc=b_loc, seq=seq,
                       data=data)
     return cfg, run, eng
@@ -2686,7 +2770,8 @@ def train_rms_swiglu(torch, np, phase, arch, w, n_params, leaves,
 
 
 def train_lm_path(torch, np, phase, arch, w, b, seq, n_params, launches,
-                  kernel_calls=None, n_layers=2, data="host", depth=None):
+                  kernel_calls=None, n_layers=2, data="host", depth=None,
+                  cut=None, **run_overrides):
     """`arch` at full width cut to `n_layers` layers (None: full depth)
     through `train()` (W = w x b sequences of `seq` tokens, LM_STEPS steps
     of the LM recipe, batches drawn on the host or on the card by `data`),
@@ -2699,7 +2784,8 @@ def train_lm_path(torch, np, phase, arch, w, b, seq, n_params, launches,
     (the counts, the phase's line)."""
     t_phase = time.perf_counter()
     cfg, run, eng = lm_engine(n_layers=n_layers, workers=w, b_loc=b,
-                              seq=seq, arch=arch, data=data)
+                              seq=seq, arch=arch, data=data, cut=cut,
+                              **run_overrides)
     state, rounds, counts, wall, peak_gb = run_lm(
         torch, np, phase, cfg, run, eng, LM_TRACE, n_params)
     data_s = eng.data_seconds
@@ -2741,6 +2827,8 @@ def train_lm_path(torch, np, phase, arch, w, b, seq, n_params, launches,
         flops = 3.0 * whisper_forward_flops(cfg, w * b, seq)
     elif cfg.family in ("ssm", "hybrid"):
         flops = 3.0 * ssm_forward_flops(cfg, w * b, seq)
+    elif cfg.n_experts:
+        flops = 3.0 * moe_forward_flops(cfg, w * b, seq)
     else:
         flops = 3.0 * lm_forward_flops(cfg, w * b, prefix + seq,
                                        unembed_rows=tokens)
@@ -2748,7 +2836,8 @@ def train_lm_path(torch, np, phase, arch, w, b, seq, n_params, launches,
     row = dict(
         arch=cfg.name, layers=cfg.n_layers, enc_layers=cfg.n_enc_layers,
         d_model=cfg.d_model, params=n_params, workers=w, b_loc=b, seq=seq,
-        prefix_len=prefix, steps=LM_STEPS, data=data, rounds=len(rounds),
+        prefix_len=prefix, steps=LM_STEPS, data=data, remat=run.remat,
+        rounds=len(rounds),
         h_trace=eng.h_trace, layout="tree", sync="blocking", wall_s=wall,
         wall_ms_per_step=wall_ms, data_ms_per_step=data_s / LM_STEPS * 1e3,
         batch_on_card_ms=sorted(batch_ms)[1], device_ms_per_step=device_ms,
@@ -3994,6 +4083,410 @@ def phase_train_zamba2(torch, np):
         "block, the tail of 2")[0]
 
 
+# ---------------------------------------------------------- MoE family ------
+
+def moe_capacity(cfg, n_tokens: int) -> int:
+    """Rows of each expert's buffer for `n_tokens` tokens
+    (`models/moe.py capacity`)."""
+    from repro_torch.models import moe
+    return moe.capacity(cfg, n_tokens)
+
+
+def moe_forward_flops(cfg, seqs: int, seq: int,
+                      unembed_rows: int | None = None) -> float:
+    """Matmul + attention FLOPs of an MoE model's forward over `seqs`
+    sequences of `seq` tokens: the attention products and pairs and the
+    unembedding as `lm_forward_flops`; a layer's router, its experts' three
+    products over their whole capacity buffer (E x capacity(T) rows, every
+    row computed whether a pick fills it or not, as the reference's
+    einsums do) and its shared expert's over every token."""
+    t = seqs * seq
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    moe = (2.0 * t * d * e + 6.0 * e * moe_capacity(cfg, t) * d * f
+           + 6.0 * t * d * f * cfg.n_shared_experts)
+    return (lm_forward_flops(dataclasses.replace(cfg, d_ff=0), seqs, seq,
+                             unembed_rows) + cfg.n_layers * moe)
+
+
+def moe_prefill(torch, np, phase, cfg, weights, rows):
+    """A timed prefill of PREFILL_B x PREFILL_LEN tokens on `weights`: its
+    device ms (CUDA events, after a warm-up), launches (attention once a
+    layer; an RMSNorm model's rms_norm and the shared expert's swiglu),
+    kernels by name (torch.profiler) and the kernel rows' times at its
+    shapes, beside its FLOP floor (the experts on their capacity rows)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    t_phase = time.perf_counter()
+    mod = api.get_module(cfg)
+    tree = weights.as_tree()
+    n_l, t = cfg.n_layers, PREFILL_B * PREFILL_LEN
+    rng = np.random.default_rng(17)
+    pt = torch.from_numpy(rng.integers(0, cfg.vocab, (PREFILL_B, PREFILL_LEN),
+                                       dtype=np.int32)).cuda()
+    cache = mod.init_cache(cfg, PREFILL_B, PREFILL_LEN, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        mod.prefill(cfg, tree, pt, cache)      # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        logits, _ = mod.prefill(cfg, tree, pt, cache)
+        ev[1].record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        prof = profile_device_ms(torch,
+                                 lambda: mod.prefill(cfg, tree, pt, cache))
+    device_ms = ev[0].elapsed_time(ev[1])
+    check(bool(torch.isfinite(logits).all()) and tuple(logits.shape)
+          == (PREFILL_B, cfg.vocab), f"{phase}: logits {tuple(logits.shape)}")
+    # a decode step's norms and shared expert, on every row
+    want = {k: v for k, v in decode_launches(cfg).items()
+            if k != "flash_decode"}
+    want["flash_attention_fwd"] = n_l
+    check(counts == want, f"{phase}: launches {counts} != {want}")
+    rows_ms = dict(flash_attention_fwd=n_l * rows[
+        "flash_attention_fwd", DBRX_PREFILL_ATTN if cfg.name == DBRX_ARCH
+        else KIMI_ATTN[1]]["ms"])
+    if "rms_norm" in want:
+        rows_ms["rms_norm"] = 2 * n_l * rows[
+            "rms_norm", f"[{t},{cfg.d_model}]"]["ms"]
+    if "swiglu" in want:
+        rows_ms["swiglu"] = n_l * rows[
+            "swiglu", f"[{t},{cfg.d_model}]x[{cfg.d_model},{cfg.d_ff}]"]["ms"]
+    flop = moe_forward_flops(cfg, PREFILL_B, PREFILL_LEN,
+                             unembed_rows=PREFILL_B)
+    emit(phase, arch=cfg.name, layers=n_l, experts=cfg.n_experts,
+         top_k=cfg.top_k, batch=PREFILL_B, prompt_len=PREFILL_LEN,
+         capacity_rows_per_expert=moe_capacity(cfg, t),
+         wall_ms=wall_ms, device_ms=device_ms,
+         tokens_per_s=t / wall_ms * 1e3, launches=counts, profiled=prof,
+         kernel_rows_ms_x_launches=rows_ms, flop=flop,
+         flop_floor_ms=flop / PEAK_FP32_FLOP_PER_S * 1e3,
+         achieved_tflop_s=flop / device_ms / 1e9,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         seconds=time.perf_counter() - t_phase)
+    del cache, pt, logits
+    torch.cuda.empty_cache()
+
+
+def phase_service_dbrx(torch, np, rows):
+    """dbrx-132b at full width (16 experts, top-4, capacity factor 1.25)
+    cut to DBRX_LAYERS of its 40 layers (57.1 GB of fp32 weights) through
+    `service_path`: per decode step flash_decode once a layer (G = 6), no
+    rms_norm (layernorm) and no swiglu (the experts are batched products);
+    one-shot `generate` of MOE_GEN; then a timed 4 x 1024 prefill
+    (`moe_prefill`)."""
+    from repro_torch.configs import registry as R
+    cfg = dataclasses.replace(R.get_config(DBRX_ARCH), n_layers=DBRX_LAYERS)
+    return service_path(
+        torch, np, "service_dbrx", cfg, DBRX_PARAMS[DBRX_LAYERS],
+        depth=f"{DBRX_LAYERS} of 40 layers: the full depth's "
+        f"{4 * 131_597_021_184 / 1e9:.1f} GB of fp32 weights exceed the "
+        "card's 80 GB", gen=MOE_GEN,
+        then=lambda w: moe_prefill(torch, np, "prefill_dbrx", cfg, w, rows))
+
+
+def phase_service_kimi(torch, np, rows):
+    """kimi-k2-1t-a32b at full width (64 heads of 128 over 8 kv heads, the
+    shared expert, top-8, vocab 163,840) cut to 1 of its 61 layers and
+    KIMI_SERVE_EXPERTS of its 384 experts (32.7 GB) through
+    `service_path`: per decode step 3 rms_norm (d = 7168, staged), one
+    swiglu (the shared expert) and one flash_decode (G = 8); one-shot
+    `generate` of MOE_GEN; then a timed 4 x 1024 prefill."""
+    from repro_torch.configs import registry as R
+    cfg = dataclasses.replace(R.get_config(KIMI_ARCH), n_layers=1,
+                              n_experts=KIMI_SERVE_EXPERTS)
+    return service_path(
+        torch, np, "service_kimi", cfg, KIMI_PARAMS[KIMI_SERVE_EXPERTS],
+        depth=f"1 of 61 layers and {KIMI_SERVE_EXPERTS} of 384 experts: one "
+        "layer with all 384 is 77.8 GB of fp32 weights, which leaves ~7 GB "
+        "of the card for everything else", gen=MOE_GEN,
+        then=lambda w: moe_prefill(torch, np, "prefill_kimi", cfg, w, rows))
+
+
+def moe_gate_cfg(arch):
+    """The MoE card-vs-CPU gates' config: full width at 1 layer, kimi-k2
+    with KIMI_TRAIN_EXPERTS of its experts (top-8 kept)."""
+    from repro_torch.configs import registry as R
+    cut = dict(n_layers=1)
+    if arch == KIMI_ARCH:
+        cut["n_experts"] = KIMI_TRAIN_EXPERTS
+    return dataclasses.replace(R.get_config(arch), **cut)
+
+
+def phase_card_vs_cpu_moe(torch, np, arch):
+    """`arch` (dbrx-132b, or kimi-k2 with KIMI_TRAIN_EXPERTS experts) at full
+    width and 1 layer, the same weights (seed 3) on the card with the
+    kernels, on the card with the plain versions, and on the CPU: a
+    prefill of MOE_CPU_B x MOE_CPU_PROMPT tokens (the capacity path: an
+    expert's buffer sized to the 64 tokens, picks dropped where it binds,
+    the same ones on every side), then MOE_CPU_STEPS greedy decode steps,
+    every side fed the CPU's greedy tokens.  Each side's logits within
+    SERVE_TOL of the CPU's (the dense gates' tolerance) and the card's
+    greedy tokens the CPU's wherever its top-2 margin decides them; the
+    KV caches after the steps within SERVE_TOL too."""
+    from repro_torch import tree as T
+    from repro_torch.launch import weights as W
+    from repro_torch.models import api
+
+    t_phase = time.perf_counter()
+    phase = f"card_vs_cpu_{arch.split('-')[0]}"
+    cfg = moe_gate_cfg(arch)
+    mod = api.get_module(cfg)
+    card = W.ServingWeights.from_seed(cfg, 3, device="cuda")
+    # the CPU side reads views into host copies of the card's buckets
+    trees = dict(kernels=card.as_tree(), plain=card.as_tree(),
+                 cpu=card.spec.unflatten({b: v.cpu()
+                                          for b, v in card.bufs.items()}))
+    max_len = MOE_CPU_PROMPT + MOE_CPU_STEPS
+    rng = np.random.default_rng(19)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                           (MOE_CPU_B, MOE_CPU_PROMPT)))
+    logits = {way: [] for way in trees}
+    caches = {}
+    fed = []
+    seconds = {}
+    for way in ("cpu", "kernels", "plain"):
+        t0 = time.perf_counter()
+        dev = "cpu" if way == "cpu" else "cuda"
+        caches[way] = mod.init_cache(cfg, MOE_CPU_B, max_len, device=dev)
+        with torch.no_grad(), (plain_versions_on_card() if way == "plain"
+                               else contextlib.nullcontext()):
+            lg, _ = mod.prefill(cfg, trees[way], prompt.to(dev), caches[way])
+            logits[way].append(lg.cpu())
+            for i in range(MOE_CPU_STEPS):
+                if way == "cpu":
+                    fed.append(lg.argmax(-1))
+                lg, _ = mod.decode_step(cfg, trees[way], fed[i].to(dev),
+                                        caches[way], MOE_CPU_PROMPT + i)
+                logits[way].append(lg.cpu())
+        seconds[way] = time.perf_counter() - t0
+    errs, state_errs = {}, {}
+    for way in ("kernels", "plain"):
+        errs[way] = max(float((a - b).abs().max())
+                        for a, b in zip(logits[way], logits["cpu"]))
+        state_errs[way] = max(float((a.cpu() - b).abs().max())
+                              for a, b in zip(T.leaves(caches[way]),
+                                              T.leaves(caches["cpu"])))
+    compare, res = logits_compare(SERVE_TOL)
+    for a, b in zip(logits["kernels"], logits["cpu"]):
+        compare(a, b)
+    emit(phase, arch=cfg.name, layers=cfg.n_layers, experts=cfg.n_experts,
+         top_k=cfg.top_k, d_model=cfg.d_model, vocab=cfg.vocab,
+         batch=MOE_CPU_B, prompt_len=MOE_CPU_PROMPT, steps=MOE_CPU_STEPS,
+         prefill_capacity_rows=moe_capacity(cfg, MOE_CPU_B * MOE_CPU_PROMPT),
+         max_abs_logit_err=errs["kernels"],
+         plain_card_max_abs_logit_err=errs["plain"],
+         max_abs_cache_err=state_errs["kernels"],
+         plain_card_max_abs_cache_err=state_errs["plain"], tol=SERVE_TOL,
+         greedy_agree=res["agree"], greedy_decided=res["decided"],
+         side_seconds=seconds, seconds=time.perf_counter() - t_phase)
+    for way in ("kernels", "plain"):
+        check(errs[way] <= SERVE_TOL, f"{phase}: {way} card vs CPU logits "
+              f"differ by {errs[way]} > {SERVE_TOL}")
+        check(state_errs[way] <= SERVE_TOL, f"{phase}: {way} card vs CPU "
+              f"caches differ by {state_errs[way]} > {SERVE_TOL}")
+    check(res["agree"] == res["decided"], f"{phase}: greedy tokens differ: "
+          f"{res['agree']}/{res['decided']}")
+    del card, trees, caches
+    torch.cuda.empty_cache()
+
+
+def phase_train_kimi(torch, np):
+    """kimi-k2 training on the card: full width, 1 layer, KIMI_TRAIN_EXPERTS
+    experts (3,229,750,272 parameters, 16 leaves), W = 1 x 1 x 1024, remat
+    on, the LM recipe's 8 steps of Local AdamW under QSR through
+    `train_lm_path`: per step 5 rms_norm (ln1, ln2 twice under remat, the
+    final norm; d = 7168), 3 rms_norm_bwd, 2 swiglu and 1 swiglu_bwd (the
+    shared expert), 2 attention forwards and 1 backward (G = 8), AdamW
+    once a leaf: the MoE backward, its aux loss and the backward kernels
+    at kimi's shapes.  Returns the counts."""
+    steps = LM_STEPS
+    return train_lm_path(
+        torch, np, "train_kimi", KIMI_ARCH, 1, 1, LM_SEQ,
+        KIMI_PARAMS[KIMI_TRAIN_EXPERTS],
+        dict(rms_norm=5 * steps, rms_norm_bwd=3 * steps, swiglu=2 * steps,
+             swiglu_bwd=steps, flash_attention_fwd=2 * steps,
+             flash_attention_bwd=steps, adamw_update=KIMI_LEAVES * steps),
+        n_layers=1, cut=dict(n_experts=KIMI_TRAIN_EXPERTS), remat=True,
+        depth=f"1 of 61 layers and {KIMI_TRAIN_EXPERTS} of 384 experts "
+        "(top-8 kept): W = 2 would need ~103 GB")[0]
+
+
+def count_beyond(a, b, atol: float = 1e-5) -> tuple[int, float]:
+    """(elements of a more than atol (1 + |b|) from b, the largest |a - b|)
+    over chunks of 2^24 elements of two tensors on the card."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    off, big, step = 0, 0.0, 1 << 24
+    for i in range(0, a.numel(), step):
+        bi = b[i:i + step]
+        d = (a[i:i + step] - bi).abs()
+        off += int((d > atol * (1 + bi.abs())).sum())
+        big = max(big, float(d.max()))
+    return off, big
+
+
+def phase_train_kimi_gate(torch, np):
+    """`train_kimi`'s gate, on the card alone (its state, 51.7 GB, has no
+    CPU side at this size; tests/test_torch_moe.py holds the CPU's parity
+    at the smoke config): the same params (seed 3) and batches with the
+    port's kernels and with the plain versions (`plain_versions_on_card`).
+
+    * The first step at the same params: the loss and the aux loss within
+      1e-5 relative, every gradient leaf within 1e-4 relative L2 (the SSM
+      gates' rule for the first step's gradients).
+    * One QSR round (H = 2 at the recipe's peak lr) from those params, and
+      as the yardstick the plain round from the params moved by one ulp
+      (`torch.nextafter`: a sum-order-sized change of every weight).  The
+      SSM gates' rule for the later steps with the plain round as the
+      reference and the yardstick's distance from it in the plain card's
+      place: the first step's loss and grad norm within 1e-4 relative,
+      the second's within max(1e-4, twice the yardstick's); after the
+      round's sync the elements beyond 1e-5 of the plain round's, over
+      all leaves, at most max(1 in 2,000, twice the yardstick's count),
+      and none beyond 4 lr.  (After the first AdamW step, sign(g), the
+      elements whose gradient sits at the sum-order noise part by ~2 lr
+      whatever moved them: 1.35 M of the 3.23 G elements on an H100,
+      0.12% of each expert leaf.)"""
+    from repro_torch import tree as T
+    from repro_torch.core import local_update as LU
+    from repro_torch.core.sync import make_sync
+    from repro_torch.data.synthetic import TokenStream, make_train_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import api, common as cm, param as pm
+
+    t_phase = time.perf_counter()
+    phase = "train_kimi_card_vs_plain"
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, run = lm_setup(1, KIMI_ARCH, dict(n_experts=KIMI_TRAIN_EXPERTS),
+                        remat=True)
+    mod = api.get_module(cfg)
+    defs = mod.param_defs(cfg)
+    lr = run.peak_lr
+
+    def params(ulp=False):
+        p = pm.init_params(defs, torch.Generator(device="cuda")
+                           .manual_seed(3), device="cuda")
+        if ulp:
+            inf = torch.tensor(math.inf, device="cuda")
+            for x in T.leaves(p):
+                x.copy_(torch.nextafter(x, inf))
+        return p
+    stream = TokenStream(vocab=cfg.vocab, seed=0)
+    batches = [T.map(lambda x: x.cuda(), make_train_batch(
+        cfg, stream, t, 1, 1, LM_SEQ)) for t in range(2)]
+
+    def first_step(plain):
+        """(loss, aux, grads) at the seed's params on the first batch."""
+        leaves, treedef = T.flatten(params())
+        alias = [x.requires_grad_(True) for x in leaves]
+        b = {k: v[0] for k, v in batches[0].items()}
+        with (plain_versions_on_card() if plain
+              else contextlib.nullcontext()):
+            logits, aux = mod.forward(cfg, T.unflatten(treedef, alias),
+                                      b["tokens"], remat=True)
+            loss = cm.lm_loss(logits, b["labels"]) \
+                + cfg.router_aux_coef * aux
+            grads = torch.autograd.grad(loss, alias)
+        return float(loss.detach()), float(aux.detach()), grads
+
+    ops.reset_launch_counts()
+    loss_k, aux_k, grads_k = first_step(False)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    loss_p, aux_p, grads_p = first_step(True)
+    grad_errs = [float((a - b).norm() / b.norm().clamp_min(1e-30))
+                 for a, b in zip(grads_k, grads_p)]
+    del grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    step_fn = LU.make_local_step(cfg, run, with_metrics=True)
+    sync = make_sync(run)
+
+    def rollout(plain, ulp=False):
+        """One round of H = 2 from the seed's params (moved by one ulp):
+        (params, losses, grad norms); the optimizer state is freed, the
+        params stay on the card (12.9 GB: the plain round's beside a
+        rollout make ~70 GB)."""
+        st = LU.init_state(cfg, run, params(ulp), 1)
+        losses, gns = [], []
+        with (plain_versions_on_card() if plain
+              else contextlib.nullcontext()):
+            for batch in batches:
+                st, (loss, gn) = step_fn(st, batch, lr)
+                losses.append(float(loss))
+                gns.append(float(gn))
+        with torch.no_grad():
+            st = sync(st)
+        out = [x[0] for x in T.leaves(st["params"])]
+        del st
+        torch.cuda.empty_cache()
+        return out, losses, gns
+
+    def beyond(run_params):
+        """(elements beyond 1e-5 of the plain round's by leaf, the largest
+        difference)."""
+        offs, worst = [], 0.0
+        for a, b in zip(run_params, want):
+            off, big = count_beyond(a, b)
+            offs.append(off)
+            worst = max(worst, big)
+        return offs, worst
+
+    want, losses_p, gns_p = rollout(True)
+    got, losses_k, gns_k = rollout(False)
+    offs, worst = beyond(got)
+    del got
+    torch.cuda.empty_cache()
+    moved, losses_u, gns_u = rollout(True, ulp=True)
+    yard_offs, yard_worst = beyond(moved)
+    del moved, want
+    torch.cuda.empty_cache()
+    n_off, n_yard = sum(offs), sum(yard_offs)
+    n_all = pm.count_params(defs)
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+    limits = {name: [1e-4, max(1e-4, 2 * rel(ys[1], xs[1]))]
+              for name, xs, ys in (("loss", losses_p, losses_u),
+                                   ("grad_norm", gns_p, gns_u))}
+    fails = []
+    for name, a, b, tol in (("loss", loss_k, loss_p, 1e-5),
+                            ("aux", aux_k, aux_p, 1e-5)):
+        if rel(a, b) > tol:
+            fails.append(f"first-step {name} rel err {rel(a, b)} > {tol}")
+    for i, e in enumerate(grad_errs):
+        if e > 1e-4:
+            fails.append(f"first-step gradient of leaf {i}: rel L2 {e}")
+    for name, xs, ys in (("loss", losses_k, losses_p),
+                         ("grad_norm", gns_k, gns_p)):
+        for step, (a, b, lim) in enumerate(zip(xs, ys, limits[name])):
+            if rel(a, b) > lim:
+                fails.append(f"{name} rel err {rel(a, b)} > {lim} at step "
+                             f"{step}")
+    elem_limit = max(n_all // 2000, 2 * n_yard)
+    if n_off > elem_limit:
+        fails.append(f"{n_off} of {n_all} elements beyond 1e-5 > "
+                     f"{elem_limit}")
+    if worst > 4 * lr:
+        fails.append(f"params differ by {worst}")
+    emit(phase, arch=cfg.name, layers=cfg.n_layers, experts=cfg.n_experts,
+         workers=1, b_loc=1, seq=LM_SEQ, remat=True,
+         first_step_launches=counts, loss=loss_k, plain_loss=loss_p,
+         aux=aux_k, plain_aux=aux_p, first_grad_rel_l2_by_leaf=grad_errs,
+         losses=losses_k, plain_losses=losses_p, grad_norms=gns_k,
+         plain_grad_norms=gns_p, ulp_losses=losses_u, ulp_grad_norms=gns_u,
+         limits_by_step=limits, params_beyond_1e5=n_off, params=n_all,
+         elements_limit=elem_limit, beyond_1e5_by_leaf=offs,
+         max_param_abs_err=worst, ulp_params_beyond_1e5=n_yard,
+         ulp_beyond_1e5_by_leaf=yard_offs, ulp_max_param_abs_err=yard_worst,
+         failures=fails, seconds=time.perf_counter() - t_phase)
+    check(not fails, f"{phase}: " + "; ".join(fails))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4076,6 +4569,16 @@ def main() -> int:
     add(gen, ("rms_norm",))
     for path in phase_serve_zamba2(torch, np, rows):
         add(path, ("rms_norm", "flash_decode", "flash_attention_fwd"))
+    # the MoE family (the routed experts are batched products): dbrx-132b
+    # runs attention's kernels alone, kimi-k2 its norms and shared expert too
+    serve, gen = phase_service_dbrx(torch, np, rows)
+    add(serve, ("flash_decode",))
+    add(gen, ("flash_decode", "flash_attention_fwd"))
+    phase_card_vs_cpu_moe(torch, np, DBRX_ARCH)
+    serve, gen = phase_service_kimi(torch, np, rows)
+    add(serve, SERVING_KERNELS)
+    add(gen, SERVING_KERNELS + ("flash_attention_fwd",))
+    phase_card_vs_cpu_moe(torch, np, KIMI_ARCH)
     add(phase_train(torch, np), TRAINING_KERNELS[:3])
     flat, flat_state = phase_train_flat_quantized(torch, np)
     add(flat, ("sync_flat_update",))
@@ -4112,6 +4615,10 @@ def main() -> int:
     add(phase_train_zamba2(torch, np),
         ("rms_norm", "rms_norm_bwd") + TRAINING_KERNELS[:3])
     phase_train_lm_card_vs_cpu(torch, np, Z2_ARCH)
+    # kimi-k2 training: the MoE backward, its aux loss and the backward
+    # kernels at d = 7168
+    add(phase_train_kimi(torch, np), rms_swiglu)
+    phase_train_kimi_gate(torch, np)
     # checkpoints: resume across layouts, and train to serve
     try:
         phase_ckpt_resume(torch, np)
@@ -4135,26 +4642,31 @@ def main() -> int:
         "rms_norm": [f"[{PREFILL_B * PREFILL_LEN},2560]"]
         + [f"[{n},{PHI3_D}]" for n in rows_n]
         + [f"[{n},{QWEN_D}]" for n in rows_n[1:]]
-        + [f"[{n},{d}]" for n, d in SSM_NORM_ROWS],
+        + [f"[{n},{d}]" for n, d in SSM_NORM_ROWS + KIMI_NORM_ROWS],
         "rms_norm_bwd": [f"[{BWD_ROWS},{PHI3_D}]", f"[{BWD_ROWS},{QWEN_D}]",
                          f"[{M2_B * LM_SEQ},1536]",
-                         f"[{Z2_B * LM_SEQ},4096]"],
+                         f"[{Z2_B * LM_SEQ},4096]",
+                         f"[{BWD_ROWS},{KIMI_D}]"],
+        "swiglu_bwd": [f"[{BWD_ROWS},{KIMI_D}]x[{KIMI_D},{KIMI_F}]"],
         "swiglu": [f"[{n},2560]x[2560,10240]"
                    for n in (16, 48, 128, 256, PREFILL_B * PREFILL_LEN)]
         + [f"[{n},{PHI3_D}]x[{PHI3_D},17920]" for n in (SLOTS, BWD_ROWS)]
-        + [f"[{SLOTS},{QWEN_D}]x[{QWEN_D},49152]"],
+        + [f"[{SLOTS},{QWEN_D}]x[{QWEN_D},49152]"]
+        + [f"[{n},{KIMI_D}]x[{KIMI_D},{KIMI_F}]" for n in rows_n],
         "flash_decode": [*SC2_DECODE, *(
             label for (kern, label) in rows if kern == "flash_decode"
             and label.startswith(("phi3", "qwen", "paligemma", "whisper",
-                                  "gemma3-4b", "zamba2")))],
+                                  "gemma3-4b", "zamba2", "dbrx", "kimi")))],
         "flash_attention_fwd": [LM_TRAIN_ATTN, *PREFILL_ATTN,
                                 PHI3_TRAIN_ATTN, *VLM_ATTN,
-                                *WH_ATTN.values(), *Z2_ATTN.values()],
+                                *WH_ATTN.values(), *Z2_ATTN.values(),
+                                DBRX_PREFILL_ATTN, *KIMI_ATTN],
         "flash_attention_bwd": [LM_TRAIN_ATTN, PHI3_TRAIN_ATTN, *VLM_ATTN,
                                 *(WH_ATTN[k] for k in ("enc_train",
                                                        "dec_train",
                                                        "cross_train")),
-                                *Z2_ATTN.values()]}
+                                *Z2_ATTN.values(), DBRX_PREFILL_ATTN,
+                                *KIMI_ATTN]}
     kernels = []
     for name in (SERVING_KERNELS + TRAINING_KERNELS + SYNC_KERNELS
                  + BACKWARD_KERNELS):

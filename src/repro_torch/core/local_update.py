@@ -33,7 +33,7 @@ import torch._dynamo  # noqa: F401
 from repro_torch import tree as T
 from repro_torch.core.sync import make_sync
 from repro_torch.errors import ConfigError
-from repro_torch.models import api
+from repro_torch.models import api, moe
 from repro_torch.optim.optimizers import make_optimizer
 
 Tree = Any
@@ -61,10 +61,16 @@ def init_state(cfg, run_cfg, params_single: Tree, w: int) -> Tree:
 
 
 def make_loss(cfg, run_cfg):
-    """loss(params, batch) -> scalar, with the run's remat policy."""
+    """loss(params, batch) -> scalar, with the run's remat policy; an MoE
+    model's with the run's dispatch (`moe_dispatch_shards`,
+    `moe_dispatch`), handed to the loss as arguments where the reference
+    sets module globals.  `moe_dispatch="shard_map"` raises."""
+    kw = {}
     if cfg.n_experts:
-        raise ConfigError(f"{cfg.name}: MoE training is not ported yet")
-    return partial(api.get_module(cfg).loss_fn, cfg, remat=bool(run_cfg.remat))
+        moe.check_mode(run_cfg.moe_dispatch)
+        kw["moe_shards"] = max(1, int(run_cfg.moe_dispatch_shards))
+    return partial(api.get_module(cfg).loss_fn, cfg,
+                   remat=bool(run_cfg.remat), **kw)
 
 
 def make_local_step(cfg, run_cfg, *, with_metrics: bool = False, spec=None):

@@ -22,6 +22,11 @@ stream.  The stream differs from the JAX package's `fold_in` keys, which
 torch cannot reproduce; greedy decoding (temperature 0) is what the two
 packages agree on token for token.
 
+An MoE model (the `moe` family) is served like a dense one: every slot's
+token, a retired lane's too, goes through the router and takes expert
+capacity in the step, so lanes can drop each other's picks where the
+capacity binds, as in the reference.
+
 The device is the weights': CUDA unless the caller built them with
 `device="cpu"`.
 """

@@ -13,10 +13,14 @@ Both serve `--batch` requests of `--prompt-len` random tokens on the card,
 with weights drawn on the device from `--seed`.  In one-shot mode a VLM
 (paligemma-3b) gets a stub image prefix (`image_prefix`) and an audio
 model (whisper-base) stub frames (`audio_frames`); the service loop serves
-the decoder families only and refuses vlm, audio and vision configs, as
+the decoder families (dense, moe, ssm) and refuses vlm, audio and vision
+configs, as
 the reference's does (the batcher carries no per-request extras), and
 the hybrid family (zamba2), whose decode step takes one position for the
 whole batch (the reference's batcher fails on its first step there).
+The MoE family (dbrx-132b, kimi-k2-1t-a32b) runs both modes with the
+global dispatch; in the service loop every lane's token, a retired one's
+too, takes expert capacity, so lanes share it, as in the reference.
 `--smoke` takes the arch's smoke config, `--device cpu` runs the plain
 versions on the CPU (the default is CUDA, and no card is an error).
 With `--slots`: `--watch DIR` polls DIR between decode steps for weights

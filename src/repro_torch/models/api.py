@@ -7,8 +7,10 @@ Every module exposes:
   forward(cfg, params, ...) -> logits (the transformer: (logits, aux))
   cache_spec / init_cache / prefill / decode_step   (the LMs)
 
-Ported so far: the dense transformer and the prefix-LM (`vlm`: the same
-module, `prefix_embeds` in the batch) and the whisper encoder-decoder
+Ported: the dense transformer, the MoE transformer (`moe`: the same
+module, routed experts in place of the MLP, their aux loss in `forward`'s
+second output) and the prefix-LM (`vlm`: the same module,
+`prefix_embeds` in the batch), the whisper encoder-decoder
 (`audio`: `frames` in the batch, the encoder's memory in the cache) for
 training, prefill and decode, the SSM mamba2 (`ssm`: conv and SSM state
 in the cache) and the hybrid zamba2 (`hybrid`: that state nested under
@@ -23,7 +25,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.errors import ConfigError
 from repro_torch.models import mamba2, transformer, vit, whisper, zamba2
 
-_FAMILY = {"dense": transformer, "vlm": transformer, "audio": whisper,
+_FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer,
+           "audio": whisper,
            "ssm": mamba2, "hybrid": zamba2, "vision": vit}
 
 

@@ -1381,3 +1381,180 @@ def test_ssm_loss_and_grads_on_card_match_cpu(dev, arch):
         assert bool(torch.isfinite(g).all())
         assert float((g.cpu() - w).abs().max()) <= GRAD_TOL * max(
             float(w.abs().max()), 1.0)
+
+
+# the MoE family's kernel shapes: dbrx-132b's decode attention at G = 6
+# (48 query heads over 8 kv heads: the G = 8 instance with g = 6) and
+# kimi-k2's at G = 8 (64 over 8), D = 128
+@pytest.mark.parametrize("sk", [64, 1089])
+@pytest.mark.parametrize("hq", [48, 64])
+def test_flash_decode_at_moe_shapes_matches_plain(dev, hq, sk):
+    b, hkv, d = 2, 8, 128
+    q, k, v = _t(70, b, 1, hq, d), _t(71, b, sk, hkv, d), _t(72, b, sk, hkv, d)
+    kw = dict(window=0, prefix_len=0, k_positions=None,
+              q_offset=torch.tensor([sk - 1, sk // 2], dtype=torch.int32,
+                                    device=dev))
+    torch.testing.assert_close(t_fa.flash_decode(q, k, v, **kw),
+                               tref.attention(q, k, v, **kw),
+                               rtol=PROD_TOL, atol=PROD_TOL)
+
+
+@pytest.mark.parametrize("hq", [48, 64])
+def test_flash_attention_at_moe_shapes_matches_plain(dev, hq):
+    """The full-sequence kernels at dbrx's G = 6 and kimi's G = 8 (D = 128,
+    causal), forward and backward, at 256 tokens."""
+    q, k, v = _t(73, 1, 256, hq, 128), _t(74, 1, 256, 8, 128), \
+        _t(75, 1, 256, 8, 128)
+    do = _t(76, 1, 256, hq, 128)
+    kw = dict(causal=True, window=0, prefix_len=0, q_offset=0)
+    o, lse = t_fa.flash_attention_fwd(q, k, v, scale=128 ** -0.5, **kw)
+    grads = t_fa.flash_attention_bwd(q, k, v, o, lse, do, scale=128 ** -0.5,
+                                     **kw)
+    ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = tref.attention(*ins, **kw)
+    want_g = torch.autograd.grad(want, ins, do)
+    torch.testing.assert_close(o, want.detach(), rtol=PROD_TOL, atol=PROD_TOL)
+    for a, b in zip(grads, want_g):
+        torch.testing.assert_close(a, b, rtol=GRAD_TOL, atol=GRAD_TOL * max(
+            1.0, float(b.abs().max())))
+
+
+@pytest.mark.parametrize("n", [2, 1024])
+def test_kimi_norm_and_shared_expert_under_autograd_match_plain(dev, n):
+    """kimi-k2's d = 7168 (rms_norm's staged rows) and its shared expert
+    [n, 7168] x [7168, 2048] (swiglu's row kernel at 2 rows, its tiles at
+    1024) through `ops` under autograd: one launch of each forward and
+    backward kernel, each against autograd of the plain versions."""
+    d, f = 7168, 2048
+    x, sc, dy = _t(80, n, d), _t(81, d), _t(82, n, d)
+    wg, wi = _t(83, d, f, scale=d ** -0.5), _t(84, d, f, scale=d ** -0.5)
+    dh = _t(85, n, f)
+    ops.reset_launch_counts()
+    out, got = _grads_of(ops.rms_norm, (x, sc), dy)
+    sout, sgot = _grads_of(ops.swiglu, (x, wg, wi), dh)
+    assert {k: v for k, v in ops.launch_counts().items() if v} == dict(
+        rms_norm=1, rms_norm_bwd=1, swiglu=1, swiglu_bwd=1)
+    torch.testing.assert_close(t_rn.rms_norm(x, sc), out, rtol=0, atol=0)
+    torch.testing.assert_close(t_sw.swiglu(x, wg, wi), sout, rtol=0, atol=0)
+    wout, want = _grads_of(tref.rms_norm, (x, sc), dy)
+    swout, swant = _grads_of(tref.swiglu, (x, wg, wi), dh)
+    torch.testing.assert_close(out, wout, rtol=RMS_TOL, atol=RMS_TOL)
+    torch.testing.assert_close(got[0], want[0], rtol=RMS_TOL,
+                               atol=RMS_TOL * max(1.0, float(
+                                   want[0].abs().max())))
+    torch.testing.assert_close(got[1], want[1], rtol=0.0,
+                               atol=_dscale_tol(x, dy))
+    torch.testing.assert_close(sout, swout, rtol=PROD_TOL, atol=PROD_TOL)
+    for a, b in zip(sgot, swant):
+        torch.testing.assert_close(a, b, rtol=PROD_TOL, atol=PROD_TOL * max(
+            1.0, float(b.abs().max())))
+
+
+def _moe_launches(cfg, attention: str) -> dict:
+    """Kernel launches of one pass of an MoE smoke model: attention once a
+    layer; an RMSNorm model's rms_norm twice a layer and once at the end;
+    the shared expert's swiglu once a layer (the routed experts are
+    batched products, no kernel)."""
+    out = {attention: cfg.n_layers}
+    if cfg.norm == "rmsnorm":
+        out["rms_norm"] = 2 * cfg.n_layers + 1
+    if cfg.n_shared_experts:
+        out["swiglu"] = cfg.n_layers
+    return out
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "kimi-k2-1t-a32b"])
+def test_moe_generate_on_card_launches_kernels_and_matches_cpu(dev, arch):
+    """dbrx-smoke's and kimi-smoke's one-shot generate and --slots service
+    on the card: greedy tokens equal the CPU's on the same weights, the
+    kernels launched as `_moe_launches` says (one prefill, a decode step
+    a new token), and a decode step free of device syncs (captured in a
+    CUDA graph, replayed to the eager step's logits)."""
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import transformer as ttf
+    cfg = TR.get_smoke_config(arch)
+    card = W.ServingWeights.from_seed(cfg, 0, device=dev)
+    host = card.spec.unflatten({b: t.cpu() for b, t in card.bufs.items()})
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab, (2, 12))
+    new = 10
+    ops.reset_launch_counts()
+    got = tserve.generate(cfg, card.as_tree(), prompts, gen_len=new)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    pre = _moe_launches(cfg, "flash_attention_fwd")
+    step = _moe_launches(cfg, "flash_decode")
+    want = {k: pre.get(k, 0) + new * step.get(k, 0)
+            for k in set(pre) | set(step)}
+    assert counts == want
+    assert torch.equal(got.cpu(), tserve.generate(cfg, host, prompts,
+                                                  gen_len=new))
+    b = ContinuousBatcher(cfg, card, slots=2, max_len=24)
+    reqs = [Request(rid=i, prompt=p, max_new=new)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        b.submit(r)
+    b.run()
+    assert [r.out for r in reqs] == got[:, 12:].cpu().tolist()
+    cache = ttf.init_cache(cfg, 2, 24, device=dev)
+    tok = torch.zeros(2, dtype=torch.long, device=dev)
+    pos = torch.tensor([5, 17], dtype=torch.int32, device=dev)
+    tree = card.as_tree()
+    with torch.no_grad():
+        eager, _ = ttf.decode_step(cfg, tree, tok, cache, pos)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ttf.decode_step(cfg, tree, tok, cache, pos)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out, _ = ttf.decode_step(cfg, tree, tok, cache, pos)
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "kimi-k2-1t-a32b"])
+def test_moe_loss_aux_and_grads_on_card_match_cpu(dev, arch):
+    """dbrx-smoke's and kimi-smoke's loss, aux loss and every gradient leaf
+    on the card (remat on: the recomputed layers route as the first pass)
+    against the CPU's plain versions on the same weights and tokens."""
+    from repro_torch.models import api, param as pm
+    cfg = TR.get_smoke_config(arch)
+    mod = api.get_module(cfg)
+    host = pm.init_params(mod.param_defs(cfg),
+                          torch.Generator().manual_seed(5))
+    rng = np.random.default_rng(6)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32)))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32)))
+
+    def run(device):
+        leaves, treedef = T.flatten(host)
+        alias = [x.to(device).requires_grad_(True) for x in leaves]
+        p = T.unflatten(treedef, alias)
+        logits, aux = mod.forward(cfg, p, toks.to(device), remat=True)
+        from repro_torch.models import common as cm
+        loss = cm.lm_loss(logits, labels.to(device)) \
+            + cfg.router_aux_coef * aux
+        return loss, aux, torch.autograd.grad(loss, alias)
+
+    ops.reset_launch_counts()
+    loss, aux, grads = run(dev)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    # remat: each layer's forward twice, its backward once
+    fwd = _moe_launches(cfg, "flash_attention_fwd")
+    want = {k: v + (cfg.n_layers if k != "rms_norm" else 2 * cfg.n_layers)
+            for k, v in fwd.items()}
+    want["flash_attention_bwd"] = cfg.n_layers
+    if "rms_norm" in fwd:
+        want["rms_norm_bwd"] = fwd["rms_norm"]
+    if "swiglu" in fwd:
+        want["swiglu_bwd"] = cfg.n_layers
+    assert counts == want
+    wloss, waux, wgrads = run("cpu")
+    for a, b in ((loss, wloss), (aux, waux)):
+        assert abs(float(a.detach()) - float(b.detach())) <= RMS_TOL * max(
+            abs(float(b.detach())), 1.0)
+    for g, w in zip(grads, wgrads):
+        assert float((g.cpu() - w).abs().max()) <= GRAD_TOL * max(
+            float(w.abs().max()), 1.0)

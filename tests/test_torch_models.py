@@ -42,19 +42,22 @@ def setup():
 
 
 def test_configs_match_the_jax_package():
-    for get in ("get_config", "get_smoke_config"):
-        j, t = getattr(JR, get)(ARCH), getattr(TR, get)(ARCH)
-        assert dataclasses.asdict(j) == dataclasses.asdict(t)
-        assert [j.layer_window(i) for i in range(j.n_layers)] == \
-            [t.layer_window(i) for i in range(t.n_layers)]
+    for arch in (ARCH, "dbrx-132b", "kimi-k2-1t-a32b"):
+        for get in ("get_config", "get_smoke_config"):
+            j, t = getattr(JR, get)(arch), getattr(TR, get)(arch)
+            assert dataclasses.asdict(j) == dataclasses.asdict(t)
+            assert [j.layer_window(i) for i in range(j.n_layers)] == \
+                [t.layer_window(i) for i in range(t.n_layers)]
 
 
 def test_unported_archs_raise():
-    with pytest.raises(ConfigError, match="not ported yet"):
-        TR.get_config("dbrx-132b")
-    with pytest.raises(ConfigError, match="unknown arch"):
-        TR.get_config("no-such-arch")
-    assert set(TR.NOT_PORTED) | set(TR.ARCHS) == set(JR.ARCHS)
+    """Every id of the JAX package's registry is ported (NOT_PORTED is
+    empty); an unknown id still raises."""
+    assert TR.NOT_PORTED == ()
+    assert set(TR.ARCHS) == set(JR.ARCHS)
+    for get in (TR.get_config, TR.get_smoke_config):
+        with pytest.raises(ConfigError, match="unknown arch"):
+            get("no-such-arch")
 
 
 def test_param_defs_and_counts_match(setup):
