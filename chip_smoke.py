@@ -23,7 +23,9 @@ from a prompt and from one decode row; `flash_decode` on gemma3-4b's
 zamba2-1.2b's widths, the attention kernels at zamba2's 32 heads of 64;
 `flash_decode` and `flash_attention` at dbrx-132b's G = 6 and kimi-k2's
 G = 8, `rms_norm`, `rms_norm_bwd`, `swiglu` and `swiglu_bwd` at kimi-k2's
-d = 7168 and its shared expert's [., 7168] x [7168, 2048]).
+d = 7168 and its shared expert's [., 7168] x [7168, 2048]; the attention
+kernels at a microbatch chunk's batch: ViT-B/16's q[16,196,12,64],
+starcoder2-3b's q[2,1024,24,128] and q[1,1024,24,128]).
 Then it drives both of the port's paths on the card:
 
 * serving: gemma3-4b at full width (random weights drawn on the card from
@@ -67,6 +69,14 @@ Then it drives both of the port's paths on the card:
   re-anchored), and the ring-int8 wire (16 + 12 + 1 launches per sync, the
   card's ring codes equal the CPU's, the mean within `ring_tolerance`);
   and overlap at depth 1 on the card against the CPU at 2 layers;
+* the adaptive controller (`--schedule adaptive`) on that path at full
+  width: 24 steps through `train()` on the flat int8 overlap sync, the
+  controller correcting H by the measured divergence, growing the
+  effective batch (`batch_epoch`) and choosing the overlap depth on the
+  frontier `train_overlap` measured (a table4-form JSON); its trace
+  rebuilt byte for byte by a fresh controller fed the card's telemetry;
+  and the card against the CPU at 2 layers, the CPU replaying the card's
+  (H, lanes, depth) sequence;
 * the LM path: gemma3-4b's one-shot `generate` (prefill through the
   full-sequence attention kernel, then decode) at full width, its tokens
   equal to the `--slots 2` service's, and a timed prefill of 4 x 1024
@@ -82,19 +92,23 @@ Then it drives both of the port's paths on the card:
   on phi3-medium-14b (W = 2 x 1 x 1024: every norm on the staged rms_norm
   instances, forward and backward) and paligemma-3b (W = 4 x 1 x (256 +
   1024), attention with prefix_len 256), each with its card against the
-  CPU at 2 layers; whisper-base at full depth (W = 4 x 8 x 64) on host
-  and on device data, and its card against the CPU (the decoder at 2
-  layers); starcoder2-3b's path on device data (two engines with one
-  seed draw the same batches); mamba2-130m at full depth (W = 4 x 4 x
-  1024) and zamba2-1.2b at 8 layers (W = 4 x 1 x 1024) through the
+  CPU at 2 layers; whisper-base at 3 + 3 of its 6 + 6 layers (W = 4 x 8
+  x 64) on host and on device data, and its card against the CPU (the
+  decoder at 2 layers); starcoder2-3b's path on device data (two engines
+  with one seed draw the same batches); mamba2-130m at 12 of its 24
+  layers (W = 4 x 4 x 1024) and zamba2-1.2b at 8 layers (W = 4 x 1 x
+  1024) through the
   rms_norm backward kernel, each with its card against the CPU;
   kimi-k2-1t at 1 layer and 16 experts (W = 1 x 1 x 1024, remat): the
   MoE backward and its aux loss, held against the card's plain versions
-  (its 51.7 GB state has no CPU side);
+  (its 51.7 GB state has no CPU side); starcoder2-3b's path at
+  microbatch 2 and 4 (gradient accumulation: attention at the chunk's
+  batch, peak memory below microbatch 1's, one step's loss and gradients
+  against microbatch 1 and against the card's plain versions);
 * checkpoints: ViT-B/16's W = 4 state saved in the tree layout after 2
   rounds and resumed in the flat layout, bitwise the run without the
   checkpoint, with save and restore rates; and train to serve: starcoder2-3b
-  at 2 layers trained with the async observer, which checkpoints and
+  at 1 layer trained with the async observer, which checkpoints and
   publishes the consensus into a directory a live server watches; the
   server swaps it in mid-sequence, and its tokens equal a restart's.  The
   checkpoint directories live under `_ckpt/` and are deleted after.
@@ -216,7 +230,7 @@ LM_RUN = dict(schedule="qsr", optimizer="adamw", total_steps=LM_STEPS,
               peak_lr=3e-3, alpha=0.002, h_base=2,
               warmup_steps=max(LM_STEPS // 20, 1), remat=False)
 LM_TRACE = [(t, 2) for t in range(0, LM_STEPS, 2)]
-LM_PARAMS = {2: 342_915_072, 30: 3_029_710_848}
+LM_PARAMS = {1: 246_958_080, 2: 342_915_072, 30: 3_029_710_848}
 LM_LEAVES = 13                  # tree leaves: the AdamW launches per step
 # gemma3-4b training: the same recipe at full width cut to 2 layers, W = 4
 # workers x 1 sequence of 1024 tokens: 55.0 GB of params, m, v and grad,
@@ -253,10 +267,11 @@ SC2_DECODE = (
     f"starcoder2-3b q[{SLOTS},1,24,128] kv[{SLOTS},64,2,128] w4096 p0",
     f"starcoder2-3b q[{LONG_SLOTS},1,24,128] kv[{LONG_SLOTS},{LONG_LEN},2,"
     "128] w4096 p0 q_offset (s+1)512-1")
-# train to serve: starcoder2-3b at 2 layers trained W = 2 x 1 x 256 for 4
-# steps (2 rounds, a checkpoint and a publish at each), served from a watch
-# directory by 2 slots
-T2S_W, T2S_B, T2S_SEQ, T2S_STEPS = 2, 1, 256, 4
+# train to serve: starcoder2-3b at T2S_LAYERS layer trained W = 2 x 1 x
+# 256 for 4 steps (2 rounds, a checkpoint and a publish at each), served
+# from a watch directory by 2 slots (1 layer, not 2, since the adaptive
+# slice: chip_smoke's time; the contract is the same at any depth)
+T2S_W, T2S_B, T2S_SEQ, T2S_STEPS, T2S_LAYERS = 2, 1, 256, 4, 1
 # checkpoint directories: under the checkout, listed in .gitignore, deleted
 # after the run
 CKPT_ROOT = os.path.join(ROOT, "_ckpt")
@@ -270,12 +285,15 @@ PREFILL_B, PREFILL_LEN = 4, 1024
 # causal decoder with cross-attention, layernorm and GELU) at full width
 # and depth: one-shot generate of WH_B prompts x WH_PLEN tokens after stub
 # frames, WH_NEW new; trained W = 4 x 8 x 64 tokens (the training CLI's
-# defaults) with the LM recipe, on host and on device data; parameters and
-# tree leaves (AdamW launches a step)
+# defaults) with the LM recipe, on host and on device data, cut to
+# WH_TRAIN_LAYERS encoder and decoder layers (3 + 3 since the adaptive
+# slice: chip_smoke's time); parameters (full depth and the training cut)
+# and tree leaves (AdamW launches a step)
 WH_ARCH = "whisper-base"
 WH_B, WH_PLEN, WH_NEW = 4, 32, 32
 WH_W, WH_BLOC, WH_SEQ = 4, 8, 64
 WH_PARAMS, WH_LEAVES = 70_627_840, 31
+WH_TRAIN_LAYERS, WH_TRAIN_PARAMS = 3, 48_592_384
 WH_ATTN = {
     "enc": "whisper-base encoder q[4,1500,8,64] non-causal",
     "enc_train": "whisper-base encoder train q[8,1500,8,64] non-causal",
@@ -301,12 +319,14 @@ RING_LAYERS = 6
 # attention, d = 768 and gated rows of 1536) and zamba2-1.2b (the hybrid
 # family: a mamba2 backbone of 38 layers, d = 2048 and gated rows of 4096,
 # with one weight-shared attention block, 32 heads of 64, after every 6):
-# mamba2 served and trained at full depth, zamba2 served at full depth
-# and trained cut to Z2_TRAIN_LAYERS (one group of 6, the shared block,
-# the real tail of 2); parameters by depth, tree leaves (AdamW launches a
-# step)
+# mamba2 served at full depth and trained cut to M2_TRAIN_LAYERS (12 of
+# 24 since the adaptive slice: chip_smoke's time), zamba2 served at full
+# depth and trained cut to Z2_TRAIN_LAYERS (one group of 6, the shared
+# block, the real tail of 2); parameters by depth, tree leaves (AdamW
+# launches a step)
 M2_ARCH, Z2_ARCH = "mamba2-130m", "zamba2-1.2b"
-M2_PARAMS = {2: 46_146_448, 24: 128_983_488}
+M2_PARAMS = {2: 46_146_448, 12: 83_799_648, 24: 128_983_488}
+M2_TRAIN_LAYERS = 12
 Z2_PARAMS = {8: 333_148_672, 38: 1_100_743_552}
 M2_LEAVES, Z2_LEAVES = 13, 34
 Z2_TRAIN_LAYERS = 8
@@ -792,6 +812,11 @@ def attention_work(torch, a, backward: bool) -> tuple[float, float]:
 LM_TRAIN_ATTN = ("starcoder2-3b train q[4,1024,24,128] kv[.,.,2,.] causal "
                  "window 4096")
 PHI3_TRAIN_ATTN = "phi3-medium-14b train q[1,1024,40,128] kv[.,.,10,.] causal"
+# a microbatched step runs attention at its chunk's batch: ViT-B/16 at
+# microbatch 2, starcoder2-3b's training lanes at microbatch 2 and 4
+VIT_MB_ATTN = "vit-b microbatch 2 q[16,196,12,64] non-causal"
+LM_MB_ATTN = {mb: f"starcoder2-3b train microbatch {mb} q[{LM_B // mb},1024,"
+                  f"24,128] kv[.,.,2,.] causal window 4096" for mb in (2, 4)}
 VLM_ATTN = tuple(f"paligemma-3b {what} q[{b},1280,8,256] kv[.,.,1,.] causal "
                  f"prefix 256" for what, b in (("train", 1), ("prefill", 4)))
 PREFILL_ATTN = tuple(f"gemma3-4b prefill q[4,1024,8,256] kv[.,.,4,.] causal "
@@ -818,6 +843,9 @@ def attention_cases(rnd):
            False, main=True),
         fa(LM_TRAIN_ATTN, LM_B, LM_SEQ, LM_SEQ, 2, 12, 128, True,
            window=4096, timed=True),
+        fa(VIT_MB_ATTN, B_LOC // 2, 196, 196, 12, 1, 64, False, timed=True),
+        *(fa(label, LM_B // mb, LM_SEQ, LM_SEQ, 2, 12, 128, True,
+             window=4096, timed=True) for mb, label in LM_MB_ATTN.items()),
         fa(PREFILL_ATTN[0], PREFILL_B, PREFILL_LEN, PREFILL_LEN, 4, 2, 256,
            True, window=1024, timed=True),
         fa(PREFILL_ATTN[1], PREFILL_B, PREFILL_LEN, PREFILL_LEN, 4, 2, 256,
@@ -1928,7 +1956,7 @@ def phase_ckpt_resume(torch, np):
 
 
 def phase_train_to_serve(torch, np):
-    """The train-to-serve contract at starcoder2-3b's full width, 2 layers.
+    """The train-to-serve contract at starcoder2-3b's full width, 1 layer.
     A server (2 slots, weights from seed 5) decodes a request until it has
     3 tokens; then `train()` (W = 2 x 1 x 256, 4 steps, the LM recipe)
     runs with `async_observer`: its observer thread `fanout`s the
@@ -1946,8 +1974,8 @@ def phase_train_to_serve(torch, np):
     from repro_torch.launch.batching import ContinuousBatcher, Request
     from repro_torch.launch.train import train
 
-    cfg, run, eng = lm_engine(n_layers=2, workers=T2S_W, b_loc=T2S_B,
-                              seq=T2S_SEQ, total_steps=T2S_STEPS)
+    cfg, run, eng = lm_engine(n_layers=T2S_LAYERS, workers=T2S_W,
+                              b_loc=T2S_B, seq=T2S_SEQ, total_steps=T2S_STEPS)
     watch, ckpt = ckpt_path("watch"), ckpt_path("train")
     publish_s, published = [], []
 
@@ -2018,7 +2046,7 @@ def phase_train_to_serve(torch, np):
         shutil.rmtree(watch, ignore_errors=True)
         shutil.rmtree(ckpt, ignore_errors=True)
     emit("train_to_serve", arch=cfg.name, layers=cfg.n_layers,
-         params=LM_PARAMS[2], workers=T2S_W, b_loc=T2S_B, seq=T2S_SEQ,
+         params=LM_PARAMS[T2S_LAYERS], workers=T2S_W, b_loc=T2S_B, seq=T2S_SEQ,
          steps=T2S_STEPS, rounds=[list(r) for r in eng.h_trace],
          train_wall_s=train_wall, launches=counts, published_steps=published,
          weight_bytes=w_bytes, publish_s=publish_s,
@@ -2036,7 +2064,7 @@ def phase_train_to_serve(torch, np):
 
 def train_setup(torch, *, layout="tree", n_layers=None, workers=None,
                 b_loc=None, device="cuda", sync="blocking", overlap_depth=0,
-                **run_overrides):
+                adaptive_batch=False, **run_overrides):
     """(cfg, run config, stream, batch_fn, engine) of the ViT-B/16 recipe
     (W workers x B_LOC images unless given)."""
     from repro_torch.configs import registry as R
@@ -2053,7 +2081,8 @@ def train_setup(torch, *, layout="tree", n_layers=None, workers=None,
     batch_fn = vision_batch_fn(stream, workers, b_loc)
     eng = RoundEngine(cfg, run, workers=workers, b_loc=b_loc, seq=1,
                       data="host", layout=layout, batch_fn=batch_fn,
-                      sync=sync, overlap_depth=overlap_depth, device=device)
+                      sync=sync, overlap_depth=overlap_depth,
+                      adaptive_batch=adaptive_batch, device=device)
     return cfg, run, stream, batch_fn, eng
 
 
@@ -2289,7 +2318,9 @@ def phase_train_overlap(torch, np, blocking_state):
     sync_apply_update per sync and no fused sync.  Depth 1 with outer
     momentum 0.9: finite, nothing pending after `train()`; then on 2 more
     rounds driven through the engine, `synced_view` twice and `flush` agree
-    bitwise and leave the state untouched."""
+    bitwise and leave the state untouched.  Returns the depth-0 counts and
+    the two runs' seconds a round, tagged as table4's `overlap` rows
+    (`blocking_d0`, `overlap_d1`): the frontier `train_adaptive` reads."""
     from repro_torch import tree as T
     from repro_torch.core import sync as S
     from repro_torch.kernels import ops
@@ -2340,7 +2371,8 @@ def phase_train_overlap(torch, np, blocking_state):
                                 flush_equals_views=True))
     del eng1, state1, st, before, v1, v2, fl
     torch.cuda.empty_cache()
-    return counts
+    return counts, {"blocking_d0": wall / len(hist),
+                    "overlap_d1": wall1 / len(hist1)}
 
 
 def phase_train_partial(torch, np):
@@ -2529,6 +2561,368 @@ def phase_train_card_vs_cpu_overlap(torch, np):
     check(worst <= 4 * lr, f"overlap card vs CPU params differ by {worst}")
     del states, card, eng_c, eng_h
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------- adaptive -------
+
+# the adaptive recipe: TRAIN_RUN's 24 steps under the closed-loop controller
+# (core/controller.py), on the flat layout with the int8 sync and the
+# overlap sync; the card-vs-CPU gate's frontier (deeper overlap faster)
+ADAPTIVE_RUN = dict(schedule="adaptive", layout="flat", sync="overlap",
+                    sync_quantize=True, adaptive_batch=True)
+ADAPTIVE_FRONTIER = {0: 1.0, 1: 0.6, 2: 0.5}
+
+
+class StubEngine:
+    """What the adaptive controller reads and sets on an engine, without
+    one: the replayed controller's knobs."""
+
+    def __init__(self, b_loc: int, sync_mode: str):
+        self.b_loc, self.sync_mode = b_loc, sync_mode
+        self.adaptive_batch = True
+        self.batch_lanes, self.overlap_depth = b_loc, 0
+
+    def batch_epoch(self, lanes):
+        self.batch_lanes = lanes
+
+    def set_overlap_depth(self, depth):
+        self.overlap_depth = depth
+
+
+@contextlib.contextmanager
+def recorded_rounds(eng):
+    """Inside: each round's (t, h, overlap depth, batch lanes, whether a
+    pending sync is applied in it) as the engine starts it."""
+    seen = []
+    run_round = eng.run_round
+
+    def recording(state, t, h, lr_fn):
+        seen.append((t, h, eng.overlap_depth, eng.batch_lanes,
+                     eng._pending is not None))
+        return run_round(state, t, h, lr_fn)
+    eng.run_round = recording
+    try:
+        yield seen
+    finally:
+        del eng.run_round
+
+
+def phase_train_adaptive(torch, np, walls):
+    """`--schedule adaptive` at full width: ViT-B/16, W = 4 x 32 images of
+    224^2, TRAIN_RUN's 24 steps through `train()` on the flat layout with
+    the int8 sync and sync="overlap", the controller choosing H, the
+    effective batch and the overlap depth at every round boundary; its
+    frontier a path to a table4-form JSON of `train_overlap`'s measured
+    seconds a round at depths 0 and 1 (`walls`), its trace written into a
+    temporary directory.
+
+    Gates: the engine's H trace is the trace file's and sums to 24; every
+    BatchEpoch lands on a round boundary with the lanes of that round's
+    row, the lanes divide 32, never shrink and start at 16; the engine ran
+    each round at the row's depth and lanes; nothing pending after
+    `train()` and every lane equal; the launch counts exact (attention
+    forward and backward a layer, worker and step, one adamw_update a step:
+    one flat bucket; one sync_apply_update for each pending sync applied,
+    the flush's included); a fresh controller with a stub engine, fed the
+    card run's measured metrics round by round, rebuilds the trace byte
+    for byte; the file parses as
+    controller_trace/v1.  Returns the counts."""
+    import tempfile
+
+    from repro_torch import tree as T
+    from repro_torch.core import local_update as LU
+    from repro_torch.core.controller import (TRACE_SCHEMA,
+                                             AdaptiveController,
+                                             load_frontier)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.optim.lr import make_lr_fn
+
+    t_phase = time.perf_counter()
+    phase = "train_adaptive"
+    cfg, run, _, _, eng = train_setup(torch, **ADAPTIVE_RUN)
+    with tempfile.TemporaryDirectory() as tmp:
+        front_path = os.path.join(tmp, "table4_overlap.json")
+        with open(front_path, "w") as fh:
+            json.dump({"overlap": {tag: {"s_per_round": sec}
+                                   for tag, sec in walls.items()}}, fh)
+        trace_path = os.path.join(tmp, "controller_trace.json")
+        frontier = load_frontier(front_path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with recorded_rounds(eng) as seen:
+            ops.reset_launch_counts()         # the path: counts at 0 ...
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, hist = train(cfg, run, workers=W, b_loc=B_LOC, seq=1,
+                                data="host", layout="flat", sync="overlap",
+                                eng=eng, frontier=front_path,
+                                controller_trace=trace_path, log_every=0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()      # ... read just after
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with open(trace_path) as fh:
+            rec = json.load(fh)
+    rows = rec["rounds"]
+    check(rec["schema"] == TRACE_SCHEMA, f"{phase}: schema {rec['schema']}")
+    trace = [(r["t"], r["h"]) for r in rows]
+    check(eng.h_trace == trace == [(t - h, h) for t, h, _, _ in hist],
+          f"{phase}: H trace {eng.h_trace} != the controller's {trace}")
+    check(sum(h for _, h in trace) == run.total_steps == 24,
+          f"{phase}: the rounds cover {sum(h for _, h in trace)} steps")
+    lanes = [r["batch_lanes"] for r in rows]
+    check(lanes[0] == B_LOC // 2 and lanes == sorted(lanes)
+          and all(B_LOC % x == 0 for x in lanes),
+          f"{phase}: batch lanes {lanes}")
+    epochs = [dataclasses.asdict(e) for e in eng.batch_epochs]
+    check(bool(epochs) and all(
+        e["b_loc"] == B_LOC and 0 <= e["round_index"] < len(rows)
+        and rows[e["round_index"]]["batch_lanes"] == e["lanes"]
+        for e in epochs), f"{phase}: batch epochs {epochs}")
+    check([(t, h, d, n) for t, h, d, n, _ in seen] == [
+        (r["t"], r["h"], r["overlap_depth"], r["batch_lanes"])
+        for r in rows], f"{phase}: the engine's rounds {seen} are not the "
+          "trace's")
+    check(eng._pending is None, f"{phase}: a sync pending after train()")
+    check(lanes_equal(torch, state), f"{phase}: lanes differ after the flush")
+    applied = sum(p for *_, p in seen) + 1          # the flush's too
+    attn = cfg.n_layers * W * run.total_steps
+    want = {k: 0 for k in counts}
+    want.update(flash_attention_fwd=attn, flash_attention_bwd=attn,
+                adamw_update=run.total_steps, sync_apply_update=applied)
+    check(counts == want, f"{phase}: launch counts {counts} != {want}")
+    # the decisions replayed: a fresh controller fed the card's telemetry
+    ctrl = AdaptiveController(run, make_lr_fn(run),
+                              engine=StubEngine(B_LOC, "overlap"),
+                              frontier=frontier)
+    for r in rows:
+        check(ctrl.begin_round(r["t"]) == r["h"],
+              f"{phase}: the replayed controller's H at {r['t']}")
+        ctrl.end_round(r["t"], r["h"], r["measured"])
+    replay = json.loads(json.dumps(ctrl.trace_record()))
+    check(json.dumps(replay, sort_keys=True) == json.dumps(rec,
+                                                           sort_keys=True),
+          f"{phase}: the replayed trace differs from the card run's")
+    for r in rows:
+        emit("train_adaptive_round", t=r["t"], h=r["h"],
+             h_prior=r["h_prior"], h_correction=r["h_correction"],
+             lanes=r["batch_lanes"], depth=r["overlap_depth"],
+             reasons=r["reasons"], loss=r["measured"]["loss"],
+             divergence=r["measured"]["divergence"], seconds=0.0)
+
+    # one local step's device time on the final state, at the final lanes
+    data_s = eng.data_seconds
+    step_fn = LU.make_local_step(cfg, run, with_metrics=True, spec=eng.spec)
+    batch = eng._batch(0)
+    state, _ = step_fn(state, batch, 1e-5)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(3):
+        state, _ = step_fn(state, batch, 1e-5)
+    ev[1].record()
+    torch.cuda.synchronize()
+    device_ms = ev[0].elapsed_time(ev[1]) / 3
+    steps = run.total_steps
+    wall_ms = wall / steps * 1e3
+    emit(phase, arch=cfg.name, layers=cfg.n_layers, params=VIT_PARAMS,
+         workers=W, b_loc=B_LOC, image=IMAGE, steps=steps, layout="flat",
+         sync="overlap", sync_quantize=True, frontier_s_per_round=walls,
+         frontier=rec["frontier"], rounds=len(rows), h_trace=trace,
+         h_prior=[r["h_prior"] for r in rows],
+         h_correction=[r["h_correction"] for r in rows], lanes=lanes,
+         depths=[r["overlap_depth"] for r in rows],
+         batch_epochs=epochs, summary=rec["summary"], wall_s=wall,
+         wall_ms_per_step=wall_ms, data_ms_per_step=data_s / steps * 1e3,
+         device_ms_per_step=device_ms, device_busy_share=device_ms / wall_ms,
+         images_per_s_effective=sum(W * r["batch_lanes"] * r["h"]
+                                    for r in rows) / wall,
+         images_per_s_drawn=W * B_LOC * steps / wall,
+         host_reads_per_round=4, launches=counts, pending_applied=applied,
+         peak_mem_gb=peak_gb, replay_bitwise=True,
+         lanes_equal_after_flush=True,
+         seconds=time.perf_counter() - t_phase)
+    del state, batch, eng, step_fn
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_adaptive_card_vs_cpu(torch, np):
+    """The adaptive recipe at ViT-B widths cut to 2 layers, W = 2 x 4
+    images of 224^2, 12 steps (both knobs move: the depth to 1 and back,
+    the lanes 2 -> 4), with ADAPTIVE_FRONTIER: the card runs `train()` (its
+    controller deciding on the card's telemetry, its weights drawn on the
+    card from the engine's seed), the CPU engine (plain versions) replays
+    the card's (h, lanes, depth) sequence from the same weights on the
+    same batches.  `train_card_vs_cpu_overlap`'s bounds: per-round losses
+    within 1e-4 relative, the final params' relative L2 within 1e-3; the
+    batch epochs equal."""
+    from repro_torch import tree as T
+    from repro_torch.launch.train import train
+    from repro_torch.models import api, param as pm
+    from repro_torch.optim.lr import make_lr_fn
+
+    t_phase = time.perf_counter()
+    phase = "train_adaptive_card_vs_cpu"
+    kw = dict(ADAPTIVE_RUN, n_layers=2, workers=2, b_loc=4, total_steps=12)
+    cfg, run, _, _, eng_c = train_setup(torch, **kw)
+    _, _, _, _, eng_h = train_setup(torch, device="cpu", **kw)
+    # the weights train() draws on the card (engine seed, card generator)
+    host_p = T.map(lambda x: x.cpu(), pm.init_params(
+        api.get_module(cfg).param_defs(cfg),
+        torch.Generator(device="cuda").manual_seed(eng_c.seed),
+        device="cuda"))
+    with recorded_rounds(eng_c) as seen:
+        t0 = time.perf_counter()
+        card, hist = train(cfg, run, workers=2, b_loc=4, seq=1, data="host",
+                           layout="flat", sync="overlap", eng=eng_c,
+                           frontier=ADAPTIVE_FRONTIER, log_every=0)
+        card_s = time.perf_counter() - t0
+    lr_fn = make_lr_fn(run)
+    t0 = time.perf_counter()
+    host = eng_h.init_state(host_p)
+    for t, h, depth, lanes, _ in seen:
+        if eng_h.batch_lanes != lanes:
+            eng_h.batch_epoch(lanes)
+        if eng_h.overlap_depth != depth:
+            eng_h.set_overlap_depth(depth)
+        host, _ = eng_h.run_round(host, t, h, lr_fn)
+    host = eng_h.flush(host)
+    cpu_s = time.perf_counter() - t0
+    check(eng_h.h_trace == eng_c.h_trace and eng_h.batch_epochs
+          == eng_c.batch_epochs, f"{phase}: the replay's rounds or epochs")
+    losses = {dev: [float(m["loss"]) for m in e.round_metrics]
+              for dev, e in (("cuda", eng_c), ("cpu", eng_h))}
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                      losses["cpu"]))
+    a = card["params"]["float32"].cpu()
+    b = host["params"]["float32"]
+    d = (a - b).abs()
+    off = int((d > 1e-5 * (1 + b.abs())).sum())
+    worst, rel_l2 = float(d.max()), float(d.norm() / b.norm())
+    emit(phase, layers=cfg.n_layers, d_model=cfg.d_model, workers=2,
+         b_loc=4, image=IMAGE, steps=run.total_steps,
+         frontier=ADAPTIVE_FRONTIER, h_trace=eng_c.h_trace,
+         lanes=[r[3] for r in seen], depths=[r[2] for r in seen],
+         batch_epochs=[dataclasses.asdict(e) for e in eng_c.batch_epochs],
+         losses_card=losses["cuda"], losses_cpu=losses["cpu"],
+         max_loss_rel_err=loss_err, param_rel_l2=rel_l2,
+         max_param_abs_err=worst, params_beyond_1e5=off, params=b.numel(),
+         card_s=card_s, cpu_s=cpu_s, seconds=time.perf_counter() - t_phase)
+    check(loss_err <= 1e-4, f"{phase}: loss rel err {loss_err}")
+    check(rel_l2 <= 1e-3, f"{phase}: params rel L2 {rel_l2}")
+    del card, host, eng_c, eng_h
+    torch.cuda.empty_cache()
+
+
+def phase_train_microbatch(torch, np, lm_row):
+    """`RunConfig.microbatch` 2 and 4 on `train_lm`'s path: starcoder2-3b
+    at full width cut to 2 layers, W = 4 x 4 x 1024, one QSR round of H = 2
+    through `train()` each, attention launched mb times a layer, worker
+    and step at q[4/mb,1024,24,128]; each row's peak memory below
+    `train_lm`'s (microbatch 1, the same recipe over 8 steps) and the
+    device time of one step beside it.  Then the gate: one step from the
+    same params (seed 3) on the same batch at microbatch 1, 2 and 4 with
+    the kernels, and at 2 and 4 with the plain versions
+    (`plain_versions_on_card`): every run's loss and grad norm within 1e-4
+    relative of microbatch 1's, and each gradient leaf (AdamW's first
+    moment after the step, over every lane) within 1e-4 relative L2, the
+    LM gates' first-step rule.  Returns the runs' summed counts."""
+    from repro_torch import tree as T
+    from repro_torch.core import local_update as LU
+    from repro_torch.data.synthetic import TokenStream, make_train_batch
+    from repro_torch.models import api, param as pm
+
+    t_phase = time.perf_counter()
+    phase = "train_microbatch"
+    total, rows = None, {}
+    for mb in (2, 4):
+        cfg, run, eng = lm_engine(n_layers=LM_LAYERS, workers=LM_W,
+                                  b_loc=LM_B, seq=LM_SEQ, total_steps=2,
+                                  microbatch=mb)
+        state, rounds, counts, wall, peak_gb = run_lm(
+            torch, np, phase, cfg, run, eng, [(0, 2)])
+        attn = mb * cfg.n_layers * LM_W * 2
+        want = {k: 0 for k in counts}
+        want.update(flash_attention_fwd=attn, flash_attention_bwd=attn,
+                    adamw_update=LM_LEAVES * 2)
+        check(counts == want, f"{phase} {mb}: launch counts {counts} != "
+              f"{want}")
+        total = counts if total is None else {k: total[k] + counts[k]
+                                              for k in counts}
+        step_fn = LU.make_local_step(cfg, run, with_metrics=True)
+        batch = eng._batch(0)
+        state, _ = step_fn(state, batch, 1e-6)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        for _ in range(2):
+            state, _ = step_fn(state, batch, 1e-6)
+        ev[1].record()
+        torch.cuda.synchronize()
+        rows[mb] = dict(wall_s=wall, device_ms_per_step=ev[0].elapsed_time(
+            ev[1]) / 2, peak_mem_gb=peak_gb, launches=counts,
+            attention_shape=LM_MB_ATTN[mb], rounds=rounds)
+        del state, batch, eng, step_fn
+        torch.cuda.empty_cache()
+    for mb, row in rows.items():
+        check(row["peak_mem_gb"] < lm_row["peak_mem_gb"],
+              f"{phase} {mb}: peak {row['peak_mem_gb']} GB not below "
+              f"microbatch 1's {lm_row['peak_mem_gb']} GB")
+
+    gc.collect()
+    cfg, run = lm_setup(LM_LAYERS)
+    p = pm.init_params(api.get_module(cfg).param_defs(cfg),
+                       torch.Generator(device="cuda").manual_seed(3),
+                       device="cuda")
+    batch = T.map(lambda x: x.cuda(), make_train_batch(
+        cfg, TokenStream(vocab=cfg.vocab, seed=0), 0, LM_W, LM_B, LM_SEQ))
+
+    def first_step(mb, plain=False):
+        """(loss, grad norm, AdamW's first moments by leaf) of one step
+        from p at microbatch mb."""
+        r = dataclasses.replace(run, microbatch=mb)
+        st = LU.init_state(cfg, r, p, LM_W)
+        with (plain_versions_on_card() if plain
+              else contextlib.nullcontext()):
+            st, (loss, gn) = LU.make_local_step(cfg, r, with_metrics=True)(
+                st, batch, r.peak_lr)
+        out = float(loss), float(gn), T.leaves(st["opt"]["m"])
+        del st
+        return out
+
+    loss1, gn1, m1 = first_step(1)
+    gate, fails = {}, []
+    for mb, plain in ((2, False), (4, False), (2, True), (4, True)):
+        loss, gn, m = first_step(mb, plain)
+        errs = [float((a - b).norm() / b.norm().clamp_min(1e-30))
+                for a, b in zip(m, m1)]
+        del m
+        torch.cuda.empty_cache()
+        key = f"mb{mb}_{'plain' if plain else 'kernels'}"
+        gate[key] = dict(loss=loss, grad_norm=gn,
+                         loss_rel_err=abs(loss - loss1) / abs(loss1),
+                         grad_norm_rel_err=abs(gn - gn1) / abs(gn1),
+                         grad_rel_l2_by_leaf=errs)
+        for name in ("loss_rel_err", "grad_norm_rel_err"):
+            if gate[key][name] > 1e-4:
+                fails.append(f"{key} {name} {gate[key][name]}")
+        if max(errs) > 1e-4:
+            fails.append(f"{key} gradient rel L2 {max(errs)}")
+    emit(phase, arch=cfg.name, layers=cfg.n_layers, workers=LM_W,
+         b_loc=LM_B, seq=LM_SEQ, steps=2,
+         microbatch={str(mb): row for mb, row in rows.items()},
+         microbatch1=dict(device_ms_per_step=lm_row["device_ms_per_step"],
+                          peak_mem_gb=lm_row["peak_mem_gb"],
+                          attention_shape=LM_TRAIN_ATTN),
+         gate_mb1=dict(loss=loss1, grad_norm=gn1), gate=gate,
+         failures=fails, seconds=time.perf_counter() - t_phase)
+    check(not fails, f"{phase}: " + "; ".join(fails))
+    del p, batch, m1
+    torch.cuda.empty_cache()
+    return total
 
 
 # ---------------------------------------------------------------- LM -------
@@ -3625,22 +4019,22 @@ def phase_generate_ring(torch, np):
 
 
 def phase_train_whisper(torch, np, data):
-    """whisper-base at full width and depth (6 + 6 layers, 70,627,840
+    """whisper-base at full width cut to 3 + 3 layers (48,592,384
     parameters, 31 leaves) through `train_lm_path`: W = 4 x 8 sequences of
     64 tokens (the training CLI's defaults) with the LM recipe, 8 steps,
     each lane's batch carrying frames [8, 1500, 512], drawn on the host
     (`data="host"`) or on the card (`data="device"`).  Per step and worker
-    18 attention forwards and backwards (6 encoder, 6 decoder self, 6
+    9 attention forwards and backwards (3 encoder, 3 decoder self, 3
     cross: the cross backward at Sq = 64 against Sk = 1500, the encoder's
     with dS in key chunks), AdamW once a leaf.  Returns (counts, line)."""
-    from repro_torch.configs import registry as R
-    cfg = R.get_config(WH_ARCH)
-    attn = (cfg.n_enc_layers + 2 * cfg.n_layers) * WH_W * LM_STEPS
+    n = WH_TRAIN_LAYERS
+    attn = 3 * n * WH_W * LM_STEPS
     return train_lm_path(
         torch, np, f"train_whisper_{data}", WH_ARCH, WH_W, WH_BLOC, WH_SEQ,
-        WH_PARAMS, dict(flash_attention_fwd=attn, flash_attention_bwd=attn,
-                        adamw_update=WH_LEAVES * LM_STEPS),
-        n_layers=None, data=data)
+        WH_TRAIN_PARAMS, dict(flash_attention_fwd=attn,
+                              flash_attention_bwd=attn,
+                              adamw_update=WH_LEAVES * LM_STEPS),
+        n_layers=n, cut=dict(n_enc_layers=n), data=data)
 
 
 def phase_train_lm_device(torch, np, host_row):
@@ -4041,20 +4435,20 @@ def ssm_prefill_and_gate(torch, np, phase, cfg, rows, cpu_layers):
 
 
 def phase_train_mamba2(torch, np):
-    """mamba2-130m training on the card at full width and depth (24
-    layers, 128,983,488 parameters, 13 leaves) through `train_lm_path`:
-    the LM recipe, W = 4 x 4 sequences of 1024 tokens (four 256-token SSD
-    chunks each), 8 steps; per step and worker 49 rms_norm and rms_norm_bwd
-    launches (through `_RmsNorm`: each layer's norm at d = 768 and its
-    gated norm at 1536, the final norm), AdamW once a leaf, no attention.
-    Returns the counts."""
-    from repro_torch.configs import registry as R
-    per = norms_per_pass(R.get_config(M2_ARCH)) * M2_W * LM_STEPS
+    """mamba2-130m training on the card at full width cut to 12 of its 24
+    layers (83,799,648 parameters, 13 leaves) through `train_lm_path`: the
+    LM recipe, W = 4 x 4 sequences of 1024 tokens (four 256-token SSD
+    chunks each), 8 steps; per step and worker 25 rms_norm and
+    rms_norm_bwd launches (through `_RmsNorm`: each layer's norm at d = 768
+    and its gated norm at 1536, the final norm), AdamW once a leaf, no
+    attention.  Returns the counts."""
+    cfg, _ = lm_setup(M2_TRAIN_LAYERS, M2_ARCH)
+    per = norms_per_pass(cfg) * M2_W * LM_STEPS
     return train_lm_path(
         torch, np, "train_mamba2", M2_ARCH, M2_W, M2_B, LM_SEQ,
-        M2_PARAMS[24], dict(rms_norm=per, rms_norm_bwd=per,
-                            adamw_update=M2_LEAVES * LM_STEPS),
-        n_layers=None)[0]
+        M2_PARAMS[M2_TRAIN_LAYERS], dict(rms_norm=per, rms_norm_bwd=per,
+                                         adamw_update=M2_LEAVES * LM_STEPS),
+        n_layers=M2_TRAIN_LAYERS)[0]
 
 
 def phase_train_zamba2(torch, np):
@@ -4584,15 +4978,22 @@ def main() -> int:
     add(flat, ("sync_flat_update",))
     phase_train_card_vs_cpu(torch, np)
     # the sync variants
-    overlap = phase_train_overlap(torch, np, flat_state)
+    overlap, walls = phase_train_overlap(torch, np, flat_state)
     del flat_state
     add(overlap, ("sync_apply_update",))
     add(phase_train_partial(torch, np), ("sync_apply_update",))
     add(phase_train_ring(torch, np), SYNC_KERNELS)
     phase_train_card_vs_cpu_overlap(torch, np)
+    # the adaptive controller: H, the effective batch and the overlap depth
+    # decided at round boundaries from the run's telemetry
+    add(phase_train_adaptive(torch, np, walls),
+        TRAINING_KERNELS[:3] + ("sync_apply_update",))
+    phase_train_adaptive_card_vs_cpu(torch, np)
     # the LM training path, on host and on device data
     lm_counts, lm_row = phase_train_lm(torch, np)
     add(lm_counts, TRAINING_KERNELS[:3])
+    # microbatch 2 and 4: gradient accumulation over chunks of each batch
+    add(phase_train_microbatch(torch, np, lm_row), TRAINING_KERNELS[:3])
     add(phase_train_lm_device(torch, np, lm_row), TRAINING_KERNELS[:3])
     phase_train_lm_full_depth(torch, np)
     phase_train_lm_card_vs_cpu(torch, np)
@@ -4657,11 +5058,14 @@ def main() -> int:
             label for (kern, label) in rows if kern == "flash_decode"
             and label.startswith(("phi3", "qwen", "paligemma", "whisper",
                                   "gemma3-4b", "zamba2", "dbrx", "kimi")))],
-        "flash_attention_fwd": [LM_TRAIN_ATTN, *PREFILL_ATTN,
+        "flash_attention_fwd": [LM_TRAIN_ATTN, VIT_MB_ATTN,
+                                *LM_MB_ATTN.values(), *PREFILL_ATTN,
                                 PHI3_TRAIN_ATTN, *VLM_ATTN,
                                 *WH_ATTN.values(), *Z2_ATTN.values(),
                                 DBRX_PREFILL_ATTN, *KIMI_ATTN],
-        "flash_attention_bwd": [LM_TRAIN_ATTN, PHI3_TRAIN_ATTN, *VLM_ATTN,
+        "flash_attention_bwd": [LM_TRAIN_ATTN, VIT_MB_ATTN,
+                                *LM_MB_ATTN.values(), PHI3_TRAIN_ATTN,
+                                *VLM_ATTN,
                                 *(WH_ATTN[k] for k in ("enc_train",
                                                        "dec_train",
                                                        "cross_train")),

@@ -47,9 +47,17 @@ H-trace, W and the layout record), so a resumed run lands on the next round
 boundary, and `restore` converts a checkpoint written under the other
 layout through the tree layout.
 
-Anything else of the reference — flat_sharded, meshes, adaptive batch,
-`save_sharded` / `restore_elastic` — raises `ConfigError("not ported
-yet")`.
+The adaptive controller's two knobs (`core/controller.py`) move here at
+round boundaries: `set_overlap_depth` (read for a pending apply when the
+round runs) and, on an engine built with `adaptive_batch=True`,
+`batch_epoch(lanes)`: every later step trains on its batch's samples
+[0, lanes) tiled over the b_loc slots (`data/synthetic.py
+effective_batch_view`), viewed after the draw, on host and device data
+alike.  The host still draws all b_loc samples and the step computes all
+of them, as the reference's fixed-shape program does.
+
+Anything else of the reference — flat_sharded, meshes, `save_sharded` /
+`restore_elastic` — raises `ConfigError("not ported yet")`.
 """
 from __future__ import annotations
 
@@ -67,6 +75,7 @@ from repro_torch.core import local_update as LU
 from repro_torch.core.sync import (make_sync, make_sync_apply,
                                    make_sync_begin, make_sync_partial)
 from repro_torch.data.synthetic import (TokenStream, device_batch_fn,
+                                        effective_batch_view,
                                         make_train_batch)
 from repro_torch.device import resolve_device
 from repro_torch.errors import ConfigError
@@ -102,6 +111,22 @@ class MembershipEpoch:
     workers: int
     membership: tuple[float, ...]
     resized: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchEpoch:
+    """One round-boundary change of the effective per-worker batch,
+    appended to `engine.batch_epochs` by `batch_epoch()`.
+
+    index:       epoch ordinal
+    lanes:       effective per-worker batch after the change (divides b_loc)
+    b_loc:       the allocated per-worker batch (the drawn shape, unchanged)
+    round_index: rounds executed when the change landed (the boundary)
+    """
+    index: int
+    lanes: int
+    b_loc: int
+    round_index: int
 
 
 def worker_divergence(params: Tree) -> torch.Tensor:
@@ -162,9 +187,12 @@ class RoundEngine:
         if sync != "blocking" and mode != "bucketed":
             raise ConfigError(
                 "overlap/partial sync runs through the bucketed program")
+        if adaptive_batch and mode != "bucketed":
+            raise ConfigError(
+                "adaptive_batch needs mode='bucketed', as the reference's "
+                "engine does")
         for bad, what in ((layout == "flat_sharded", "layout='flat_sharded'"),
-                          (mesh is not None, "a mesh"),
-                          (adaptive_batch, "adaptive_batch")):
+                          (mesh is not None, "a mesh")):
             if bad:
                 raise ConfigError(f"{what}: not ported yet")
         self.device = resolve_device(device)
@@ -182,6 +210,12 @@ class RoundEngine:
         # lanes by default); only membership_epoch() changes it
         self.membership = np.ones(workers, np.float32)
         self.epochs: list[MembershipEpoch] = []
+        # adaptive effective batch: b_loc samples are drawn a step, the
+        # first `batch_lanes` of them tiled over the b_loc slots; only
+        # batch_epoch() changes it
+        self.adaptive_batch = adaptive_batch
+        self.batch_lanes = b_loc
+        self.batch_epochs: list[BatchEpoch] = []
         self.h_trace: list[tuple[int, int]] = []    # (t_start, h) executed
         self.round_metrics: list[dict] = []         # per round, device scalars
         self.data_seconds = 0.0                     # host time in batch_fn
@@ -195,14 +229,21 @@ class RoundEngine:
                                self.b_loc, self.seq, self.device)
 
     def _batch(self, step: int) -> Tree:
-        """The batch of local step `step` on the engine's device; the host
-        time of its draw (a host batch's copy to the device left out) goes
-        to `data_seconds`."""
+        """The batch of local step `step` on the engine's device, viewed at
+        the effective batch (`batch_lanes`) on an adaptive engine; the host
+        time of its draw (a host batch's copy to the device and the view
+        left out) goes to `data_seconds`."""
         t0 = time.perf_counter()
         draw = self._synth if self._synth is not None else self._host_batch
         batch = draw(step)
         self.data_seconds += time.perf_counter() - t0
-        return T.map(lambda x: x.to(self.device), batch)
+        batch = T.map(lambda x: x.to(self.device), batch)
+        if self.adaptive_batch:
+            # the reference views inside its valid-step branch; the port
+            # runs no padded step, so every executed step is viewed, before
+            # the worker loop and before a microbatch splits it
+            batch = effective_batch_view(batch, self.batch_lanes, axis=1)
+        return batch
 
     def _host_batch(self, step: int) -> Tree:
         """The batch of local step `step`: `batch_fn`'s, or the built-in
@@ -280,6 +321,8 @@ class RoundEngine:
         tensors."""
         step, sync = self._programs()
         pending = self._pending if self.sync_mode == "overlap" else None
+        # the depth in force now, as set at this boundary (the controller's
+        # set_overlap_depth may have moved it since the reduce was begun)
         d = min(self.overlap_depth, h) if pending is not None else 0
         entry = None
         if pending is not None and d > 0:
@@ -327,6 +370,26 @@ class RoundEngine:
         state = self.synced_view(state)
         self._pending = None
         return state
+
+    def batch_epoch(self, lanes: int) -> None:
+        """The only place the effective per-worker batch changes: a round
+        boundary, as membership_epoch.  From the next round on each step
+        trains on `lanes` samples a worker, tiled over the b_loc drawn
+        (`effective_batch_view`); `lanes` must divide b_loc for the tiled
+        mean to be an exact batch-`lanes` gradient.  Recorded as a
+        BatchEpoch."""
+        if not self.adaptive_batch:
+            raise MembershipError(
+                "batch_epoch needs an adaptive_batch=True engine")
+        lanes = int(lanes)
+        if not 1 <= lanes <= self.b_loc or self.b_loc % lanes:
+            raise MembershipError(
+                f"batch lanes must divide b_loc={self.b_loc} "
+                f"(got {lanes})")
+        self.batch_lanes = lanes
+        self.batch_epochs.append(BatchEpoch(
+            index=len(self.batch_epochs), lanes=lanes, b_loc=self.b_loc,
+            round_index=len(self.h_trace)))
 
     def set_overlap_depth(self, depth: int) -> None:
         """Retune the overlap depth at a round boundary (overlap engines

@@ -8,14 +8,31 @@ communication); the sync is a W-axis mean every H steps.
 Where the reference vmaps the per-worker loss and gradient, the port keeps
 each state leaf (each dtype bucket, under the flat layout) as ONE `[W, ...]`
 tensor, makes a grad-requiring alias of it, runs each worker's forward on
-the views `[w]`, sums the W losses and takes one `torch.autograd.grad`.  The
-workers share no parameter, so each worker's slice of the gradient is
-exactly its own gradient.  Under the flat layout the gradient is taken with
-respect to the `[W, N]` buckets through `FlatParamSpace.unflatten`'s views,
-which scatters each leaf's gradient into its slice: bitwise the tree
-layout's per-leaf gradient.  The optimizer then updates the state tensors
-under `torch.no_grad()` (in place on the card).  Folding the W workers into
-one batched product is later work.
+the views `[w]`, sums the W losses and runs one backward into the alias's
+`.grad`.  The workers share no parameter, so each worker's slice of the
+gradient is exactly its own gradient.  Under the flat layout the gradient
+is taken with respect to the `[W, N]` buckets through
+`FlatParamSpace.unflatten`'s views, which scatters each leaf's gradient
+into its slice: bitwise the tree layout's per-leaf gradient.  The
+optimizer then updates the state tensors under `torch.no_grad()` (in place
+on the card).  Folding the W workers into one batched product is later
+work.
+
+`RunConfig.microbatch = mb > 1` accumulates the gradient over mb
+sequential chunks of each worker's batch (rows [c B/mb, (c+1) B/mb) of
+chunk c, as the reference's reshape `(mb, B // mb)` takes them): one
+backward per chunk over the W workers' chunk losses.  The reference sums
+`acc + g / mb` from zeros; the port lets autograd add each chunk's
+gradient into the `.grad` in place and divides by mb once at the end, so
+that a chunk's gradient lives one leaf at a time beside the
+accumulator, not all of it (at mb = 2 the whole gradient held twice would
+cost what the halved activations save).  For a power-of-two mb the two
+orders give the same bits (a power-of-two scale is exact in fp32, away
+from subnormals); for another mb they differ by a rounding per element.
+The loss is summed in the reference's order, `acc + loss / mb` from zero.
+A batch that mb does not divide raises `ConfigError` (the reference fails
+inside its reshape).  An MoE model sizes its expert capacity per chunk, as
+the reference's does.
 """
 from __future__ import annotations
 
@@ -80,31 +97,48 @@ def make_local_step(cfg, run_cfg, *, with_metrics: bool = False, spec=None):
     local_step(state, batch, lr) -> (state, loss) or, with `with_metrics`,
     (state, (loss, grad_norm)): the mean over workers of the W losses and of
     each worker's global gradient L2 norm, as 0-d device tensors.  With
-    `spec` (a FlatParamSpace) params/opt are `{bucket: [W, N]}` buffers."""
-    if run_cfg.microbatch > 1:
-        raise ConfigError("microbatch > 1: not ported yet")
+    `spec` (a FlatParamSpace) params/opt are `{bucket: [W, N]}` buffers.
+    With `run_cfg.microbatch` > 1 the gradient is accumulated over that many
+    chunks of each worker's batch (the module docstring)."""
     loss_fn = make_loss(cfg, run_cfg)
     opt = make_optimizer(run_cfg)
+    mb = max(1, int(run_cfg.microbatch))
+
+    def worker_losses(treedef, lanes, batch):
+        """The W workers' losses [W], each on its own params' views (call
+        with grad enabled)."""
+        losses = []
+        for i in range(T.leaves(batch)[0].shape[0]):
+            pw = T.unflatten(treedef, [lane[i] for lane in lanes])
+            if spec is not None:
+                pw = spec.unflatten(pw)
+            losses.append(loss_fn(pw, T.map(lambda x: x[i], batch)))
+        return torch.stack(losses)
 
     def local_step(state, batch, lr):
         leaves, treedef = T.flatten(state["params"])
         alias = [x.detach().requires_grad_(True) for x in leaves]
         lanes = [x.unbind(0) for x in alias]
-        w = T.leaves(batch)[0].shape[0]
-        with torch.enable_grad():
-            losses = []
-            for i in range(w):
-                pw = T.unflatten(treedef, [lane[i] for lane in lanes])
-                if spec is not None:
-                    pw = spec.unflatten(pw)
-                losses.append(loss_fn(pw, T.map(lambda x: x[i], batch)))
-            losses = torch.stack(losses)
-            grads = torch.autograd.grad(losses.sum(), alias)
+        w, b = T.leaves(batch)[0].shape[:2]
+        if b % mb:
+            raise ConfigError(
+                f"microbatch {mb} does not divide the per-worker batch {b}")
+        n = b // mb
+        losses = torch.zeros(w, dtype=torch.float32, device=leaves[0].device)
+        for c in range(mb):
+            chunk = (batch if mb == 1
+                     else T.map(lambda x: x[:, c * n:(c + 1) * n], batch))
+            with torch.enable_grad():
+                loss_c = worker_losses(treedef, lanes, chunk)
+                # into each alias's .grad, in place (module docstring)
+                torch.autograd.backward(loss_c.sum(), inputs=alias)
+            losses = losses + loss_c.detach() / mb
+        grads = [x.grad if mb == 1 else x.grad.div_(mb) for x in alias]
         with torch.no_grad():
             params, opt_state = opt.update(
                 state["params"], state["opt"], T.unflatten(treedef, grads), lr)
             new_state = {**state, "params": params, "opt": opt_state}
-            loss = torch.mean(losses.detach())
+            loss = torch.mean(losses)
             if not with_metrics:
                 return new_state, loss
             # lane by lane: a whole leaf's squares at once (10 GiB for

@@ -18,10 +18,10 @@ Related-work baselines (paper §A — optimization-perspective schedules):
 
 Beyond the paper:
   adaptive  open-loop it is the QSR prior exactly; at run time
-            the JAX package's AdaptiveController multiplies the prior by a
-            divergence correction (not ported yet).  get_h here
-            returns only the prior so the schedule stays a pure function of
-            (run_cfg, t, lr) — every boundary rule below applies unchanged.
+            `core/controller.py`'s AdaptiveController multiplies the prior
+            by a divergence correction.  get_h here returns only the prior
+            so the schedule stays a pure function of (run_cfg, t, lr) —
+            every boundary rule below applies unchanged.
 
 All schedules implement the paper's two boundary rules:
   * warmup: H is pinned to the value of the first post-warmup round (§2),

@@ -26,6 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import tree as T
 
 
 @dataclasses.dataclass
@@ -95,6 +96,27 @@ def vision_batch_fn(stream: VisionStream, workers: int, b_loc: int):
         xs, ys = zip(*[stream.batch(step, w, b_loc) for w in range(workers)])
         return {"images": torch.stack(xs), "labels": torch.stack(ys)}
     return batch_fn
+
+
+def effective_batch_view(batch, lanes: int, axis: int = 1):
+    """View `batch` (leaves [..., B, ...] with the per-worker batch at
+    `axis`) as an effective batch of `lanes` samples without changing any
+    shape: samples [0, lanes) are tiled over the B slots (`idx = arange(B)
+    % lanes`, gathered on the batch's device), so when `lanes` divides B
+    the mean loss and gradient are exactly those of a batch-`lanes` step
+    (each distinct sample weighted B / lanes times; the weights cancel in
+    the mean).  The adaptive controller's batch knob (`core/controller.py`,
+    through `RoundEngine.batch_epoch`).  Leaves with `ndim <= axis` pass
+    through; at lanes == B the index is the identity and every leaf is
+    returned as it is (the reference gathers it: the same bits)."""
+    lanes = int(lanes)
+
+    def take(x):
+        if x.ndim <= axis or lanes >= x.shape[axis]:
+            return x
+        idx = torch.arange(x.shape[axis], device=x.device) % lanes
+        return torch.index_select(x, axis, idx)
+    return T.map(take, batch)
 
 
 def device_batch_fn(cfg, stream: TokenStream, w: int, b_loc: int, seq: int,

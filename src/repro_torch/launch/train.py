@@ -20,9 +20,18 @@ does, but not its bits (`jax.random` has no twin).  `--ckpt DIR`
 checkpoints the run into DIR (every `steps // 4` steps and at the end) and
 resumes from it when it holds one, in either layout; `--async-observer`
 writes the mid-run checkpoints from a background thread
-(`core/observer.py`).  `--mesh`, `--param-layout flat_sharded`,
-`--schedule adaptive`, `--controller-trace` and `--frontier` raise
-`ConfigError("not ported yet")`.
+(`core/observer.py`).  `--schedule adaptive` runs the closed-loop
+controller (`core/controller.py`) around every round; `--controller-trace
+PATH` writes its decisions (schema controller_trace/v1) and `--frontier
+PATH` (a table4_walltime JSON, or a `{depth: s_per_round}` one) lets it
+choose the overlap depth under `--sync overlap`:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \
+        --smoke --device cpu --steps 24 --workers 2 --batch 4 --seq 16 \
+        --schedule adaptive --controller-trace trace.json
+
+`--mesh` and `--param-layout flat_sharded` raise `ConfigError("not ported
+yet")`.
 
 From Python, any model the port trains (here ViT-B/16 on its image stream):
 
@@ -67,7 +76,12 @@ consensus weights to a directory a server watches (`launch/weights.py`):
                         step=t)
     train(cfg, run, ..., ckpt_dir=ckpt, async_observer=True, eval_fn=publish)
 
-The adaptive controller is not ported yet (it raises).
+The adaptive controller (`schedule="adaptive"` in the RunConfig) drives H,
+the effective batch (`eng.batch_epoch`, on an engine built with
+`adaptive_batch=True`) and, with `sync="overlap"` and a `frontier`, the
+overlap depth; `controller_trace="trace.json"` keeps its decisions.
+`RunConfig(microbatch=mb)` accumulates each step's gradient over mb chunks
+of the per-worker batch.
 """
 from __future__ import annotations
 
@@ -78,6 +92,7 @@ from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.configs import registry as R
 from repro_torch.configs.base import RunConfig
 from repro_torch.core import schedules
+from repro_torch.core.controller import AdaptiveController, load_frontier
 from repro_torch.core.engine import RoundEngine
 from repro_torch.errors import ConfigError
 from repro_torch.optim.lr import make_lr_fn
@@ -111,14 +126,28 @@ def train(cfg, run_cfg: RunConfig, *, workers: int, b_loc: int, seq: int,
     clones it on the device and hands it to its thread, where `eval_fn`
     (with the host state) and the checkpoint writer run in that order
     (`fanout`); a superseded snapshot's checkpoint request rides the newer
-    one.  The final checkpoint is written after the run's flush."""
-    if run_cfg.schedule == "adaptive" or controller_trace or frontier:
-        raise ConfigError("the adaptive controller: not ported yet")
+    one.  The final checkpoint is written after the run's flush.
+
+    schedule="adaptive" swaps the open-loop `schedules.get_h` walk for an
+    `AdaptiveController` (core/controller.py) around every round: H gets a
+    divergence correction on top of the QSR prior, the effective
+    per-worker batch grows through `batch_epoch`s (engines built with
+    `adaptive_batch=True`, as an engine built here is under the bucketed
+    mode), and with sync="overlap" and a `frontier` ({depth: s/round} or
+    the path of a table4_walltime JSON) the overlap depth rides the
+    walltime frontier.  `controller_trace` names the JSON file the
+    decisions are written to after the run (schema controller_trace/v1).
+    The controller reads each round's metrics to the host (one device
+    sync a round) and keeps no state in a checkpoint: a resumed run
+    recalibrates, as the reference's does."""
+    adaptive = run_cfg.schedule == "adaptive"
     if eng is None:
         eng = RoundEngine(cfg, run_cfg, workers=workers, b_loc=b_loc,
                           seq=seq, seed=seed, mode=engine, data=data,
                           layout=layout, sync=sync,
-                          overlap_depth=overlap_depth, device=device)
+                          overlap_depth=overlap_depth,
+                          adaptive_batch=adaptive and engine == "bucketed",
+                          device=device)
     else:
         got = (eng.cfg, eng.run_cfg, eng.workers, eng.b_loc, eng.seq,
                eng.seed, eng.mode, eng.data, eng.layout, eng.sync_mode,
@@ -132,6 +161,13 @@ def train(cfg, run_cfg: RunConfig, *, workers: int, b_loc: int, seq: int,
                 f"train() called with {want}")
     state = eng.init_state()
     lr_fn = make_lr_fn(run_cfg)
+
+    ctrl = None
+    if adaptive:
+        if isinstance(frontier, str):
+            frontier = load_frontier(frontier)
+        ctrl = AdaptiveController(run_cfg, lr_fn, engine=eng,
+                                  frontier=frontier)
 
     step0 = 0
     if ckpt_dir and ckpt_io.exists(ckpt_dir):
@@ -163,8 +199,11 @@ def train(cfg, run_cfg: RunConfig, *, workers: int, b_loc: int, seq: int,
     t = saved_at = step0
     try:
         while t < run_cfg.total_steps:
-            h = schedules.get_h(run_cfg, t, lr_fn)
+            h = (ctrl.begin_round(t) if ctrl is not None
+                 else schedules.get_h(run_cfg, t, lr_fn))
             state, m = eng.run_round(state, t, h, lr_fn)
+            if ctrl is not None:
+                ctrl.end_round(t, h, m)
             t += h
             loss = float(m["loss"])
             history.append((t, h, loss, lr_fn(t - 1)))
@@ -198,6 +237,10 @@ def train(cfg, run_cfg: RunConfig, *, workers: int, b_loc: int, seq: int,
             observer.close()
     if ckpt_dir and saved_at != t:
         eng.save(ckpt_dir, state, step=t)
+    if ctrl is not None and controller_trace:
+        ctrl.write_trace(controller_trace)
+        print(f"controller trace ({len(ctrl.trace)} rounds) -> "
+              f"{controller_trace}")
     return state, history
 
 
@@ -239,8 +282,13 @@ def main(argv=None):
                     help="int8-quantized sync deltas; implied by --wire "
                          "ring-int8")
     ap.add_argument("--wire", default="auto", choices=["auto", "ring-int8"])
-    ap.add_argument("--controller-trace", default=None)
-    ap.add_argument("--frontier", default=None)
+    ap.add_argument("--controller-trace", default=None,
+                    help="--schedule adaptive: JSON path for the per-round "
+                         "controller decisions (schema controller_trace/v1)")
+    ap.add_argument("--frontier", default=None,
+                    help="--schedule adaptive + --sync overlap: a "
+                         "table4_walltime JSON whose s/round rows give the "
+                         "overlap-depth walltime frontier")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--workers", type=int, default=4)
     ap.add_argument("--batch", type=int, default=8, help="per-worker batch")
@@ -254,10 +302,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     for bad, flag in ((args.mesh, "--mesh"),
                       (args.param_layout == "flat_sharded",
-                       "--param-layout flat_sharded"),
-                      (args.schedule == "adaptive", "--schedule adaptive"),
-                      (args.controller_trace, "--controller-trace"),
-                      (args.frontier, "--frontier")):
+                       "--param-layout flat_sharded")):
         if bad:
             raise ConfigError(f"{flag}: not ported yet")
 
@@ -272,12 +317,17 @@ def main(argv=None):
     eng = RoundEngine(cfg, run_cfg, workers=args.workers, b_loc=args.batch,
                       seq=args.seq, mode=args.engine, data=args.data,
                       layout=args.param_layout, sync=args.sync,
-                      overlap_depth=args.overlap_depth, device=args.device)
+                      overlap_depth=args.overlap_depth,
+                      adaptive_batch=(args.schedule == "adaptive"
+                                      and args.engine == "bucketed"),
+                      device=args.device)
     state, hist = train(cfg, run_cfg, workers=args.workers, b_loc=args.batch,
                         seq=args.seq, ckpt_dir=args.ckpt, engine=args.engine,
                         data=args.data, layout=args.param_layout,
                         sync=args.sync, overlap_depth=args.overlap_depth,
-                        async_observer=args.async_observer, eng=eng)
+                        async_observer=args.async_observer, eng=eng,
+                        controller_trace=args.controller_trace,
+                        frontier=args.frontier)
     losses = [loss for _, _, loss, _ in hist]
     if not losses:
         print("nothing to do: checkpoint already at "

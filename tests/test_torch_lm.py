@@ -21,6 +21,7 @@ in fp32 and sum in different orders.  Tolerances, each with its reason:
 * inside the port, tree and flat layouts: bitwise.
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -556,10 +557,38 @@ def test_train_cli_equals_train(capsys, arch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "4x2"], ["--param-layout", "flat_sharded"],
-    ["--schedule", "adaptive"],
-    ["--controller-trace", "trace.json"], ["--frontier", "f.json"]])
+    ["--mesh", "4x2"], ["--param-layout", "flat_sharded"]])
 def test_train_cli_unported_flags_raise(flags):
     with pytest.raises(ConfigError, match="not ported yet"):
         ttrain.main(["--arch", "starcoder2-3b"] + CLI + flags)
+
+
+@pytest.mark.parametrize("case", ["trace", "overlap-frontier", "legacy"])
+def test_train_cli_adaptive_flags(case, tmp_path):
+    """`--schedule adaptive` with `--controller-trace` writes a v1 trace of
+    `--steps` steps; with `--sync overlap --frontier` (a table4 JSON) the
+    controller chooses the depth; under `--engine legacy` the engine has
+    no batch knob, so the lanes stay at `--batch`."""
+    trace = str(tmp_path / "trace.json")
+    flags = ["--schedule", "adaptive", "--controller-trace", trace]
+    if case == "overlap-frontier":
+        front = str(tmp_path / "f.json")
+        with open(front, "w") as f:
+            json.dump({"overlap": {"blocking_d0": {"s_per_round": 1.0},
+                                   "overlap_d1": {"s_per_round": 0.5}}}, f)
+        flags += ["--sync", "overlap", "--frontier", front]
+    if case == "legacy":
+        flags += ["--engine", "legacy"]
+    _, hist = ttrain.main(["--arch", "starcoder2-3b"] + CLI + flags)
+    with open(trace) as f:
+        rec = json.load(f)
+    assert rec["schema"] == "controller_trace/v1"
+    assert rec["summary"]["steps"] == 8 == hist[-1][0]
+    assert [r["h"] for r in rec["rounds"]] == [h for _, h, _, _ in hist]
+    assert rec["adaptive_batch"] == (case != "legacy")
+    assert rec["adaptive_depth"] == (case == "overlap-frontier")
+    lanes = [r["batch_lanes"] for r in rec["rounds"]]
+    assert lanes[0] == (2 if case == "legacy" else 1)
+    if case == "overlap-frontier":
+        assert rec["frontier"] == {"0": 1.0, "1": 0.5}
 

@@ -331,10 +331,16 @@ def test_unported_training_options_raise():
     base = dict(workers=2, b_loc=2, seq=1, data="host", batch_fn=fn,
                 device="cpu")
     for kw, what in ((dict(layout="flat_sharded"), "flat_sharded'"),
-                     (dict(mesh=object()), "a mesh"),
-                     (dict(adaptive_batch=True), "adaptive_batch")):
+                     (dict(mesh=object()), "a mesh")):
         with pytest.raises(ConfigError, match=f"{what}: not ported yet"):
             teng.RoundEngine(tcfg, run, **{**base, **kw})
+    # the adaptive batch knob is ported; like the reference's, it rides
+    # the bucketed engine only
+    assert teng.RoundEngine(tcfg, run, **base, adaptive_batch=True)\
+        .adaptive_batch
+    with pytest.raises(ConfigError, match="needs mode='bucketed'"):
+        teng.RoundEngine(tcfg, run, **base, adaptive_batch=True,
+                         mode="legacy")
     # device data (the engine's default) is ported: an LM engine builds
     # its on-device synthesizer (`tests/test_torch_device_data.py`)
     lm = teng.RoundEngine(TR.get_smoke_config("gemma3-4b"), run, workers=2,
@@ -345,9 +351,6 @@ def test_unported_training_options_raise():
     with pytest.raises(ConfigError, match="not ported yet"):
         tsync.make_sync(TRun(sync_quantize=True),
                         spec=types.SimpleNamespace(mesh=object()))
-    with pytest.raises(ConfigError, match="controller: not ported yet"):
-        ttrain.train(tcfg, run, workers=2, b_loc=2, seq=1, data="host",
-                     controller_trace="trace.json", device="cpu")
 
 
 def test_engine_refuses_to_run_on_cpu_unasked(monkeypatch):
