@@ -105,6 +105,21 @@ Then it drives both of the port's paths on the card:
   microbatch 2 and 4 (gradient accumulation: attention at the chunk's
   batch, peak memory below microbatch 1's, one step's loss and gradients
   against microbatch 1 and against the card's plain versions);
+* one rank a process (`torch.distributed`): NCCL at world size 1 on the
+  card (every collective verb of `launch/mesh.py` on device tensors); the
+  sync harness (`launch/multihost.py`, suite mode) on 4 ranks over gloo on
+  the one card, beside the same suite on 4 CPU ranks: the verbs at 2 and 4
+  ranks with host staging and the int16 ring, then 2x2 dp quantized, with
+  outer momentum and split across rounds, 4x1 dp with the membership mask
+  1,1,0,1 and on the ring-int8 wire, 2x1x2 fsdp: every rank's chunks equal
+  its host path's (the flat sync kernels' bf16 instances on the demo
+  params' bf16 bucket), the digests the CPU's; ViT-B/16 at full width on a
+  2x2 dp mesh (W = 2 x S = 2, 4 ranks, the quantized flat_sharded sync at
+  the int16 auto wire, 2 rounds of H = 2) bitwise, sync by sync, against
+  the single-process engine on the card, and on a 4x1 mesh on the ring-int8
+  wire (1 round) within `ring_tolerance` of the host ring; per rank: wall
+  and event ms a local step, ms a sync, its wire bytes, host staging, peak
+  memory;
 * checkpoints: ViT-B/16's W = 4 state saved in the tree layout after 2
   rounds and resumed in the flat layout, bitwise the run without the
   checkpoint, with save and restore rates; and train to serve: starcoder2-3b
@@ -113,8 +128,14 @@ Then it drives both of the port's paths on the card:
   server swaps it in mid-sequence, and its tokens equal a restart's.  The
   checkpoint directories live under `_ckpt/` and are deleted after.
 
+The training card-vs-CPU gates' CPU sides (their params drawn on the card
+at the start, kept on the host) run in order on a background thread from
+the start of the run, beside the card's phases; each gate's card side
+then waits for what is left of its own (`cpu_wait_s`).
+
 Each path runs with the kernels' launch counters set to 0 just before it
-and read just after, and fails unless every kernel of the path ran.  One
+and read just after, and fails unless every kernel of the path ran (a
+spawned rank counts its own and reports them).  One
 JSON line per phase, each with its `seconds`; any mismatch or error
 raises, so the exit code is not 0.  The last line is `{"ok": true,
 "device": {...}}`.
@@ -1186,6 +1207,87 @@ def phase_sync_kernels(torch):
     return summary
 
 
+def phase_sync_bf16(torch) -> list:
+    """The bf16 instances of `sync_flat_update` and `sync_apply_update` at
+    the sync harness's bf16 bucket (120 elements, W = 2: multihost's demo
+    params over 4 chunks) and at a bucket of VIT_PARAMS elements (W = 2),
+    each held bitwise against its plain version: quantized, and with outer
+    momentum (the flat sync unquantized against its ops in lane order).
+    The quantized rows are timed beside their plain versions and their
+    bound (bytes / 3.35 TB/s).  Returns the rows."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sync_update as _su
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(1357)
+    bf = torch.bfloat16
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * std
+
+    rows = []
+    for n in (120, VIT_PARAMS):
+        w = 2
+        anchor = rnd(n, std=0.02).to(bf)
+        p = (anchor.float()[None] + rnd(w, n, std=1e-3)).to(bf)
+        scale = (rnd(n).abs_() + 0.1) * 3e-3
+        mu0 = rnd(n, std=1e-4)
+        qmean = ref.true_div(torch.round(rnd(n) * 40).clamp_(-127, 127), 2.0)
+        for quantize, momentum in ((True, 0.0), (False, 0.9)):
+            kw = dict(scale=scale if quantize else None,
+                      mu=mu0 if momentum else None, momentum=momentum)
+            label = (f"bf16 [{w},{n}] quantize {'on' if quantize else 'off'}"
+                     f" momentum {momentum}")
+            plain = (ref.sync_flat_update if quantize
+                     else ref.sync_flat_update_lane_order)
+            want = plain(p, anchor, **kw)
+            got = _su.sync_flat_update(
+                p.clone(), anchor.clone(), scale=kw["scale"],
+                mu=None if kw["mu"] is None else mu0.clone(),
+                momentum=momentum)
+            torch.cuda.synchronize()
+            same = all(y is None or (x.dtype == y.dtype and torch.equal(x, y))
+                       for x, y in zip(got, want))
+            check(same, f"sync_flat_update {label}: not bitwise its plain "
+                  "version")
+            row = dict(kernel="sync_flat_update", shape=label,
+                       bitwise=same, max_abs_err=0.0)
+            if quantize:
+                pk, ak = p.clone(), anchor.clone()
+                timed_row(row, timer,
+                          lambda: _su.sync_flat_update(pk, ak, scale=scale),
+                          lambda: ref.sync_flat_update(p, anchor, scale=scale),
+                          None, n * (4.0 * w + 8), n * (w * 5.0 + 6))
+                del pk, ak
+            emit("kernel_check", **row)
+            rows.append(row)
+            del want, got
+            step = qmean if quantize else rnd(n, std=1e-3)
+            label = (f"bf16 [{n}] quantize {'on' if quantize else 'off'} "
+                     f"momentum {momentum}")
+            want = ref.sync_apply_update(step, anchor, **kw)
+            got = _su.sync_apply_update(step, anchor, **kw)
+            torch.cuda.synchronize()
+            same = all(y is None or (x.dtype == y.dtype and torch.equal(x, y))
+                       for x, y in zip(got, want))
+            check(same, f"sync_apply_update {label}: not bitwise its plain "
+                  "version")
+            row = dict(kernel="sync_apply_update", shape=label, bitwise=same,
+                       max_abs_err=0.0)
+            if quantize:
+                timed_row(row, timer,
+                          lambda: _su.sync_apply_update(step, anchor,
+                                                        scale=scale),
+                          lambda: ref.sync_apply_update(step, anchor,
+                                                        scale=scale),
+                          None, 12.0 * n, 3.0 * n)
+            emit("kernel_check", **row)
+            rows.append(row)
+            del want, got
+        del anchor, p, scale, mu0, qmean
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ------------------------------------------------ backward kernels --------
 
 def dscale_tol(torch, x, dy, eps: float = 1e-6) -> float:
@@ -2064,7 +2166,7 @@ def phase_train_to_serve(torch, np):
 
 def train_setup(torch, *, layout="tree", n_layers=None, workers=None,
                 b_loc=None, device="cuda", sync="blocking", overlap_depth=0,
-                adaptive_batch=False, **run_overrides):
+                adaptive_batch=False, shards=0, **run_overrides):
     """(cfg, run config, stream, batch_fn, engine) of the ViT-B/16 recipe
     (W workers x B_LOC images unless given)."""
     from repro_torch.configs import registry as R
@@ -2082,7 +2184,8 @@ def train_setup(torch, *, layout="tree", n_layers=None, workers=None,
     eng = RoundEngine(cfg, run, workers=workers, b_loc=b_loc, seq=1,
                       data="host", layout=layout, batch_fn=batch_fn,
                       sync=sync, overlap_depth=overlap_depth,
-                      adaptive_batch=adaptive_batch, device=device)
+                      adaptive_batch=adaptive_batch, shards=shards,
+                      device=device)
     return cfg, run, stream, batch_fn, eng
 
 
@@ -3322,7 +3425,7 @@ TRAIN_GATE_LAYERS = {Z2_ARCH: Z2_TRAIN_LAYERS}
 TRAIN_GATE_SEQ = dict(SSM_GATE_SEQ)
 
 
-def phase_train_lm_card_vs_cpu(torch, np, arch=LM_ARCH):
+def phase_train_lm_card_vs_cpu(torch, np, arch, gate):
     """`arch` (starcoder2-3b, or an RMSNorm + SwiGLU model through the
     rms_norm / swiglu backward kernels: gemma3-4b, phi3-medium-14b,
     paligemma-3b with its image prefix; or whisper-base, its decoder cut to
@@ -3369,71 +3472,36 @@ def phase_train_lm_card_vs_cpu(torch, np, arch=LM_ARCH):
 
     The CPU holds 16 bytes a parameter a worker (gemma3-4b: 27.5 GB at W =
     2); W drops to 1 where the host's available memory is under twice
-    that."""
-    from repro_torch import tree as T
-    from repro_torch.core import local_update as LU
-    from repro_torch.core.sync import make_sync
-    from repro_torch.data.synthetic import TokenStream, make_train_batch
+    that.
+
+    `gate` (from `gate_setup`, its CPU side submitted to a background
+    thread by `start_gate_cpu_sides` at the start of the run) brings the
+    params, the batches and the CPU side's future."""
     from repro_torch.kernels import ops
-    from repro_torch.models import api, param as pm
 
     phase = TRAIN_CARD_VS_CPU[arch]
-    seq = TRAIN_GATE_SEQ.get(arch, 128)
     gc.collect()                          # earlier phases' cycles (run_lm)
-    cfg, run = lm_setup(TRAIN_GATE_LAYERS.get(arch, 2), arch)
+    cfg, run, w, seq = gate["cfg"], gate["run"], gate["w"], gate["seq"]
+    state_gb, host_gb = gate["state_gb"], gate["host_gb"]
     backward_kernels = cfg.norm == "rmsnorm"
     yardstick = backward_kernels or cfg.family == "audio"
     lr = run.peak_lr
-    defs = api.get_module(cfg).param_defs(cfg)
-    state_gb = 16.0 * pm.count_params(defs) * 2 / 1e9
-    host_gb = host_available_gb()
-    w = 2 if not host_gb < 2 * state_gb else 1
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    host_p = T.map(lambda x: x.cpu(), pm.init_params(defs, gen,
-                                                     device="cuda"))
-    step_fn = LU.make_local_step(cfg, run, with_metrics=True)
-    sync = make_sync(run)
-    stream = TokenStream(vocab=cfg.vocab, seed=0)
-    batches = [make_train_batch(cfg, stream, t, w, 1, seq) for t in range(2)]
-
-    def rollout(dev):
-        """The round from host_p on `dev`: (params on the host, losses,
-        grad norms, seconds)."""
-        t0 = time.perf_counter()
-        st = LU.init_state(cfg, run, T.map(lambda x: x.to(dev), host_p), w)
-        losses, gns = [], []
-        for batch in batches:
-            st, (loss, gn) = step_fn(st, T.map(lambda x: x.to(dev), batch),
-                                     lr)
-            losses.append(float(loss))
-            gns.append(float(gn))
-        with torch.no_grad():
-            st = sync(st)
-        out = T.leaves(T.map(lambda x: x.cpu(), st["params"]))
-        del st
-        torch.cuda.empty_cache()
-        return out, losses, gns, time.perf_counter() - t0
-
+    rollout = lambda dev: gate_rollout(torch, gate, dev)  # noqa: E731
+    first_grads = lambda dev: gate_first_grads(torch, gate, dev)  # noqa: E731
     ssm = cfg.family in ("ssm", "hybrid")
-
-    def first_grads(dev):
-        """Lane 0's gradient at host_p on its first batch, by leaf."""
-        leaves, treedef = T.flatten(host_p)
-        alias = [x.to(dev).requires_grad_(True) for x in leaves]
-        b = {k: v[0].to(dev) for k, v in batches[0].items()}
-        loss = api.get_module(cfg).loss_fn(cfg, T.unflatten(treedef, alias),
-                                           b, remat=False)
-        return [g.cpu() for g in torch.autograd.grad(loss, alias)]
 
     ops.reset_launch_counts()             # the kernels' round alone counts
     card, losses_card, gns_card, card_s = rollout("cuda")
     counts = {k: v for k, v in ops.launch_counts().items() if v}
-    host, losses_cpu, gns_cpu, cpu_s = rollout("cpu")
+    t_wait = time.perf_counter()
+    cpu_side = gate["cpu"].result()
+    cpu_wait_s = time.perf_counter() - t_wait
+    host, losses_cpu, gns_cpu, cpu_s = cpu_side["rollout"]
     grad_errs = None
     if ssm:
         # the first step's gradients at the same params, leaf by leaf: the
         # kernels' distance from the CPU against the plain card's
-        want_g = first_grads("cpu")
+        want_g = cpu_side["first_grads"]
         got_g = first_grads("cuda")
         with plain_versions_on_card():
             plain_g = first_grads("cuda")
@@ -3524,10 +3592,108 @@ def phase_train_lm_card_vs_cpu(torch, np, arch=LM_ARCH):
          params_beyond_1e5=n_off, params=n_all, beyond_1e5_by_leaf=offs,
          plain_card_beyond_1e5_by_leaf=plain_off,
          first_grad_rel_errs_by_leaf=grad_errs, card_s=card_s,
-         cpu_s=cpu_s, failures=fails)
+         cpu_s=cpu_s, cpu_wait_s=cpu_wait_s, failures=fails)
     check(not fails, f"{phase}: " + "; ".join(fails))
-    del card, host
+    del card, host, cpu_side
+    gate.clear()
     torch.cuda.empty_cache()
+
+
+def gate_setup(torch, arch) -> dict:
+    """The inputs of `arch`'s training card-vs-CPU gate: the config at
+    TRAIN_GATE_LAYERS, W (2, or 1 where the host's available memory is
+    under twice the CPU state), the params drawn on the card from seed 3
+    and kept on the host, and the two steps' batches."""
+    from repro_torch import tree as T
+    from repro_torch.data.synthetic import TokenStream, make_train_batch
+    from repro_torch.models import api, param as pm
+
+    seq = TRAIN_GATE_SEQ.get(arch, 128)
+    cfg, run = lm_setup(TRAIN_GATE_LAYERS.get(arch, 2), arch)
+    defs = api.get_module(cfg).param_defs(cfg)
+    state_gb = 16.0 * pm.count_params(defs) * 2 / 1e9
+    host_gb = host_available_gb()
+    w = 2 if not host_gb < 2 * state_gb else 1
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    host_p = T.map(lambda x: x.cpu(), pm.init_params(defs, gen,
+                                                     device="cuda"))
+    torch.cuda.empty_cache()
+    stream = TokenStream(vocab=cfg.vocab, seed=0)
+    batches = [make_train_batch(cfg, stream, t, w, 1, seq) for t in range(2)]
+    return dict(arch=arch, cfg=cfg, run=run, w=w, seq=seq,
+                state_gb=state_gb, host_gb=host_gb, host_p=host_p,
+                batches=batches)
+
+
+def gate_rollout(torch, gate, dev):
+    """The gate's round from its params on `dev`: (params on the host,
+    losses, grad norms, seconds)."""
+    from repro_torch import tree as T
+    from repro_torch.core import local_update as LU
+    from repro_torch.core.sync import make_sync
+
+    cfg, run, w = gate["cfg"], gate["run"], gate["w"]
+    step_fn = LU.make_local_step(cfg, run, with_metrics=True)
+    sync = make_sync(run)
+    t0 = time.perf_counter()
+    st = LU.init_state(cfg, run, T.map(lambda x: x.to(dev), gate["host_p"]),
+                       w)
+    losses, gns = [], []
+    for batch in gate["batches"]:
+        st, (loss, gn) = step_fn(st, T.map(lambda x: x.to(dev), batch),
+                                 run.peak_lr)
+        losses.append(float(loss))
+        gns.append(float(gn))
+    with torch.no_grad():
+        st = sync(st)
+    out = T.leaves(T.map(lambda x: x.cpu(), st["params"]))
+    del st
+    if dev != "cpu":
+        torch.cuda.empty_cache()
+    return out, losses, gns, time.perf_counter() - t0
+
+
+def gate_first_grads(torch, gate, dev):
+    """Lane 0's gradient at the gate's params on its first batch, by
+    leaf."""
+    from repro_torch import tree as T
+    from repro_torch.models import api
+
+    cfg = gate["cfg"]
+    leaves, treedef = T.flatten(gate["host_p"])
+    alias = [x.to(dev).requires_grad_(True) for x in leaves]
+    b = {k: v[0].to(dev) for k, v in gate["batches"][0].items()}
+    loss = api.get_module(cfg).loss_fn(cfg, T.unflatten(treedef, alias), b,
+                                       remat=False)
+    return [g.cpu() for g in torch.autograd.grad(loss, alias)]
+
+
+def gate_cpu_side(torch, gate) -> dict:
+    """The CPU side of a training gate: the round (and an SSM's first-step
+    gradients) on the CPU's plain versions."""
+    out = {"rollout": gate_rollout(torch, gate, "cpu")}
+    if gate["cfg"].family in ("ssm", "hybrid"):
+        out["first_grads"] = gate_first_grads(torch, gate, "cpu")
+    return out
+
+
+def start_gate_cpu_sides(torch) -> dict:
+    """Every training card-vs-CPU gate's inputs, set up now (their params
+    drawn on the card, which is empty at the start of the run), and their
+    CPU sides submitted in order to one background thread: the CPU
+    computes them beside the card's phases, and each gate then waits only
+    for what is left of its own.  Torch's CPU ops release the GIL, so the
+    thread runs beside the main thread's host work (both share the host's
+    cores)."""
+    import concurrent.futures
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    gates = {}
+    for arch in TRAIN_CARD_VS_CPU:
+        gate = gate_setup(torch, arch)
+        gate["cpu"] = pool.submit(gate_cpu_side, torch, gate)
+        gates[arch] = gate
+    pool.shutdown(wait=False)
+    return gates
 
 
 def phase_generate(torch, np, cfg, weights, rows):
@@ -4881,6 +5047,425 @@ def phase_train_kimi_gate(torch, np):
     check(not fails, f"{phase}: " + "; ".join(fails))
 
 
+# ---------------------------------------------------- one rank a process --
+
+# the sync harness's configurations on the card (multihost `run_sync` on its
+# demo params, 3 rounds each, 4 ranks over gloo), after the 2-rank probe
+MESH_SYNC_SUITE = [
+    {"mode": "probe"},
+    {"mode": "sync", "mesh": "2x2", "policy": "dp", "quantize": True},
+    {"mode": "sync", "mesh": "2x2", "policy": "dp", "quantize": True,
+     "momentum": 0.9},
+    {"mode": "sync", "mesh": "2x2", "policy": "dp", "quantize": True,
+     "overlap": True},
+    {"mode": "sync", "mesh": "4x1", "policy": "dp", "quantize": True,
+     "membership": "1,1,0,1"},
+    {"mode": "sync", "mesh": "4x1", "policy": "dp", "quantize": True,
+     "wire": "ring-int8"},
+    {"mode": "sync", "mesh": "2x1x2", "policy": "fsdp", "quantize": True},
+]
+MESH_RANKS = 4
+# ViT-B/16 on a mesh of 4 ranks on the one card: 2x2 dp (W = 2 workers x S
+# = 2 shards) with the quantized flat_sharded sync at the auto wire, 2
+# rounds of H = 2; then 4x1 dp (W = 4, S = 1) on the ring-int8 wire, 1
+# round of H = 2
+MESH_TRAIN = [{"mesh": "2x2", "wire": "auto", "rounds": 2},
+              {"mesh": "4x1", "wire": "ring-int8", "rounds": 1}]
+MESH_H = 2
+
+
+def mesh_spawn(torch, argv, timeout: float):
+    """Spawn MESH_RANKS ranks running `argv` (a file store in a temporary
+    directory); returns each rank's last JSON line, failing on a nonzero
+    exit or a missing result."""
+    from repro_torch.launch import multihost
+    results = multihost.spawn_workers(MESH_RANKS, argv=argv, timeout=timeout)
+    outs = []
+    for i, (rc, so, se) in enumerate(results):
+        rec = multihost.last_json(so)
+        check(rc == 0 and rec is not None,
+              f"mesh rank {i} exited {rc}: {(se or '')[-3000:]}")
+        outs.append(rec)
+    return outs
+
+
+def phase_mesh_probe(torch):
+    """NCCL at world size 1 on cuda:0 (this process): every verb of the
+    mesh on device tensors, which shows NCCL initialises and takes them
+    (the verbs over gloo, 2 and 4 ranks on the one card, open the
+    `mesh_sync` suite)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import multihost
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-nccl-")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    try:
+        out = multihost.probe(backend="nccl", device=torch.device("cuda", 0))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("mesh_probe", backend="nccl", world_size=1, ok=out["ok"],
+         checks=out["checks"], mesh_stats=out["mesh_stats"],
+         seconds=time.perf_counter() - t0)
+    check(out["ok"], f"mesh_probe: {out['checks']}")
+
+
+def phase_mesh_sync(torch, counts):
+    """The sync harness (`multihost` suite mode: the probe, then
+    MESH_SYNC_SUITE) on 4 ranks over gloo on the card, and the same suite
+    on 4 CPU ranks beside it.  Gates: every rank's chunks equal the host
+    path's (`ok`: bitwise, the ring within `ring_tolerance`), every rank's
+    digest and the CPU's equal, the shard hashes' union the CPU's (the
+    ring: its digest), and the bf16 bucket's launches of
+    `sync_flat_update` (the host path) and `sync_apply_update` (the
+    collective apply) counted."""
+    import concurrent.futures
+    t0 = time.perf_counter()
+    base = [sys.executable, "-m", "repro_torch.launch.multihost", "--mode",
+            "suite", "--backend", "gloo", "--suite",
+            json.dumps(MESH_SYNC_SUITE)]
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        cpu = pool.submit(mesh_spawn, torch, base + ["--device", "cpu"], 300)
+        card = mesh_spawn(torch, base + ["--device", "cuda"], 300)
+        cpu = cpu.result()
+    bf16 = {"sync_flat_update": 0, "sync_apply_update": 0}
+    for i, c in enumerate(MESH_SYNC_SUITE):
+        ranks = [r["results"][i] for r in card]
+        cpus = [r["results"][i] for r in cpu]
+        ok = all(r["ok"] for r in ranks + cpus)
+        line = dict(config=c, ok=ok, ranks=len(ranks),
+                    device=ranks[0]["device"],
+                    mesh_stats=[r["mesh_stats"] for r in ranks])
+        if c["mode"] == "sync":
+            digests = {r["digest"] for r in ranks + cpus}
+            hashes, cpu_hashes = {}, {}
+            for r in ranks:
+                hashes.update(r["shard_hashes"])
+            for r in cpus:
+                cpu_hashes.update(r["shard_hashes"])
+            ring = c.get("wire") == "ring-int8"
+            line.update(
+                digest=sorted(digests)[0], digests_equal=len(digests) == 1,
+                shard_hashes_equal_cpu=hashes == cpu_hashes,
+                wire_dtype=ranks[0]["wire_dtype"],
+                max_abs_diff=max(r["max_abs_diff"] for r in ranks),
+                ring_tol=ranks[0]["ring_tol"],
+                participant_exact=ranks[0]["participant_exact"],
+                launches=[r["launches"] for r in ranks],
+                bf16_launches=[r["bf16_launches"] for r in ranks])
+            check(len(digests) == 1, f"mesh_sync {c}: digests {digests}")
+            check(ring or hashes == cpu_hashes,
+                  f"mesh_sync {c}: the card's shard hashes are not the CPU's")
+            for r in ranks:
+                for k in bf16:
+                    bf16[k] += r["bf16_launches"][k]
+                for k in ("sync_flat_update", "sync_apply_update",
+                          "ring_combine", "ring_quantize"):
+                    counts[k] += r["launches"].get(k, 0)
+        emit("mesh_sync", **line)
+        check(ok, f"mesh_sync {c}: a rank's chunks left the host path")
+    emit("mesh_sync_bf16", bf16_launches=bf16,
+         phase_seconds=time.perf_counter() - t0)
+    check(all(v > 0 for v in bf16.values()),
+          f"mesh_sync: bf16 launches {bf16}")
+
+
+def mesh_train_reference(torch, np, spec) -> dict:
+    """The single-process mesh-less engine on the card (ViT-B/16, W
+    workers x B_LOC, layout flat_sharded with as many shards as ranks),
+    `spec`'s rounds of H = MESH_H: for every rank's (worker, shard) slice,
+    the hashes of the state each sync saw and left; and for the ring run
+    the consensus after it, written for the ranks to compare with."""
+    from repro_torch.launch.multihost import _parse_mesh
+    from repro_torch.optim.lr import make_lr_fn
+    dims, _ = _parse_mesh(spec["mesh"])
+    w = dims[0]
+    s_n = MESH_RANKS // w
+    _, run, _, _, eng = train_setup(
+        torch, layout="flat_sharded", workers=w, sync_quantize=True,
+        sync_wire=spec["wire"], shards=MESH_RANKS)
+    lr_fn = make_lr_fn(run)
+    state = eng.init_state()
+    step, sync = eng._programs()
+    seen = []
+
+    def hashes(st):
+        return {f"{i},{j}": _slice_hashes(st, i, j, s_n)
+                for i in range(w) for j in range(s_n)}
+
+    def traced(st):
+        before = hashes(st)
+        st = sync(st)
+        seen.append({"before": before, "after": hashes(st)})
+        return st
+
+    eng._sync = traced
+    t0 = time.perf_counter()
+    losses = []
+    for r in range(spec["rounds"]):
+        state, m = eng.run_round(state, r * MESH_H, MESH_H, lr_fn)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    out = {"syncs": seen, "losses": losses,
+           "seconds": time.perf_counter() - t0}
+    if spec["wire"] == "ring-int8":
+        path = os.path.join(CKPT_ROOT, "mesh_ring_anchor.pt")
+        os.makedirs(CKPT_ROOT, exist_ok=True)
+        torch.save({b: x.cpu() for b, x in state["anchor"].items()}, path)
+        amax = 4.0 * MESH_H * run.peak_lr
+        out.update(ref_file=path, amax_bound=amax)
+    del state, eng, step, sync
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _slice_hashes(state, w, s, n_shards) -> dict:
+    """sha1 of worker w's shard-s chunk of a single-process flat state's
+    params and of shard s of its anchor."""
+    import hashlib
+
+    from repro_torch.launch.multihost import _bytes
+    out = {}
+    for b, x in state["params"].items():
+        c = x.shape[1] // n_shards
+        out[f"params/{b}"] = hashlib.sha1(
+            _bytes(x[w, s * c:(s + 1) * c])).hexdigest()
+    for b, x in state["anchor"].items():
+        c = x.shape[0] // n_shards
+        out[f"anchor/{b}"] = hashlib.sha1(
+            _bytes(x[s * c:(s + 1) * c])).hexdigest()
+    return out
+
+
+def _rank_hashes(state) -> dict:
+    """sha1 of a mesh rank's params chunk (its one lane) and anchor
+    chunk, keyed as `_slice_hashes`."""
+    import hashlib
+
+    from repro_torch.launch.multihost import _bytes
+    out = {f"params/{b}": hashlib.sha1(_bytes(x[0])).hexdigest()
+           for b, x in state["params"].items()}
+    out.update({f"anchor/{b}": hashlib.sha1(_bytes(x)).hexdigest()
+                for b, x in state["anchor"].items()})
+    return out
+
+
+def mesh_train_rank(torch, spec, device) -> dict:
+    """One rank of ViT-B/16 on `spec`'s mesh (run by `mesh_rank_main` in a
+    spawned process): the mesh engine's rounds, each local step timed
+    (host wall, and CUDA events on the rank's stream: the stream's span,
+    its waits on the host's collectives included), each sync timed with
+    its wire bytes and host staging, the hashes of the chunks each sync saw
+    and left, and the peak memory."""
+    from repro_torch.configs import registry as R
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.engine import RoundEngine
+    from repro_torch.data.synthetic import VisionStream, vision_batch_fn
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.multihost import _parse_mesh
+    from repro_torch.models import param as pm
+    from repro_torch.optim.lr import make_lr_fn
+
+    dims, axes = _parse_mesh(spec["mesh"])
+    mesh = Mesh(dims, axes, backend="gloo", device=device)
+    cfg = R.get_config(TRAIN_ARCH)
+    run = RunConfig(**{**TRAIN_RUN, "sync_quantize": True,
+                       "sync_wire": spec["wire"]})
+    w = pm.worker_count("dp", mesh)
+    g = mesh.groups(pm.worker_mesh_axes("dp", mesh))
+    stream = VisionStream(n_classes=cfg.n_classes, image=IMAGE, seed=42)
+    torch.cuda.reset_peak_memory_stats(device)
+    eng = RoundEngine(cfg, run, workers=w, b_loc=B_LOC, seq=1, data="host",
+                      batch_fn=vision_batch_fn(stream, w, B_LOC,
+                                               lanes=[g.worker_index]),
+                      layout="flat_sharded", mesh=mesh, policy="dp")
+    lr_fn = make_lr_fn(run)
+    state = eng.init_state()
+    step, sync = eng._programs()
+    steps, syncs = [], []
+
+    def timed_step(st, batch, lr):
+        torch.cuda.synchronize(device)
+        staged = mesh.stats.staging_s
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        out = step(st, batch, lr)
+        ev[1].record()
+        torch.cuda.synchronize(device)
+        steps.append({"wall_ms": (time.perf_counter() - t0) * 1e3,
+                      "event_ms": ev[0].elapsed_time(ev[1]),
+                      "staging_ms": (mesh.stats.staging_s - staged) * 1e3})
+        return out
+
+    def timed_sync(st):
+        before = _rank_hashes(st)
+        torch.cuda.synchronize(device)
+        wire = dict(mesh.stats.wire_bytes)
+        calls = dict(mesh.stats.calls)
+        staged = mesh.stats.staging_s
+        t0 = time.perf_counter()
+        st = sync(st)
+        torch.cuda.synchronize(device)
+        syncs.append({
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "staging_ms": (mesh.stats.staging_s - staged) * 1e3,
+            "wire_bytes": {k: v - wire.get(k, 0)
+                           for k, v in mesh.stats.wire_bytes.items()
+                           if v - wire.get(k, 0)},
+            "calls": {k: v - calls.get(k, 0)
+                      for k, v in mesh.stats.calls.items()
+                      if v - calls.get(k, 0)},
+            "before": before, "after": _rank_hashes(st)})
+        return st
+
+    eng._step, eng._sync = timed_step, timed_sync
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for r in range(spec["rounds"]):
+        state, m = eng.run_round(state, r * MESH_H, MESH_H, lr_fn)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize(device)
+    out = {"mesh": spec["mesh"], "wire": spec["wire"],
+           "worker": g.worker_index, "shard": g.shard_index,
+           "workers": w, "shards": g.n_shards, "losses": losses,
+           "steps": steps, "syncs": syncs,
+           "launches": {k: v for k, v in ops.launch_counts().items() if v},
+           "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+           "seconds": time.perf_counter() - t0,
+           "chunk": int(state["anchor"]["float32"].numel())}
+    if spec.get("ref_file"):
+        ref = torch.load(spec["ref_file"], map_location=device)
+        diff = 0.0
+        for b, x in ref.items():
+            c = state["anchor"][b].numel()
+            part = x[g.shard_index * c:(g.shard_index + 1) * c]
+            diff = max(diff, float((state["params"][b][0] - part).abs().max()),
+                       float((state["anchor"][b] - part).abs().max()))
+        out["max_abs_diff_vs_host_ring"] = diff
+    return out
+
+
+def mesh_rank_main(arg: str) -> int:
+    """A spawned rank of `phase_train_mesh`: its runs in order, one JSON
+    line."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import multihost
+    spec = json.loads(arg)
+    multihost.initialize(backend="gloo")
+    try:
+        device = multihost.rank_device("cuda", "gloo")
+        runs = [mesh_train_rank(torch, r, device) for r in spec["runs"]]
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps({"ok": True, "runs": runs}), flush=True)
+    return 0
+
+
+def phase_train_mesh(torch, np, counts):
+    """ViT-B/16 at full width on meshes of 4 ranks, one process each, all
+    on the one card over gloo (`MESH_TRAIN`): `train_mesh` (2x2 dp: W = 2 x
+    S = 2, the int16 code sums reduce-scattered and gathered) held bitwise,
+    sync by sync, against the single-process mesh-less engine at W = 2
+    (flat_sharded, 4 shards) on the card — the chunks each sync saw and
+    the consensus it left; `train_mesh_ring` (4x1 dp, the ring-int8 wire)
+    held within `ring_tolerance` of the single-process host ring.  The
+    references run first, then one spawn of the 4 ranks runs both meshes:
+    the first line's `seconds` are the references', the second's the
+    spawn's."""
+    from repro_torch.core.sync import ring_tolerance
+    t0 = time.perf_counter()
+    refs = [mesh_train_reference(torch, np, spec) for spec in MESH_TRAIN]
+    runs = []
+    for spec, ref in zip(MESH_TRAIN, refs):
+        runs.append(dict(spec, ref_file=ref.get("ref_file")))
+    ref_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    ranks = mesh_spawn(torch, [sys.executable, os.path.join(ROOT,
+                                                            "chip_smoke.py"),
+                               "--mesh-rank", json.dumps({"runs": runs})],
+                       600)
+    spawn_s = time.perf_counter() - t1
+    for k, (spec, ref) in enumerate(zip(MESH_TRAIN, refs)):
+        phase = "train_mesh" if spec["wire"] == "auto" else "train_mesh_ring"
+        rr = [r["runs"][k] for r in ranks]
+        fails = []
+        n_sync = len(ref["syncs"])
+        before_eq = after_eq = True
+        # the syncs whose chunks (seen or left) part from the reference's
+        parted = []
+        for r in rr:
+            key = f"{r['worker']},{r['shard']}"
+            for i in range(n_sync):
+                for when in ("before", "after"):
+                    bad = [k for k, v in r["syncs"][i][when].items()
+                           if v != ref["syncs"][i][when][key][k]]
+                    if bad:
+                        parted.append({"rank": key, "sync": i, "when": when,
+                                       "keys": bad})
+                before_eq &= r["syncs"][i]["before"] == \
+                    ref["syncs"][i]["before"][key]
+                after_eq &= r["syncs"][i]["after"] == \
+                    ref["syncs"][i]["after"][key]
+            for kern, v in r["launches"].items():
+                if kern in counts:
+                    counts[kern] += v
+        tol = None
+        if spec["wire"] == "auto":
+            if not after_eq:
+                fails.append("a rank's consensus is not the single-process "
+                             "run's after a sync")
+        else:
+            tol = ring_tolerance(rr[0]["workers"], ref["amax_bound"],
+                                 spec["rounds"])
+            worst = max(r["max_abs_diff_vs_host_ring"] for r in rr)
+            if worst > tol:
+                fails.append(f"ring {worst} > ring_tolerance {tol}")
+        losses = {tuple(r["losses"]) for r in rr}
+        if len(losses) != 1:
+            fails.append(f"ranks report different losses {losses}")
+        steps = [s for r in rr for s in r["steps"]]
+        syncs = [s for r in rr for s in r["syncs"]]
+        emit(phase, mesh=spec["mesh"], wire=spec["wire"],
+             workers=rr[0]["workers"], shards=rr[0]["shards"], b_loc=B_LOC,
+             rounds=spec["rounds"], h=MESH_H, ranks=len(rr),
+             chunk_elements=rr[0]["chunk"],
+             losses=rr[0]["losses"], reference_losses=ref["losses"],
+             presync_bitwise=before_eq, consensus_bitwise=after_eq,
+             parted_from_reference=parted,
+             max_abs_diff_vs_host_ring=(
+                 None if tol is None else
+                 max(r["max_abs_diff_vs_host_ring"] for r in rr)),
+             ring_tolerance=tol,
+             wall_ms_per_step=sum(s["wall_ms"] for s in steps) / len(steps),
+             event_ms_per_step=sum(s["event_ms"] for s in steps) / len(steps),
+             staging_ms_per_step=sum(s["staging_ms"] for s in steps)
+             / len(steps),
+             ms_per_sync=sum(s["ms"] for s in syncs) / len(syncs),
+             staging_ms_per_sync=sum(s["staging_ms"] for s in syncs)
+             / len(syncs),
+             wire_bytes_per_sync_per_rank=rr[0]["syncs"][0]["wire_bytes"],
+             calls_per_sync_per_rank=rr[0]["syncs"][0]["calls"],
+             peak_gb_per_rank=[r["peak_gb"] for r in rr],
+             rank_seconds=[r["seconds"] for r in rr],
+             launches_per_rank=[r["launches"] for r in rr],
+             reference_seconds=ref["seconds"], failures=fails,
+             seconds=(ref_s if k == 0 else 0.0) + (spawn_s if k == 1 else 0.0))
+        check(not fails, f"{phase}: " + "; ".join(fails))
+    for ref in refs:
+        if ref.get("ref_file"):
+            os.remove(ref["ref_file"])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4905,12 +5490,32 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.library()
-    emit("build", seconds=time.perf_counter() - t0,
+    build_s = time.perf_counter() - t0
+    # the training gates' inputs, and their CPU sides on a background thread
+    # beside every phase up to them
+    t0 = time.perf_counter()
+    gates = start_gate_cpu_sides(torch)
+    gates_s = time.perf_counter() - t0
+    try:
+        return run_phases(torch, np, build, smi, t_run, build_s, gates,
+                          gates_s)
+    finally:
+        for gate in gates.values():
+            if "cpu" in gate:
+                gate["cpu"].cancel()
+
+
+def run_phases(torch, np, build, smi, t_run, build_s, gates,
+               gates_s) -> int:
+    emit("build", seconds=build_s,
          nvcc_seconds=build.build_seconds,
          sources=[str(p.relative_to(ROOT)) for p in build.sources()],
          ptxas=[ln.strip() for ln in build.ptxas_log.splitlines()
                 if "entry function" in ln or "registers" in ln
                 or "spill" in ln])
+    emit("gate_setup", seconds=gates_s, archs=list(gates),
+         workers={k: g["w"] for k, g in gates.items()},
+         host_available_gb=host_available_gb())
     check(not torch.backends.cuda.matmul.allow_tf32
           and not torch.backends.cudnn.allow_tf32, "TF32 must be off")
 
@@ -4920,6 +5525,7 @@ def main() -> int:
     timed.update(t_summary)
     rows.update(t_rows)
     timed.update(phase_sync_kernels(torch))
+    bf16_rows = phase_sync_bf16(torch)
     b_summary, b_rows = phase_backward_kernels(torch)
     timed.update(b_summary)
     rows.update(b_rows)
@@ -4989,6 +5595,13 @@ def main() -> int:
     add(phase_train_adaptive(torch, np, walls),
         TRAINING_KERNELS[:3] + ("sync_apply_update",))
     phase_train_adaptive_card_vs_cpu(torch, np)
+    # one rank a process: NCCL at one rank, the sync harness on 4 ranks over
+    # gloo (the collective halves, the int16 ring, the bf16 instances), and
+    # ViT-B/16 on meshes of 4 ranks against the single-process engine
+    phase_mesh_probe(torch)
+    phase_mesh_sync(torch, counts)
+    torch.cuda.empty_cache()
+    phase_train_mesh(torch, np, counts)
     # the LM training path, on host and on device data
     lm_counts, lm_row = phase_train_lm(torch, np)
     add(lm_counts, TRAINING_KERNELS[:3])
@@ -4996,26 +5609,26 @@ def main() -> int:
     add(phase_train_microbatch(torch, np, lm_row), TRAINING_KERNELS[:3])
     add(phase_train_lm_device(torch, np, lm_row), TRAINING_KERNELS[:3])
     phase_train_lm_full_depth(torch, np)
-    phase_train_lm_card_vs_cpu(torch, np)
+    phase_train_lm_card_vs_cpu(torch, np, LM_ARCH, gates.pop(LM_ARCH))
     # gemma3 training: the rms_norm / swiglu backward kernels
     add(phase_train_gemma3(torch, np),
         ("rms_norm", "swiglu") + BACKWARD_KERNELS + TRAINING_KERNELS[:3])
-    phase_train_lm_card_vs_cpu(torch, np, G3_ARCH)
+    phase_train_lm_card_vs_cpu(torch, np, G3_ARCH, gates.pop(G3_ARCH))
     rms_swiglu = ("rms_norm", "swiglu") + BACKWARD_KERNELS + TRAINING_KERNELS[:3]
     add(phase_train_phi3(torch, np), rms_swiglu)
-    phase_train_lm_card_vs_cpu(torch, np, PHI3_ARCH)
+    phase_train_lm_card_vs_cpu(torch, np, PHI3_ARCH, gates.pop(PHI3_ARCH))
     add(phase_train_paligemma(torch, np), rms_swiglu)
-    phase_train_lm_card_vs_cpu(torch, np, VLM_ARCH)
+    phase_train_lm_card_vs_cpu(torch, np, VLM_ARCH, gates.pop(VLM_ARCH))
     for data in ("host", "device"):
         add(phase_train_whisper(torch, np, data)[0], TRAINING_KERNELS[:3])
-    phase_train_lm_card_vs_cpu(torch, np, WH_ARCH)
+    phase_train_lm_card_vs_cpu(torch, np, WH_ARCH, gates.pop(WH_ARCH))
     # the SSM families through the rms_norm backward kernel
     add(phase_train_mamba2(torch, np),
         ("rms_norm", "rms_norm_bwd", "adamw_update"))
-    phase_train_lm_card_vs_cpu(torch, np, M2_ARCH)
+    phase_train_lm_card_vs_cpu(torch, np, M2_ARCH, gates.pop(M2_ARCH))
     add(phase_train_zamba2(torch, np),
         ("rms_norm", "rms_norm_bwd") + TRAINING_KERNELS[:3])
-    phase_train_lm_card_vs_cpu(torch, np, Z2_ARCH)
+    phase_train_lm_card_vs_cpu(torch, np, Z2_ARCH, gates.pop(Z2_ARCH))
     # kimi-k2 training: the MoE backward, its aux loss and the backward
     # kernels at d = 7168
     add(phase_train_kimi(torch, np), rms_swiglu)
@@ -5078,6 +5691,11 @@ def main() -> int:
         extra = {key: t[key] for key in (
             "bound_fp32_ms", "bound_fp32_by", "gate_ms", "dw_ms", "dx_ms",
             "forward_ms", "forward_pair_ms", "rows_2x") if key in t}
+        bf16 = [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "bitwise") if k in r}
+                for r in bf16_rows if r["kernel"] == name]
+        if bf16:
+            extra["bf16"] = bf16
         if name in lm_shapes:
             extra["lm_path"] = [
                 {key: rows[name, label][key] for key in (
@@ -5103,4 +5721,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--mesh-rank":
+        sys.exit(mesh_rank_main(sys.argv[2]))
     sys.exit(main())

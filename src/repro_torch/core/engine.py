@@ -14,9 +14,28 @@ They stay 0-d device tensors (`run_round` returns them, `round_metrics`
 keeps them); a caller reads them to the host once per round, not once per
 step.
 
-Layouts: "tree" (state mirrors the model tree) and "flat" (one `[W, N]`
+Layouts: "tree" (state mirrors the model tree), "flat" (one `[W, N]`
 buffer per dtype bucket: one optimizer kernel launch per step and one sync
-kernel launch per round per bucket; bitwise the tree trajectory).  Data:
+kernel launch per round per bucket; bitwise the tree trajectory) and
+"flat_sharded" (the flat buckets zero-padded to a multiple of `shards`,
+`core/flat.py ShardedFlatSpace`; without a mesh bitwise the flat layout).
+
+On a mesh (`mesh=`, a `launch/mesh.py` Mesh, layout "flat_sharded"), the
+engine is one rank of it, one process: it holds one worker's lane (worker
+i, from the policy's worker axes) and only its chunk s of that lane's
+params, m and v and of the anchor (1/S of each).  A local step gathers the
+worker's buckets over the shard group, takes the gradient at W = 1 on lane
+i of the batch and updates the rank's chunk (`make_mesh_local_step`); the
+sync runs its collective halves (`core/sync.py`).  Lane i of a batch is
+the single-process batch's lane, bit for bit: the built-in host stream
+draws that lane alone, device data draws all W lanes and keeps lane i (W
+times the draw), and a `batch_fn` returns the rank's lane `[1, B_loc,
+...]` itself (`vision_batch_fn(..., lanes=[i])`).  The round's loss, grad
+norm and divergence are all-reduced over the worker group (the divergence
+with one all-reduce of the params chunk).  `params_single` gathers worker
+0 over the shard group.  Every rank computes its worker's whole step: the
+reference's GSPMD splits a worker's compute over its shard group, the
+port does not yet.  Data:
 "host", from a `batch_fn(step) -> batch [W, B_loc, ...]` or, without one,
 the built-in `TokenStream(vocab, seed)` through `make_train_batch`, as the
 reference's host path draws it (CPU tensors, moved to the run's device
@@ -56,8 +75,9 @@ effective_batch_view`), viewed after the draw, on host and device data
 alike.  The host still draws all b_loc samples and the step computes all
 of them, as the reference's fixed-shape program does.
 
-Anything else of the reference — flat_sharded, meshes, `save_sharded` /
-`restore_elastic` — raises `ConfigError("not ported yet")`.
+Not ported yet: checkpoints of a mesh engine (`save` / `restore` raise;
+`save_sharded` / `restore_elastic` come with the sharded checkpoints) and
+a lane resize on a mesh (it raises, as the reference's does).
 """
 from __future__ import annotations
 
@@ -166,8 +186,8 @@ class RoundEngine:
     def __init__(self, cfg, run_cfg, *, workers: int, b_loc: int, seq: int,
                  seed: int = 0, mode: str = "bucketed", data: str = "device",
                  layout: str = "tree", sync: str = "blocking",
-                 overlap_depth: int = 0, mesh=None,
-                 batch_fn: Callable | None = None,
+                 overlap_depth: int = 0, shards: int = 0, mesh=None,
+                 policy: str = "dp", batch_fn: Callable | None = None,
                  adaptive_batch: bool = False, device=None):
         if mode not in ("bucketed", "legacy"):
             raise ConfigError(f"unknown engine mode {mode!r}")
@@ -191,10 +211,23 @@ class RoundEngine:
             raise ConfigError(
                 "adaptive_batch needs mode='bucketed', as the reference's "
                 "engine does")
-        for bad, what in ((layout == "flat_sharded", "layout='flat_sharded'"),
-                          (mesh is not None, "a mesh")):
-            if bad:
-                raise ConfigError(f"{what}: not ported yet")
+        if mesh is not None and layout != "flat_sharded":
+            raise ConfigError(
+                "a mesh drives the explicit-collective sync: layout=flat_sharded")
+        self.mesh, self.policy, self.shards = mesh, policy, shards
+        self._groups = None
+        if mesh is not None:
+            got = pm.worker_count(policy, mesh)
+            if got != workers:
+                raise ConfigError(
+                    f"policy {policy!r} on this mesh has {got} workers, "
+                    f"engine built with {workers}")
+            if device is not None and torch.device(device) != mesh.device:
+                raise ConfigError(f"the engine's device {device} is not the "
+                                  f"mesh's {mesh.device}")
+            device = mesh.device
+            # collective: every rank builds its engines in the same order
+            self._groups = mesh.groups(pm.worker_mesh_axes(policy, mesh))
         self.device = resolve_device(device)
         self.cfg, self.run_cfg = cfg, run_cfg
         self.workers, self.b_loc, self.seq, self.seed = workers, b_loc, seq, seed
@@ -203,7 +236,7 @@ class RoundEngine:
         self.stream = TokenStream(vocab=max(cfg.vocab, 2), seed=seed)
         self._batch_fn = batch_fn           # None: the built-in stream
         self._synth = self._device_synth()  # None: host data
-        self.spec = None                    # FlatParamSpace (layout="flat")
+        self.spec = None                    # FlatParamSpace (layout != "tree")
         self._step = self._sync = None
         self._pending = None                # overlap: the in-flight reduce
         # partial sync: the participation mask over the worker axis (all
@@ -236,6 +269,9 @@ class RoundEngine:
         t0 = time.perf_counter()
         draw = self._synth if self._synth is not None else self._host_batch
         batch = draw(step)
+        if self._synth is not None and self.mesh is not None:
+            i = self._groups.worker_index      # all W drawn, lane i kept
+            batch = T.map(lambda x: x[i:i + 1], batch)
         self.data_seconds += time.perf_counter() - t0
         batch = T.map(lambda x: x.to(self.device), batch)
         if self.adaptive_batch:
@@ -253,17 +289,32 @@ class RoundEngine:
         `del`."""
         if self._batch_fn is not None:
             return self._batch_fn(step)
+        lanes = (None if self.mesh is None
+                 else [self._groups.worker_index])
         return make_train_batch(self.cfg, self.stream, step, self.workers,
-                                self.b_loc, self.seq)
+                                self.b_loc, self.seq, lanes=lanes)
 
     # -- state ------------------------------------------------------------
 
     def _ensure_spec(self, params_single: Tree | None = None):
+        """The flat spec, recorded once from the first params seen (or the
+        config's abstract params): a ShardedFlatSpace of `shards` chunks
+        (default: the workers, or every rank of a mesh) for flat_sharded,
+        carrying the mesh and its worker / shard axes on a mesh."""
         if self.spec is None:
             if params_single is None:
                 mod = api.get_module(self.cfg)
                 params_single = pm.abstract_params(mod.param_defs(self.cfg))
-            self.spec = flat.FlatParamSpace(params_single)
+            if self.mesh is not None:
+                self.spec = flat.ShardedFlatSpace(
+                    params_single, self.shards or self.mesh.size,
+                    mesh=self.mesh, worker_axes=self._groups.worker_axes,
+                    shard_axes=self._groups.shard_axes)
+            elif self.layout == "flat_sharded":
+                self.spec = flat.ShardedFlatSpace(params_single,
+                                                  self.shards or self.workers)
+            else:
+                self.spec = flat.FlatParamSpace(params_single)
         return self.spec
 
     def init_state(self, params_single: Tree | None = None) -> Tree:
@@ -277,9 +328,17 @@ class RoundEngine:
                                            device=self.device)
         else:
             params_single = T.map(lambda x: x.to(self.device), params_single)
+        if self.mesh is not None:
+            # this worker's lane alone, then this rank's chunks of it
+            g = self._groups
+            state = flat.to_flat_state(
+                self._ensure_spec(params_single),
+                LU.init_state(self.cfg, self.run_cfg, params_single, 1))
+            return flat.take_slices(state, flat.flat_state_slices(
+                self.run_cfg, self.spec, 0, g.shard_index, g.n_shards))
         state = LU.init_state(self.cfg, self.run_cfg, params_single,
                               self.workers)
-        if self.layout == "flat":
+        if self.layout != "tree":
             state = flat.to_flat_state(self._ensure_spec(params_single), state)
         return state
 
@@ -290,7 +349,14 @@ class RoundEngine:
                 "in-flight sync: pass flush(state) or synced_view(state), "
                 "not the raw run state")
         params = state["params"]
-        if self.layout == "flat":
+        if self.mesh is not None:
+            # worker 0's row of each chunk, then the chunks over the shard
+            # group: the whole of worker 0's buckets on every rank
+            g, mesh = self._groups, self.mesh
+            params = {b: mesh.all_gather(
+                mesh.all_gather(x[0], g.worker).view(g.n_workers, -1)[0]
+                .contiguous(), g.shard)[None] for b, x in params.items()}
+        if self.layout != "tree":
             params = self._ensure_spec().unflatten(params, lead=1)
         return T.map(lambda x: x[0], params)
 
@@ -300,9 +366,12 @@ class RoundEngine:
         """(local step, sync) for blocking / partial, (local step, (begin,
         apply)) for overlap — built once, rebuilt after a resize."""
         if self._step is None:
-            spec = self._ensure_spec() if self.layout == "flat" else None
-            self._step = LU.make_local_step(self.cfg, self.run_cfg,
-                                            with_metrics=True, spec=spec)
+            spec = self._ensure_spec() if self.layout != "tree" else None
+            self._step = (LU.make_mesh_local_step(self.cfg, self.run_cfg,
+                                                  spec)
+                          if self.mesh is not None else
+                          LU.make_local_step(self.cfg, self.run_cfg,
+                                             with_metrics=True, spec=spec))
             if self.sync_mode == "overlap":
                 self._sync = (make_sync_begin(self.run_cfg, spec),
                               make_sync_apply(self.run_cfg, spec))
@@ -341,7 +410,10 @@ class RoundEngine:
         with torch.no_grad():
             if pending is not None:         # depth >= h: apply at the end
                 state = sync[1](state, pending, entry)
-            metrics = _metrics(state["params"], losses, gns, float(h))
+            metrics = (self._mesh_metrics(state["params"], losses, gns,
+                                          float(h))
+                       if self.mesh is not None else
+                       _metrics(state["params"], losses, gns, float(h)))
             if self.sync_mode == "overlap":
                 self._pending = sync[0](state)
             elif self.sync_mode == "partial":
@@ -352,6 +424,27 @@ class RoundEngine:
         self.h_trace.append((t, h))
         self.round_metrics.append(metrics)
         return state, metrics
+
+    def _mesh_metrics(self, params, losses, gns, denom):
+        """The round's metrics on a mesh rank, the same on every rank: the
+        loss and grad norm (this worker's, per step) summed over the worker
+        group, and the divergence mean_i ||x_i - x_bar||_2 from the chunks
+        (x_bar by one all-reduce of the params chunk over the worker group,
+        each worker's squares summed over its shard group).  Their last bits
+        may differ from the single-process engine's (another sum order)."""
+        g, mesh = self._groups, self.mesh
+        w = float(g.n_workers)
+        sq = 0.0
+        for x in T.leaves(params):
+            xf = x[0].float()
+            mean = mesh.all_reduce(xf, "sum", g.worker) / w
+            sq = sq + torch.sum(torch.square(xf - mean))
+        sq = mesh.all_reduce(torch.stack([sq]), "sum", g.shard)
+        tot = mesh.all_reduce(torch.stack([
+            torch.sum(torch.stack(losses)), torch.sum(torch.stack(gns)),
+            torch.sqrt(sq[0])]), "sum", g.worker)
+        return {"loss": tot[0] / w / denom, "grad_norm": tot[1] / w / denom,
+                "divergence": tot[2] / w}
 
     def synced_view(self, state: Tree) -> Tree:
         """State with the in-flight sync applied, WITHOUT consuming it: the
@@ -425,6 +518,12 @@ class RoundEngine:
                 "membership may only change at a round boundary: a sync is "
                 "in flight over the old worker set — flush() first")
         resize = keep_lanes is not None or grow_to is not None
+        if resize and self.mesh is not None:
+            raise MembershipError(
+                "a lane resize under a live mesh: torch.distributed process "
+                "groups cannot shrink in place (mesh engines resize via "
+                "checkpoint and respawn, which needs the sharded "
+                "checkpoints)")
         if resize:
             if state is None:
                 raise MembershipError("a resize needs the run state")
@@ -460,7 +559,7 @@ class RoundEngine:
         """Re-pad the worker axis to `lanes` through the tree layout, so the
         kept lanes stay bitwise; the flat spec and the step and sync
         callables are rebuilt for the new W."""
-        spec = self._ensure_spec() if self.layout == "flat" else None
+        spec = self._ensure_spec() if self.layout != "tree" else None
         tree_state = state if spec is None else flat.to_tree_state(spec,
                                                                    state)
         tree_state = _remap_worker_lanes(tree_state, lanes)
@@ -497,6 +596,7 @@ class RoundEngine:
         `flush_pending=True`, which writes the synced view of `state` (the
         consensus a blocking round would have produced) without consuming
         the pending sync; `flush()` + save is the forced sync point."""
+        self._no_mesh_checkpoint()
         if self._pending is not None:
             if not flush_pending:
                 raise PendingSyncError(
@@ -515,16 +615,20 @@ class RoundEngine:
 
         Refuses a live in-flight sync (it would orphan a round's reduce):
         flush() first."""
+        self._no_mesh_checkpoint()
         if self._pending is not None:
             raise PendingSyncError(
                 "restore() with an overlap sync in flight would orphan the "
                 "pending reduce: flush() the current state first")
         _, meta = ckpt_io.read_meta(path)
         ck_layout = meta.get("layout", "tree")
-        if ck_layout not in ("tree", "flat") or meta.get("shards"):
+        ck_shards = meta.get("shards")
+        if ck_layout not in ("tree", "flat", "flat_sharded"):
             raise ConfigError(f"restoring a {ck_layout!r} checkpoint: not "
                               "ported yet")
-        convert = ck_layout != self.layout
+        my_shards = (getattr(self._ensure_spec(), "shards", None)
+                     if self.layout != "tree" else None)
+        convert = ck_layout != self.layout or ck_shards != my_shards
         ck_spec = None
         if convert:
             tree_state = (like_state if self.layout == "tree"
@@ -533,8 +637,10 @@ class RoundEngine:
             if ck_layout == "tree":
                 like = tree_state
             else:
-                ck_spec = flat.FlatParamSpace(
-                    T.map(lambda x: x[0], tree_state["params"]))
+                single = T.map(lambda x: x[0], tree_state["params"])
+                ck_spec = (flat.ShardedFlatSpace(single, ck_shards or 1)
+                           if ck_layout == "flat_sharded"
+                           else flat.FlatParamSpace(single))
                 like = flat.to_flat_state(ck_spec, tree_state)
         else:
             like = like_state
@@ -545,6 +651,12 @@ class RoundEngine:
             if self.layout != "tree":
                 state = flat.to_flat_state(self._ensure_spec(), state)
         return state, self._adopt_trace(extra, step)
+
+    def _no_mesh_checkpoint(self) -> None:
+        if self.mesh is not None:
+            raise ConfigError(
+                "checkpoints of a mesh engine: not ported yet (slice 19: "
+                "save_sharded / restore_sharded)")
 
     def _adopt_trace(self, extra: dict, step) -> int:
         trace = [(int(t), int(h)) for t, h in extra.get("h_trace", [])]

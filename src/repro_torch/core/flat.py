@@ -17,7 +17,16 @@ serve from one card.  `flatten` concatenates, so it allocates the buckets.
 Training adds the per-tensor segment reductions (`segment_ids`,
 `segment_max`, `spread`, which the quantized sync's per-tensor scales use)
 and the runtime-state conversions `to_flat_state` / `to_tree_state`.
-`ShardedFlatSpace` waits for the distributed slice.
+
+`ShardedFlatSpace` (`--param-layout flat_sharded`) pads each bucket with
+zeros to a multiple of `shards`, so that it splits into contiguous chunks:
+a rank of a mesh (`launch/mesh.py`) keeps its worker's chunk of params and
+moments and its chunk of the anchor (`flat_state_slices`, the reference's
+`flat_state_specs` written as slices), and the sync's worker mean splits
+into a reduce-scatter and an all-gather per bucket (`core/sync.py`).
+Without a mesh the padded buffers run the flat path, bitwise the flat
+layout: pad elements start at zero and stay there, and the pad's segment
+id (#leaves) is dropped by `segment_max`.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import tree as T
 from repro_torch.errors import LayoutError
@@ -79,6 +89,11 @@ class FlatParamSpace:
     def bucket_leaves(self, bucket: str) -> int:
         return len(self._order[bucket])
 
+    def buffer_size(self, bucket: str) -> int:
+        """Bucket-buffer length as `flatten` makes it (the sharded subclass
+        pads it to a multiple of its chunk count)."""
+        return self.sizes[bucket]
+
     def segment_ids(self, bucket: str) -> np.ndarray:
         """int32 [N_bucket]: which leaf (bucket-local index) each element of
         the bucket buffer belongs to — the per-tensor reduction map."""
@@ -92,22 +107,46 @@ class FlatParamSpace:
         """Per-leaf max of an `[N]` bucket-shaped tensor -> `[#leaves]`, in
         bucket-local leaf order.  max is exact, so this equals a per-tensor
         `torch.max` bitwise."""
-        return torch.stack([x.narrow(0, self._leaves[i].offset,
-                                     self._leaves[i].size).max()
-                            for i in self._order[bucket]])
+        return self.chunk_segment_max(bucket, x, 0)
+
+    def chunk_segment_max(self, bucket: str, x: torch.Tensor,
+                          lo: int) -> torch.Tensor:
+        """Per-leaf max of the elements [lo, lo + len(x)) of a bucket-shaped
+        tensor, given as `x` -> `[#leaves]`; a leaf with no element there
+        reports -inf (the max identity), and pad elements belong to no leaf.
+        A max over every chunk's partials is the whole leaf's max, exactly
+        (the reference's `partial_segment_amax`)."""
+        hi = lo + x.shape[0]
+        out = []
+        for i in self._order[bucket]:
+            lf = self._leaves[i]
+            a, b = max(lf.offset, lo), min(lf.offset + lf.size, hi)
+            out.append(x.narrow(0, a - lo, b - a).max() if a < b
+                       else x.new_full((), float("-inf")))
+        return torch.stack(out)
 
     def spread(self, bucket: str, per_leaf: torch.Tensor) -> torch.Tensor:
         """Per-tensor values `[#leaves]` -> elements `[N]` (each leaf's
-        value repeated over its elements)."""
-        sizes = torch.tensor([self._leaves[i].size for i in self._order[bucket]],
-                             device=per_leaf.device)
-        return torch.repeat_interleave(per_leaf, sizes,
-                                       output_size=self.sizes[bucket])
+        value repeated over its elements; pad elements take the last
+        leaf's, as the reference's clamped gather does)."""
+        return self.chunk_spread(bucket, per_leaf, 0, self.buffer_size(bucket))
+
+    def chunk_spread(self, bucket: str, per_leaf: torch.Tensor, lo: int,
+                     hi: int) -> torch.Tensor:
+        """The elements [lo, hi) of `spread(bucket, per_leaf)`."""
+        sizes, last = [], self._order[bucket][-1]
+        for i in self._order[bucket]:
+            lf = self._leaves[i]
+            end = self.buffer_size(bucket) if i == last else lf.offset + lf.size
+            sizes.append(max(0, min(end, hi) - max(lf.offset, lo)))
+        return torch.repeat_interleave(
+            per_leaf, torch.tensor(sizes, device=per_leaf.device),
+            output_size=hi - lo)
 
     def empty(self, device) -> dict[str, torch.Tensor]:
         """Uninitialized buckets on `device` (fill them through
         `unflatten`'s views)."""
-        return {b: torch.empty(self.sizes[b], dtype=self.dtypes[b],
+        return {b: torch.empty(self.buffer_size(b), dtype=self.dtypes[b],
                                device=device) for b in self.buckets}
 
     def flatten(self, tree: Tree, *, lead: int = 0) -> dict[str, torch.Tensor]:
@@ -136,9 +175,9 @@ class FlatParamSpace:
         leaves: list[Any] = [None] * len(self._leaves)
         for b in self.buckets:
             buf = bufs[b]
-            if buf.shape[lead] != self.sizes[b]:
+            if buf.shape[lead] != self.buffer_size(b):
                 raise LayoutError(f"bucket {b} has {buf.shape[lead]} elements,"
-                                  f" the spec {self.sizes[b]}")
+                                  f" the spec {self.buffer_size(b)}")
             for i in self._order[b]:
                 lf = self._leaves[i]
                 sl = buf.narrow(lead, lf.offset, lf.size)
@@ -146,11 +185,85 @@ class FlatParamSpace:
         return T.unflatten(self.treedef, leaves)
 
 
+class ShardedFlatSpace(FlatParamSpace):
+    """FlatParamSpace whose buckets split into `shards` contiguous chunks
+    (port of the reference's ShardedFlatSpace).
+
+    Each bucket is zero-padded to a multiple of `shards` (W * S: the worker
+    count times the shard count, so that both the S storage chunks and the
+    W sub-chunks a reduce-scatter leaves each worker fall on whole
+    elements).  The pad is invisible to `unflatten` and inert in the
+    runtime: pad params, grads and moments start and stay zero, a zero
+    delta quantizes to zero, and the pad's segment id (#leaves) lies
+    outside every leaf.  With a `mesh` (and the worker / shard axis names)
+    the sync runs its collective halves over the mesh's process groups
+    (core/sync.py); without one the padded buffers run the flat path."""
+
+    def __init__(self, tree: Tree, shards: int = 1, *, mesh=None,
+                 worker_axes: tuple[str, ...] = (),
+                 shard_axes: tuple[str, ...] = ()):
+        super().__init__(tree)
+        if shards < 1:
+            raise LayoutError(f"shards must be >= 1, got {shards}")
+        self.shards = shards
+        self.mesh = mesh
+        self.worker_axes = tuple(worker_axes)
+        self.shard_axes = tuple(shard_axes)
+        self.pad: dict[str, int] = {b: (-n) % shards
+                                    for b, n in self.sizes.items()}
+
+    def buffer_size(self, bucket: str) -> int:
+        """Padded bucket-buffer length (a multiple of `shards`)."""
+        return self.sizes[bucket] + self.pad[bucket]
+
+    def segment_ids(self, bucket: str) -> np.ndarray:
+        """The base map extended over the pad with id == #leaves."""
+        base = super().segment_ids(bucket)
+        ext = np.full(self.pad[bucket], self.bucket_leaves(bucket), np.int32)
+        return np.concatenate([base, ext])
+
+    def flatten(self, tree: Tree, *, lead: int = 0) -> dict[str, torch.Tensor]:
+        out = super().flatten(tree, lead=lead)
+        return {b: F.pad(x, (0, self.pad[b])) if self.pad[b] else x
+                for b, x in out.items()}
+
+
+_STACKED = ("m", "v", "mu")       # optimizer slots carrying the worker axis
+
+
+def flat_state_slices(run_cfg, spec: ShardedFlatSpace, worker: int,
+                      shard: int, n_shards: int) -> Tree:
+    """The global slices one rank of a mesh holds of the flat runtime
+    state, as a tree beside the state's (the reference's
+    `flat_state_specs`, written as a rank's slices, not PartitionSpecs):
+    params and the optimizer's m, v and mu are `[W, N]`, chunked over the
+    worker axes (row `worker`) and the shard axes (the `shard`-th of
+    `n_shards` contiguous chunks); anchor and outer_mu are `[N]`, chunked
+    over the shard axes; `step` is replicated (an empty tuple)."""
+    def chunk(b):
+        c = spec.buffer_size(b) // n_shards
+        return slice(shard * c, (shard + 1) * c)
+
+    bufs = lambda lead: {b: lead + (chunk(b),) for b in spec.buckets}  # noqa: E731
+    wlead = (slice(worker, worker + 1),)
+    slots = ("mu",) if run_cfg.optimizer == "sgd" else ("m", "v")
+    out = {"params": bufs(wlead),
+           "opt": {**{k: bufs(wlead) for k in slots}, "step": ()}}
+    if run_cfg.sync_quantize or run_cfg.outer_momentum > 0.0:
+        out["anchor"] = bufs(())
+        if run_cfg.outer_momentum > 0.0:
+            out["outer_mu"] = bufs(())
+    return out
+
+
+def take_slices(state: Tree, slices: Tree) -> Tree:
+    """A rank's state from the whole one: each leaf's slice, contiguous."""
+    return T.map(lambda sl, x: x[sl].contiguous() if sl else x, slices, state)
+
+
 # --------------------------------------------------------------------------
 # Runtime-state conversion (the RoundEngine's layout="flat" entry points)
 # --------------------------------------------------------------------------
-
-_STACKED = ("m", "v", "mu")       # optimizer slots carrying the worker axis
 
 
 def to_flat_state(spec: FlatParamSpace, state: Tree) -> Tree:

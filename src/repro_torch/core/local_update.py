@@ -13,7 +13,11 @@ the views `[w]`, sums the W losses and runs one backward into the alias's
 gradient is exactly its own gradient.  Under the flat layout the gradient
 is taken with respect to the `[W, N]` buckets through
 `FlatParamSpace.unflatten`'s views, which scatters each leaf's gradient
-into its slice: bitwise the tree layout's per-leaf gradient.  The
+into its slice: bitwise the tree layout's per-leaf gradient.  On a mesh
+(`make_mesh_local_step`) a rank gathers its worker's buckets over its
+shard group, takes the gradient at W = 1 and updates only its own chunk:
+every rank of a shard group computes the worker's whole step (the
+reference's GSPMD splits that compute; the port does not yet).  The
 optimizer then updates the state tensors under `torch.no_grad()` (in place
 on the card).  Folding the W workers into one batched product is later
 work.
@@ -90,18 +94,13 @@ def make_loss(cfg, run_cfg):
                    remat=bool(run_cfg.remat), **kw)
 
 
-def make_local_step(cfg, run_cfg, *, with_metrics: bool = False, spec=None):
-    """One per-worker optimizer step: NO cross-worker communication.
-
-    state leaves carry the leading worker axis W, batch leaves too.  Returns
-    local_step(state, batch, lr) -> (state, loss) or, with `with_metrics`,
-    (state, (loss, grad_norm)): the mean over workers of the W losses and of
-    each worker's global gradient L2 norm, as 0-d device tensors.  With
-    `spec` (a FlatParamSpace) params/opt are `{bucket: [W, N]}` buffers.
-    With `run_cfg.microbatch` > 1 the gradient is accumulated over that many
+def make_worker_grads(cfg, run_cfg, spec=None):
+    """grads(params, batch) -> (grads, losses): each worker's gradient of its
+    own loss, a tree like `params` (leaves `[W, ...]`, or `{bucket: [W,
+    N]}` with `spec`), and the W losses [W] (detached).  With
+    `run_cfg.microbatch` > 1 the gradient is accumulated over that many
     chunks of each worker's batch (the module docstring)."""
     loss_fn = make_loss(cfg, run_cfg)
-    opt = make_optimizer(run_cfg)
     mb = max(1, int(run_cfg.microbatch))
 
     def worker_losses(treedef, lanes, batch):
@@ -115,8 +114,8 @@ def make_local_step(cfg, run_cfg, *, with_metrics: bool = False, spec=None):
             losses.append(loss_fn(pw, T.map(lambda x: x[i], batch)))
         return torch.stack(losses)
 
-    def local_step(state, batch, lr):
-        leaves, treedef = T.flatten(state["params"])
+    def grads_fn(params, batch):
+        leaves, treedef = T.flatten(params)
         alias = [x.detach().requires_grad_(True) for x in leaves]
         lanes = [x.unbind(0) for x in alias]
         w, b = T.leaves(batch)[0].shape[:2]
@@ -134,19 +133,84 @@ def make_local_step(cfg, run_cfg, *, with_metrics: bool = False, spec=None):
                 torch.autograd.backward(loss_c.sum(), inputs=alias)
             losses = losses + loss_c.detach() / mb
         grads = [x.grad if mb == 1 else x.grad.div_(mb) for x in alias]
+        return T.unflatten(treedef, grads), losses
+
+    return grads_fn
+
+
+def _lane_norms(grads) -> torch.Tensor:
+    """Each worker's global gradient L2 norm [W], lane by lane: a whole
+    leaf's squares at once (10 GiB for gemma3-4b's stacked embedding
+    gradient at W = 4) would be the step's largest transient."""
+    sq = sum(torch.stack([torch.sum(torch.square(gl.float())) for gl in g])
+             for g in T.leaves(grads))
+    return torch.sqrt(sq)
+
+
+def make_local_step(cfg, run_cfg, *, with_metrics: bool = False, spec=None):
+    """One per-worker optimizer step: NO cross-worker communication.
+
+    state leaves carry the leading worker axis W, batch leaves too.  Returns
+    local_step(state, batch, lr) -> (state, loss) or, with `with_metrics`,
+    (state, (loss, grad_norm)): the mean over workers of the W losses and of
+    each worker's global gradient L2 norm, as 0-d device tensors.  With
+    `spec` (a FlatParamSpace) params/opt are `{bucket: [W, N]}` buffers.
+    With `run_cfg.microbatch` > 1 the gradient is accumulated over that many
+    chunks of each worker's batch (the module docstring)."""
+    grads_fn = make_worker_grads(cfg, run_cfg, spec)
+    opt = make_optimizer(run_cfg)
+
+    def local_step(state, batch, lr):
+        grads, losses = grads_fn(state["params"], batch)
         with torch.no_grad():
-            params, opt_state = opt.update(
-                state["params"], state["opt"], T.unflatten(treedef, grads), lr)
+            params, opt_state = opt.update(state["params"], state["opt"],
+                                           grads, lr)
             new_state = {**state, "params": params, "opt": opt_state}
             loss = torch.mean(losses)
             if not with_metrics:
                 return new_state, loss
-            # lane by lane: a whole leaf's squares at once (10 GiB for
-            # gemma3-4b's stacked embedding gradient at W = 4) would be the
-            # step's largest transient
-            sq = sum(torch.stack([torch.sum(torch.square(gl.float()))
-                                  for gl in g]) for g in grads)
-            return new_state, (loss, torch.mean(torch.sqrt(sq)))
+            return new_state, (loss, torch.mean(_lane_norms(grads)))
+
+    return local_step
+
+
+def make_mesh_local_step(cfg, run_cfg, spec):
+    """The local step of one rank of a mesh (`spec`: a mesh-carrying
+    ShardedFlatSpace): the rank holds its worker's chunk `[1, n]` of each
+    bucket of params, m and v.
+
+      1. all-gather the worker's buckets over the shard group ([1, N]);
+      2. the local step's gradient at W = 1 on the rank's lane of the batch;
+      3. keep the rank's chunk of the gradient;
+      4. the optimizer (`adamw_update` on the card) on the chunks.
+
+    A global-norm clip reads the whole gradient, which every rank of the
+    shard group holds.  Returns local_step(state, batch, lr) -> (state,
+    (loss, grad_norm)): this worker's loss and gradient norm, 0-d device
+    tensors (the engine averages them over the worker group)."""
+    grads_fn = make_worker_grads(cfg, run_cfg, spec)
+    opt = make_optimizer(run_cfg)
+    groups = spec.mesh.groups(spec.worker_axes)
+
+    def local_step(state, batch, lr):
+        with torch.no_grad():
+            full = {b: spec.mesh.all_gather(x[0], groups.shard)[None]
+                    for b, x in state["params"].items()}
+        grads, losses = grads_fn(full, batch)
+        with torch.no_grad():
+            norm = _lane_norms(grads)
+            chunk = {}
+            for b, g in grads.items():
+                n = state["params"][b].shape[1]
+                lo = groups.shard_index * n
+                # a new tensor: the optimizer kernel wants 16-byte aligned
+                # operands, and lo need not be a multiple of 4
+                chunk[b] = g[:, lo:lo + n].clone()
+            del full, grads
+            params, opt_state = opt.update(state["params"], state["opt"],
+                                           chunk, lr, grad_norm=norm[0])
+            new_state = {**state, "params": params, "opt": opt_state}
+            return new_state, (losses[0], norm[0])
 
     return local_step
 

@@ -38,8 +38,24 @@ The ring-int8 wire (`run_cfg.sync_wire`): the re-quantizing ring, emulated
 mesh-less over one bucket (`ring_codes_host`): per ring chunk, W - 1 hops
 of `ops.ring_combine` + `ops.ring_quantize_codes` carrying int8 codes and a
 0-d device scale.  Its result is within `ring_tolerance` of the exact mean,
-never bitwise.  The collective halves (reduce_scatter / all_gather, the
-mesh ring) wait for the distributed slice and raise.
+never bitwise.
+
+The collective halves (spec = a ShardedFlatSpace carrying a mesh,
+`launch/mesh.py`): each process is one rank, holding its worker's chunk
+`[1, N/S]` of the params and its chunk `[N/S]` of the anchor
+(`core/flat.py flat_state_slices`).  The worker mean splits into a
+reduce-scatter over the worker group (rank (i, s) then owns sub-chunk i of
+shard s's mean, `[1, N/(W S)]`) and an all-gather back to `[N/S]`, which
+the apply runs.  Quantized: shard-local partial amaxes per tensor, one MAX
+over the world group, int8 codes, then the code sums reduce-scattered at
+`wire_dtype(W)` (int16 while W * 127 < 2^15: a ring of int8 views, as the
+mesh module carries int16) and gathered back the same way; the sums are
+exact in any order, so every rank's chunk is bitwise the mesh-less path's.
+The ring wire runs W - 1 `ring_shift` hops of int8 codes and a scalar
+scale, folded by the `ring_combine` / `ring_quantize_codes` kernels.  The
+pending of an overlap sync stays on each rank: Σq of its sub-chunk and the
+scales of its shard chunk (quantized), its int8 mean sub-chunk and one
+scale (ring), or its f32 mean sub-chunk.
 """
 from __future__ import annotations
 
@@ -47,7 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import tree as T
-from repro_torch.errors import ConfigError
+from repro_torch.errors import ConfigError, LayoutError
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
@@ -85,10 +101,168 @@ def flat_delta_scales(spec, bucket: str, p, anchor, mask=None):
     return spec.spread(bucket, _guarded_scale(spec.segment_max(bucket, d)))
 
 
-def _no_mesh(spec) -> None:
-    if getattr(spec, "mesh", None) is not None:
-        raise ConfigError("the collective sync (reduce_scatter / all_gather "
-                          "over a mesh): not ported yet")
+def wire_dtype(w: int) -> torch.dtype:
+    """Smallest integer dtype that holds the on-wire sum of W int8 codes
+    exactly: the reduce-scatter's payload type of the quantized collective
+    sync (the ring's hops carry int8: one re-quantized mean each)."""
+    if w <= 1:
+        return torch.int8
+    return torch.int16 if w * 127 < 2 ** 15 else torch.int32
+
+
+# --------------------------------------------------------------------------
+# The collective halves: reduce-scatter | all-gather over a mesh
+# --------------------------------------------------------------------------
+
+def _use_collectives(spec) -> bool:
+    """True when `spec` is a mesh-carrying ShardedFlatSpace with worker
+    axes: the explicit reduce-scatter / all-gather decomposition."""
+    return (getattr(spec, "mesh", None) is not None
+            and bool(getattr(spec, "worker_axes", ())))
+
+
+def _groups(spec):
+    """The mesh's groups for the spec's worker axes; a rank's worker index
+    among them is the reference's `_linear_worker_index` (row-major over
+    the worker axes)."""
+    return spec.mesh.groups(spec.worker_axes)
+
+
+def _chunk_lo(spec, groups, bucket: str) -> int:
+    """Offset of this rank's shard chunk in the bucket buffer."""
+    return groups.shard_index * (spec.buffer_size(bucket) // groups.n_shards)
+
+
+def _lane(mask, groups):
+    """This rank's worker's entry of a [W] membership mask, as a 0-d
+    tensor on the mask's device."""
+    return mask[groups.worker_index]
+
+
+def partial_segment_amax(spec, bucket: str, d, lo: int):
+    """Shard-local per-tensor partial amax of one bucket chunk: d [W_loc,
+    n] delta rows of the elements [lo, lo + n) -> [#leaves] f32, -inf (the
+    max identity) for a tensor the chunk holds none of; a MAX over every
+    chunk's partials is the whole tensor's amax, exactly."""
+    return spec.chunk_segment_max(bucket, torch.amax(d.abs(), 0), lo)
+
+
+def _rs_mean(spec, x, w: int, mask=None):
+    """[1, n] f32 chunk -> this rank's [1, n/W] sub-chunk of the worker
+    mean, by one reduce-scatter over the worker group.  With a membership
+    mask the mean runs over the participants: absent lanes are zeroed
+    before the reduce and the divisor is |P|, the SUM of the lanes' entries
+    over the worker group."""
+    g = _groups(spec)
+    mesh = spec.mesh
+    if mask is None:
+        return kref.true_div(mesh.reduce_scatter_sum(x[0], g.worker),
+                             float(w))[None]
+    m = _lane(mask, g)
+    cnt = mesh.all_reduce(m.reshape(1), "sum", g.worker)[0]
+    return (mesh.reduce_scatter_sum(x[0] * m, g.worker) / cnt)[None]
+
+
+def _ag_mean(spec, pending):
+    """Inverse leg: this rank's [1, n/W] sub-chunk -> its shard's whole
+    consensus chunk [n], by one all-gather over the worker group."""
+    g = _groups(spec)
+    return spec.mesh.all_gather(pending[0], g.worker)
+
+
+def _rs_quantized_begin(spec, params, anchor, mask=None):
+    """The quantized reduce on a rank: the delta of its chunk, per-tensor
+    partial amaxes of the chunk (-inf for a tensor it holds none of), one
+    MAX over the world group (a [sum #leaves] fold, the only scale
+    collective), int8 codes, then one reduce-scatter per bucket of the codes
+    at `wire_dtype(W)`.  Returns {"q": {bucket: [1, n/W] code sums},
+    "scale": {bucket: [n] f32}} (+ {"count": |P|} with a mask, whose absent
+    lanes' deltas are zeroed before the amax and the quantizer)."""
+    g = _groups(spec)
+    mesh = spec.mesh
+    w = g.n_workers
+    wdt = wire_dtype(w)
+    m = None if mask is None else _lane(mask, g)
+    d, parts = {}, []
+    for b in spec.buckets:
+        d[b] = params[b].float() - anchor[b].float()[None]
+        if m is not None:
+            d[b] = d[b] * m
+        parts.append(partial_segment_amax(spec, b, d[b],
+                                          _chunk_lo(spec, g, b)))
+    full = mesh.all_reduce(torch.cat(parts), "max", g.world)
+    out = {"q": {}, "scale": {}}
+    off = 0
+    for b in spec.buckets:
+        n_leaves = spec.bucket_leaves(b)
+        per_leaf = _guarded_scale(full[off:off + n_leaves])
+        off += n_leaves
+        lo = _chunk_lo(spec, g, b)
+        scale = spec.chunk_spread(b, per_leaf, lo, lo + d[b].shape[1])
+        codes = kref.quantize_codes(d[b], scale[None]).to(wdt)
+        out["q"][b] = mesh.reduce_scatter_sum(codes[0], g.worker)[None]
+        out["scale"][b] = scale
+    if mask is not None:
+        out["count"] = mask.sum()
+    return out
+
+
+def _ag_codes(spec, qs):
+    """Gather leg of the quantized sync: each rank's [1, n/W] code sums ->
+    its shard chunk's [n], in the wire dtype."""
+    g = _groups(spec)
+    return {b: spec.mesh.all_gather(q[0], g.worker) for b, q in qs.items()}
+
+
+def _ring_quantized_begin(spec, params, anchor):
+    """The int8 ring reduce on a rank: its chunk's delta splits into W
+    sub-chunks; worker i seeds the partial of sub-chunk (i - 1) mod W, and
+    W - 1 `ring_shift` hops each carry one int8-quantized partial MEAN and
+    its f32 scalar scale, folded with the local sub-chunk by `ring_combine`
+    and re-quantized by `ring_quantize_codes`.  After the last hop worker i
+    owns the mean of sub-chunk i.  Returns {"q": {bucket: [1, n/W] int8},
+    "scale": {bucket: [1, 1] f32}}: the codes ARE the mean, one scale a
+    rank."""
+    g = _groups(spec)
+    mesh = spec.mesh
+    w, i = g.n_workers, g.worker_index
+    qs, ss = {}, {}
+    for b in spec.buckets:
+        d = params[b].float() - anchor[b].float()[None]
+        n_loc = d.shape[1]
+        if n_loc % w:
+            raise LayoutError(
+                f"ring bucket {b!r}: shard length {n_loc} not divisible "
+                f"by {w} workers")
+        dc = d[0].reshape(w, n_loc // w)
+        acc = dc[(i - 1) % w]
+        s = _guarded_scale(torch.max(torch.abs(acc)))
+        q = kops.ring_quantize_codes(acc, s)
+        for k in range(1, w):
+            q = mesh.ring_shift(q, g.worker)
+            s = mesh.ring_shift(s.reshape(1), g.worker)[0]
+            acc, amax = kops.ring_combine(q, s, dc[(i - 1 - k) % w], k)
+            s = _guarded_scale(amax)
+            q = kops.ring_quantize_codes(acc, s)
+        qs[b] = q[None]
+        ss[b] = s.reshape(1, 1)
+    return {"q": qs, "scale": ss}
+
+
+def _ag_ring(spec, pending):
+    """Gather leg of the ring: one int8 all-gather of the mean codes and
+    one of the scalar scales per bucket; each scale spread over its
+    sub-chunk's elements.  Returns (step_in {bucket: [n] f32}, scales
+    {bucket: [n] f32})."""
+    g = _groups(spec)
+    mesh = spec.mesh
+    step, scl = {}, {}
+    for b, q in pending["q"].items():
+        qg = mesh.all_gather(q[0], g.worker)
+        sg = mesh.all_gather(pending["scale"][b].reshape(1), g.worker)
+        step[b] = qg.float()
+        scl[b] = sg[:, None].expand(sg.shape[0], q.shape[1]).reshape(-1)
+    return step, scl
 
 
 # --------------------------------------------------------------------------
@@ -189,7 +363,7 @@ def make_sync_begin(run_cfg, spec=None, partial: bool = False):
     wire, which cannot take a mask."""
     quantize, mom = run_cfg.sync_quantize, run_cfg.outer_momentum
     wire = check_wire(run_cfg)
-    _no_mesh(spec)
+    coll = _use_collectives(spec)
     if wire == "ring-int8" and spec is None:
         raise ValueError("sync_wire='ring-int8' needs a flat layout "
                          "(--param-layout flat | flat_sharded): the ring "
@@ -200,6 +374,8 @@ def make_sync_begin(run_cfg, spec=None, partial: bool = False):
                          "bakes W into every hop — use wire='auto'")
 
     def mean_w(x, mask):
+        if coll:
+            return _rs_mean(spec, x, _groups(spec).n_workers, mask)
         if mask is None:
             return kref.mean0(x)
         return (x * _lane_mask(mask, x)).sum(0) / mask.sum()
@@ -210,9 +386,14 @@ def make_sync_begin(run_cfg, spec=None, partial: bool = False):
             return T.map(lambda p: mean_w(p.float(), mask), params)
         anchor = state["anchor"]
         if wire == "ring-int8":
-            return _ring_host_begin(spec, params, anchor)
+            return (_ring_quantized_begin(spec, params, anchor) if coll
+                    else _ring_host_begin(spec, params, anchor))
+        if quantize and coll:
+            return _rs_quantized_begin(spec, params, anchor, mask)
         delta = T.map(lambda p, a: p.float() - a.float()[None], params,
                       anchor)
+        if coll:
+            return T.map(lambda d: mean_w(d, mask), delta)
         if mask is not None:
             # zero absent lanes BEFORE the scale statistic and the quantizer
             delta = T.map(lambda d: d * _lane_mask(mask, d), delta)
@@ -254,30 +435,45 @@ def make_sync_apply(run_cfg, spec=None, partial: bool = False):
     Partial pendings divide their code sums by pending["count"]."""
     quantize, mom = run_cfg.sync_quantize, run_cfg.outer_momentum
     wire = check_wire(run_cfg)
-    _no_mesh(spec)
+    coll = _use_collectives(spec)
     del partial  # pendings self-describe via their "count" entry
+
+    def gather(x):
+        return _ag_mean(spec, x) if coll else x
 
     def to_params(consensus, params, entry):
         if entry is None:
-            return T.map(lambda c, p: c[None].expand(p.shape).to(p.dtype)
-                         .contiguous(), consensus, params)
+            # a new tensor, never a view of the consensus (the new anchor):
+            # at one lane an expanded view is already contiguous, and the
+            # optimizer would then update the anchor in place through it
+            return T.map(lambda c, p: torch.empty_like(p).copy_(
+                c[None].expand(p.shape)), consensus, params)
         return T.map(lambda c, p, e: (p.float() + (c[None] - e.float()))
                      .to(p.dtype), consensus, params, entry)
 
     def apply(state, pending, entry_params=None):
         params = state["params"]
         if not quantize and mom == 0.0:
-            return {**state, "params": to_params(pending, params,
-                                                 entry_params)}
+            return {**state, "params": to_params(T.map(gather, pending),
+                                                 params, entry_params)}
         if quantize and wire == "ring-int8":
-            step_in, scales = _ring_host_gather(pending, state["anchor"])
+            step_in, scales = (_ag_ring(spec, pending) if coll else
+                               _ring_host_gather(pending, state["anchor"]))
+        elif quantize and coll:
+            div = pending.get("count")
+            if div is None:
+                div = torch.full((), float(_groups(spec).n_workers),
+                                 device=pending["scale"][spec.buckets[0]].device)
+            step_in = {b: q.float() / div
+                       for b, q in _ag_codes(spec, pending["q"]).items()}
+            scales = pending["scale"]
         elif quantize:
             cnt = pending.get("count")
             step_in = (pending["q"] if cnt is None
                        else T.map(lambda q: q / cnt, pending["q"]))
             scales = pending["scale"]
         else:
-            step_in, scales = pending, None
+            step_in, scales = T.map(gather, pending), None
         mu_in = state["outer_mu"] if mom > 0.0 else None
         apply_one = kops.sync_apply_update if spec is not None \
             else kref.sync_apply_update
@@ -304,12 +500,12 @@ def make_sync(run_cfg, spec=None):
     FlatParamSpace) the state is flat: params {bucket: [W, N]},
     anchor/outer_mu {bucket: [N]}, and an anchored sync on the auto wire is
     one fused `sync_flat_update` per bucket (in place on the card).  The
-    tree layout and the ring wire compose begin and apply."""
+    tree layout, the ring wire and a mesh-carrying ShardedFlatSpace (a
+    rank's chunks, the collective halves) compose begin and apply."""
     quantize, mom = run_cfg.sync_quantize, run_cfg.outer_momentum
     wire = check_wire(run_cfg)
-    _no_mesh(spec)
 
-    if spec is not None and wire != "ring-int8":
+    if spec is not None and not _use_collectives(spec) and wire != "ring-int8":
         def sync_flat(state):
             params = state["params"]
             if not quantize and mom == 0.0:

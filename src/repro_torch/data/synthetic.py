@@ -88,12 +88,17 @@ class VisionStream:
         return torch.from_numpy(x), torch.from_numpy(y.astype(np.int32))
 
 
-def vision_batch_fn(stream: VisionStream, workers: int, b_loc: int):
+def vision_batch_fn(stream: VisionStream, workers: int, b_loc: int,
+                    lanes=None):
     """Host `batch_fn(step) -> {"images": [W, B, H, W, C], "labels": [W, B]}`
     for `RoundEngine(data="host")`: worker w draws `stream.batch(step, w,
-    b_loc)`, as `examples/vit_local_adamw.py` stacks them."""
+    b_loc)`, as `examples/vit_local_adamw.py` stacks them.  `lanes` (worker
+    indices) draws those workers' lanes alone, the same bits: a mesh rank's
+    batch is `lanes=[i]`."""
+    lanes = range(workers) if lanes is None else lanes
+
     def batch_fn(step: int) -> dict:
-        xs, ys = zip(*[stream.batch(step, w, b_loc) for w in range(workers)])
+        xs, ys = zip(*[stream.batch(step, w, b_loc) for w in lanes])
         return {"images": torch.stack(xs), "labels": torch.stack(ys)}
     return batch_fn
 
@@ -176,14 +181,16 @@ def device_batch_fn(cfg, stream: TokenStream, w: int, b_loc: int, seq: int,
 
 
 def make_train_batch(cfg, stream: TokenStream, step: int, w: int, b_loc: int,
-                     seq: int) -> dict:
+                     seq: int, lanes=None) -> dict:
     """Stacked per-worker batch {"tokens", "labels"} [W, B_loc, seq] (CPU
     int32) for the local-gradient runtime; a vlm config's also holds
     "prefix_embeds" [W, B_loc, n_img_tokens, d_model], an audio config's
     "frames" [W, B_loc, enc_seq, d_model] (CPU fp32, 0.02 · and 0.1 ·
-    normal, functions of the step alone)."""
-    toks, labels = zip(*[stream.batch(step, k, b_loc, seq)
-                         for k in range(w)])
+    normal, functions of the step alone).  `lanes` (worker indices) keeps
+    those workers' lanes, the same bits: their tokens are drawn alone, the
+    prefix or frames for all W and then indexed."""
+    idx = list(range(w)) if lanes is None else list(lanes)
+    toks, labels = zip(*[stream.batch(step, k, b_loc, seq) for k in idx])
     batch = {"tokens": torch.stack(toks), "labels": torch.stack(labels)}
     if cfg.family == "vlm":
         gen = torch.Generator().manual_seed(step * 131 + 7)
@@ -193,4 +200,8 @@ def make_train_batch(cfg, stream: TokenStream, step: int, w: int, b_loc: int,
         gen = torch.Generator().manual_seed(step * 131 + 11)
         batch["frames"] = 0.1 * torch.randn(
             (w, b_loc, cfg.enc_seq, cfg.d_model), generator=gen)
+    if lanes is not None:
+        for k in ("prefix_embeds", "frames"):
+            if k in batch:
+                batch[k] = batch[k][idx]
     return batch

@@ -137,6 +137,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.adamw_update_f32.argtypes = [_P] * 4 + [_L] + [_F] * 8 + [_P]
     lib.sync_flat_update_f32.argtypes = [_P] * 4 + [_L, _I, _F, _P]
     lib.sync_apply_update_f32.argtypes = [_P] * 6 + [_L, _F, _P]
+    lib.sync_flat_update_bf16.argtypes = [_P] * 4 + [_L, _I, _F, _P]
+    lib.sync_apply_update_bf16.argtypes = [_P] * 6 + [_L, _F, _P]
     lib.ring_combine_f32.argtypes = [_P] * 5 + [_L, _I, _P]
     lib.ring_quantize_f32.argtypes = [_P] * 3 + [_L, _P]
     lib.flash_decode_scratch_floats.argtypes = [_I] * 4
@@ -153,7 +155,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                lib.flash_decode_f32,
                lib.flash_attention_fwd_f32, lib.flash_attention_bwd_f32,
                lib.adamw_update_f32, lib.sync_flat_update_f32,
-               lib.sync_apply_update_f32, lib.ring_combine_f32,
+               lib.sync_apply_update_f32, lib.sync_flat_update_bf16,
+               lib.sync_apply_update_bf16, lib.ring_combine_f32,
                lib.ring_quantize_f32, lib.flash_decode_split_range,
                lib.flash_decode_next_tile, lib.empty_launch):
         fn.restype = _I

@@ -56,6 +56,23 @@
 // this apply on the live state and must not advance the anchor or mu.  The
 // op sequence after the mean is sync_flat_update_f32's, each op rounded on
 // its own, so the overlap sync at depth 0 stays bitwise the blocking one.
+//
+// 3. sync_flat_update_bf16 / sync_apply_update_bf16: the same two passes
+// on a bfloat16 bucket (the TPU kernels take the params and the anchor in
+// the bucket's dtype and compute in fp32).  They load the bf16 replicas and
+// anchor, run the fp32 op sequence above, and store the new anchor (and,
+// for the flat sync, every lane) with round-to-nearest-even
+// (__float2bfloat16_rn), as the plain versions' `.to(torch.bfloat16)`
+// does; mu, the scales and step_in stay fp32.  So each is bitwise its plain
+// version (the unquantized flat sync in lane order, as above).
+// Bound: per element the flat sync reads W replicas and the anchor at 2
+// bytes and the scale (and mu) at 4, and writes W replicas and the anchor
+// at 2 (and mu at 4): (4W + 8) bytes quantized without momentum; the apply
+// reads step_in and the scale at 4 and the anchor at 2 and writes the
+// anchor at 2: 12 bytes.  Device-memory bytes bound both.
+// Design: a simple grid-stride pass, one element a thread an iteration
+// (2-byte loads); the bf16 buckets of the repo's configs are small.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -232,6 +249,51 @@ int launch_w(const FlatArgs& args, cudaStream_t stream) {
   }
 }
 
+template <bool kQuant, bool kMom>
+__global__ void __launch_bounds__(kThreads)
+sync_flat_bf16_kernel(__nv_bfloat16* __restrict__ p, __nv_bfloat16* __restrict__ anchor,
+                      const float* __restrict__ scale, float* __restrict__ mu, long long n,
+                      int w, float momentum) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const float wf = static_cast<float>(w);
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const float a = __bfloat162float(anchor[i]);
+    const float s = kQuant ? scale[i] : 0.f;
+    float acc = 0.f;
+    for (int l = 0; l < w; ++l) {
+      float d = __fsub_rn(__bfloat162float(p[l * n + i]), a);
+      if (kQuant) d = fminf(fmaxf(rintf(__fmul_rn(__fdiv_rn(d, s), 127.f)), -127.f), 127.f);
+      acc = __fadd_rn(acc, d);
+    }
+    float m1 = 0.f;
+    const float a1 = apply_one<kQuant, kMom>(__fdiv_rn(acc, wf), a, s, kMom ? mu[i] : 0.f, m1,
+                                             momentum);
+    const __nv_bfloat16 b1 = __float2bfloat16_rn(a1);
+    anchor[i] = b1;
+    if (kMom) mu[i] = m1;
+    for (int l = 0; l < w; ++l) p[l * n + i] = b1;
+  }
+}
+
+template <bool kQuant, bool kMom>
+__global__ void __launch_bounds__(kThreads)
+sync_apply_bf16_kernel(const float* __restrict__ step, const __nv_bfloat16* __restrict__ anchor,
+                       const float* __restrict__ scale, const float* __restrict__ mu,
+                       __nv_bfloat16* __restrict__ anchor_out, float* __restrict__ mu_out,
+                       long long n, float momentum) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    float m1 = 0.f;
+    const float a1 = apply_one<kQuant, kMom>(step[i], __bfloat162float(anchor[i]),
+                                             kQuant ? scale[i] : 0.f, kMom ? mu[i] : 0.f, m1,
+                                             momentum);
+    anchor_out[i] = __float2bfloat16_rn(a1);
+    if (kMom) mu_out[i] = m1;
+  }
+}
+
 }  // namespace
 
 // p [w, n], anchor [n]: contiguous fp32.  scale [n] fp32 or null (no
@@ -274,5 +336,47 @@ extern "C" int sync_apply_update_f32(const float* step_in, const float* anchor,
     sync_apply_kernel<false, true><<<blocks, kThreads, 0, s>>>(step_in, anchor, scale, mu, anchor_out, mu_out, n, n4, momentum);
   else
     sync_apply_kernel<false, false><<<blocks, kThreads, 0, s>>>(step_in, anchor, scale, mu, anchor_out, mu_out, n, n4, momentum);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bfloat16 instances: p [w, n] and anchor [n] contiguous bf16 (step_in,
+// scale, mu fp32); otherwise as the fp32 entry points above.
+extern "C" int sync_flat_update_bf16(void* p, void* anchor, const float* scale, float* mu,
+                                     long long n, int w, float momentum, void* stream) {
+  if (n <= 0 || w <= 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* pb = static_cast<__nv_bfloat16*>(p);
+  auto* ab = static_cast<__nv_bfloat16*>(anchor);
+  const int blocks = repro::grid_blocks(n, kThreads);
+  const bool quant = scale != nullptr, mom = mu != nullptr;
+  if (quant && mom)
+    sync_flat_bf16_kernel<true, true><<<blocks, kThreads, 0, s>>>(pb, ab, scale, mu, n, w, momentum);
+  else if (quant)
+    sync_flat_bf16_kernel<true, false><<<blocks, kThreads, 0, s>>>(pb, ab, scale, mu, n, w, momentum);
+  else if (mom)
+    sync_flat_bf16_kernel<false, true><<<blocks, kThreads, 0, s>>>(pb, ab, scale, mu, n, w, momentum);
+  else
+    sync_flat_bf16_kernel<false, false><<<blocks, kThreads, 0, s>>>(pb, ab, scale, mu, n, w, momentum);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sync_apply_update_bf16(const float* step_in, const void* anchor,
+                                      const float* scale, const float* mu, void* anchor_out,
+                                      float* mu_out, long long n, float momentum,
+                                      void* stream) {
+  if (n <= 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* ab = static_cast<const __nv_bfloat16*>(anchor);
+  auto* ob = static_cast<__nv_bfloat16*>(anchor_out);
+  const int blocks = repro::grid_blocks(n, kThreads);
+  const bool quant = scale != nullptr, mom = mu != nullptr;
+  if (quant && mom)
+    sync_apply_bf16_kernel<true, true><<<blocks, kThreads, 0, s>>>(step_in, ab, scale, mu, ob, mu_out, n, momentum);
+  else if (quant)
+    sync_apply_bf16_kernel<true, false><<<blocks, kThreads, 0, s>>>(step_in, ab, scale, mu, ob, mu_out, n, momentum);
+  else if (mom)
+    sync_apply_bf16_kernel<false, true><<<blocks, kThreads, 0, s>>>(step_in, ab, scale, mu, ob, mu_out, n, momentum);
+  else
+    sync_apply_bf16_kernel<false, false><<<blocks, kThreads, 0, s>>>(step_in, ab, scale, mu, ob, mu_out, n, momentum);
   return static_cast<int>(cudaGetLastError());
 }

@@ -41,6 +41,7 @@ KERNELS = {"rms_norm": _rn.rms_norm, "swiglu": _sw.swiglu,
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    _su.reset_bf16_launches()
 
 
 def launch_counts() -> dict[str, int]:

@@ -12,6 +12,11 @@
   `_ring_quantize_kernel`): the int8 ring's per-hop requant pass.  The
   scales stay 0-d device tensors: no hop synchronises with the host.
 
+The two sync passes take a bucket in fp32 or bfloat16 (params and anchor
+in the bucket's dtype; scales, mu and step_in fp32): a bf16 bucket runs the
+`*_bf16` instance, which computes in fp32 and rounds its stores to nearest
+even, bitwise its plain version (`.bf16_launches` counts those).
+
 Each wrapper launches its kernel on CUDA tensors and raises on anything
 else; `.launches` counts its launches.  `plain_*` are the plain PyTorch
 versions (`kernels/ref.py`), which CPU tensors take through
@@ -30,19 +35,29 @@ from repro_torch.kernels.ref import sync_apply_update as plain_apply  # noqa: F4
 from repro_torch.kernels.ref import sync_flat_update as plain  # noqa: F401
 
 
+_BUCKET_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _bucket_dtype(name: str, t) -> torch.dtype:
+    if t.dtype not in _BUCKET_DTYPES:
+        raise ShapeError(f"{name} has dtype {t.dtype}; the sync kernels take "
+                         "fp32 or bfloat16 buckets")
+    return t.dtype
+
+
 def sync_flat_update(p, anchor, *, scale=None, mu=None, momentum=0.0):
-    """p [W, N], anchor [N], scale [N] or None, mu [N] iff momentum > 0: fp32,
-    contiguous, on one CUDA device.  Returns (p, anchor, mu | None), updated
-    in place."""
+    """p [W, N] and anchor [N] of one dtype (fp32 or bf16), scale [N] or
+    None and mu [N] iff momentum > 0 fp32: contiguous, on one CUDA device.
+    Returns (p, anchor, mu | None), updated in place."""
     build.require_cuda("sync_flat_update p", p)
     if p.ndim != 2:
         raise ShapeError(f"sync_flat_update p must be [W, N], got "
                          f"{tuple(p.shape)}")
     w, n = p.shape
-    build.require("sync_flat_update p", p, device=p.device,
-                  dtype=torch.float32)
+    dt = _bucket_dtype("sync_flat_update p", p)
+    build.require("sync_flat_update p", p, device=p.device, dtype=dt)
     build.require("sync_flat_update anchor", anchor, device=p.device,
-                  dtype=torch.float32, shape=(n,))
+                  dtype=dt, shape=(n,))
     if scale is not None:
         build.require("sync_flat_update scale", scale, device=p.device,
                       dtype=torch.float32, shape=(n,))
@@ -51,18 +66,22 @@ def sync_flat_update(p, anchor, *, scale=None, mu=None, momentum=0.0):
                       dtype=torch.float32, shape=(n,))
     mu_arg = mu if momentum > 0.0 else None
     if n and w:
+        lib = build.library()
+        fn = (lib.sync_flat_update_bf16 if dt == torch.bfloat16
+              else lib.sync_flat_update_f32)
         with torch.cuda.device(p.device):
-            err = build.library().sync_flat_update_f32(
-                p.data_ptr(), anchor.data_ptr(),
-                None if scale is None else scale.data_ptr(),
-                None if mu_arg is None else mu_arg.data_ptr(), n, w,
-                float(momentum), build.stream_of(p))
+            err = fn(p.data_ptr(), anchor.data_ptr(),
+                     None if scale is None else scale.data_ptr(),
+                     None if mu_arg is None else mu_arg.data_ptr(), n, w,
+                     float(momentum), build.stream_of(p))
         build.check(err, "sync_flat_update")
         sync_flat_update.launches += 1
+        sync_flat_update.bf16_launches += dt == torch.bfloat16
     return p, anchor, mu_arg
 
 
 sync_flat_update.launches = 0
+sync_flat_update.bf16_launches = 0
 
 
 def _require_vector(name: str, t) -> int:
@@ -73,15 +92,17 @@ def _require_vector(name: str, t) -> int:
 
 
 def sync_apply_update(step_in, anchor, *, scale=None, mu=None, momentum=0.0):
-    """step_in, anchor [N], scale [N] or None, mu [N] iff momentum > 0: fp32,
-    contiguous, on one CUDA device.  Returns NEW (anchor, mu | None); the
-    inputs are left as they are."""
+    """step_in [N] fp32, anchor [N] fp32 or bf16, scale [N] or None and mu
+    [N] iff momentum > 0 fp32: contiguous, on one CUDA device.  Returns NEW
+    (anchor in the anchor's dtype, mu | None); the inputs are left as they
+    are."""
     n = _require_vector("sync_apply_update step_in", step_in)
     dev = step_in.device
     build.require("sync_apply_update step_in", step_in, device=dev,
                   dtype=torch.float32)
+    dt = _bucket_dtype("sync_apply_update anchor", anchor)
     build.require("sync_apply_update anchor", anchor, device=dev,
-                  dtype=torch.float32, shape=(n,))
+                  dtype=dt, shape=(n,))
     if scale is not None:
         build.require("sync_apply_update scale", scale, device=dev,
                       dtype=torch.float32, shape=(n,))
@@ -92,16 +113,19 @@ def sync_apply_update(step_in, anchor, *, scale=None, mu=None, momentum=0.0):
     new_a = torch.empty_like(anchor)
     new_mu = torch.empty_like(mu_arg) if mu_arg is not None else None
     if n:
+        lib = build.library()
+        fn = (lib.sync_apply_update_bf16 if dt == torch.bfloat16
+              else lib.sync_apply_update_f32)
         with torch.cuda.device(dev):
-            err = build.library().sync_apply_update_f32(
-                step_in.data_ptr(), anchor.data_ptr(),
-                None if scale is None else scale.data_ptr(),
-                None if mu_arg is None else mu_arg.data_ptr(),
-                new_a.data_ptr(),
-                None if new_mu is None else new_mu.data_ptr(), n,
-                float(momentum), build.stream_of(step_in))
+            err = fn(step_in.data_ptr(), anchor.data_ptr(),
+                     None if scale is None else scale.data_ptr(),
+                     None if mu_arg is None else mu_arg.data_ptr(),
+                     new_a.data_ptr(),
+                     None if new_mu is None else new_mu.data_ptr(), n,
+                     float(momentum), build.stream_of(step_in))
         build.check(err, "sync_apply_update")
         sync_apply_update.launches += 1
+        sync_apply_update.bf16_launches += dt == torch.bfloat16
     return new_a, new_mu
 
 
@@ -152,5 +176,11 @@ def ring_quantize(acc, scale):
 
 
 sync_apply_update.launches = 0
+sync_apply_update.bf16_launches = 0
 ring_combine.launches = 0
 ring_quantize.launches = 0
+
+
+def reset_bf16_launches() -> None:
+    sync_flat_update.bf16_launches = 0
+    sync_apply_update.bf16_launches = 0

@@ -30,8 +30,22 @@ choose the overlap depth under `--sync overlap`:
         --smoke --device cpu --steps 24 --workers 2 --batch 4 --seq 16 \
         --schedule adaptive --controller-trace trace.json
 
-`--mesh` and `--param-layout flat_sharded` raise `ConfigError("not ported
-yet")`.
+`--param-layout flat_sharded` pads the flat buckets to a multiple of the
+worker count (bitwise the flat layout).  `--mesh 2x1 --param-layout
+flat_sharded` (with `--policy`) runs one rank per process over
+`torch.distributed`: start the mesh's product of processes with
+`multihost --spawn` (or the REPRO_* environment), each a rank of the mesh
+engine (`core/engine.py`); `--backend gloo` (default; CPU tensors, or
+every rank on one card) or `nccl` (one card per rank):
+
+    PYTHONPATH=src python -m repro_torch.launch.multihost --spawn 2 \
+        --mode train -- --arch starcoder2-3b --smoke --device cpu \
+        --mesh 2x1 --param-layout flat_sharded --workers 2 --steps 4 \
+        --batch 2 --seq 16
+
+Started alone, `--mesh` raises a `ConfigError` that says how to spawn (the
+reference runs a mesh of simulated devices in one process; the port runs
+one process a rank).
 
 From Python, any model the port trains (here ViT-B/16 on its image stream):
 
@@ -244,6 +258,31 @@ def train(cfg, run_cfg: RunConfig, *, workers: int, b_loc: int, seq: int,
     return state, history
 
 
+def _mesh(args):
+    """The rank's Mesh for `--mesh`: the default process group must already
+    hold the mesh's product of processes (multihost --spawn, or the REPRO_*
+    environment, which this wires up)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import multihost
+    from repro_torch.launch.mesh import Mesh
+    if args.param_layout != "flat_sharded":
+        raise ConfigError("--mesh needs --param-layout flat_sharded")
+    dims, axes = multihost._parse_mesh(args.mesh)
+    if not dist.is_initialized():
+        multihost.initialize(backend=args.backend)
+    n = 1
+    for d in dims:
+        n *= d
+    if not dist.is_initialized() or dist.get_world_size() != n:
+        raise ConfigError(
+            f"--mesh {args.mesh} runs one process per rank: start {n} with "
+            f"`python -m repro_torch.launch.multihost --spawn {n} --mode "
+            f"train -- <these flags>` (or the REPRO_* environment)")
+    device = multihost.rank_device(args.device or "cuda", args.backend)
+    return Mesh(dims, axes, backend=args.backend, device=device)
+
+
 def main(argv=None):
     """The reference's training CLI.  Returns (state, history)."""
     ap = argparse.ArgumentParser()
@@ -272,8 +311,15 @@ def main(argv=None):
     ap.add_argument("--overlap-depth", type=int, default=0,
                     help="local steps the next round runs on stale params "
                          "before the deferred sync applies (--sync overlap)")
-    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--mesh", default=None,
+                    help="run the rounds on a mesh of ranks, e.g. 2x2 (data "
+                         "x model) or 2x1x2 (pod x data x model), one "
+                         "process each (multihost --spawn): needs "
+                         "--param-layout flat_sharded; --workers must equal "
+                         "the policy's worker count on the mesh")
     ap.add_argument("--policy", default="dp", choices=["dp", "fsdp"])
+    ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
+                    help="--mesh: the process group's backend")
     ap.add_argument("--async-observer", action="store_true",
                     help="mid-run checkpoints (and eval) on a background "
                          "thread fed by the engine's synced_view")
@@ -300,11 +346,7 @@ def main(argv=None):
                     help="checkpoint directory: resumed from when it holds "
                          "a checkpoint (either layout)")
     args = ap.parse_args(argv)
-    for bad, flag in ((args.mesh, "--mesh"),
-                      (args.param_layout == "flat_sharded",
-                       "--param-layout flat_sharded")):
-        if bad:
-            raise ConfigError(f"{flag}: not ported yet")
+    mesh = _mesh(args) if args.mesh else None
 
     cfg = R.get_smoke_config(args.arch) if args.smoke else R.get_config(args.arch)
     run_cfg = RunConfig(
@@ -320,7 +362,8 @@ def main(argv=None):
                       overlap_depth=args.overlap_depth,
                       adaptive_batch=(args.schedule == "adaptive"
                                       and args.engine == "bucketed"),
-                      device=args.device)
+                      mesh=mesh, policy=args.policy,
+                      device=None if mesh is not None else args.device)
     state, hist = train(cfg, run_cfg, workers=args.workers, b_loc=args.batch,
                         seq=args.seq, ckpt_dir=args.ckpt, engine=args.engine,
                         data=args.data, layout=args.param_layout,

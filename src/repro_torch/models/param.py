@@ -11,7 +11,11 @@ Every model module describes its parameters once, as a nested dict of
   * ``count_params``;
   * ``from_numpy_tree``  — the JAX package's params carried across as numpy.
 
-Sharding specs (`param_specs`) wait for the distributed slice.  A
+The sharding policies' worker axes (`worker_count`, `worker_mesh_axes`,
+over `launch/mesh.py`'s Mesh) name which mesh axes carry the divergent
+replicas; per-tensor sharding specs (`param_specs`) have no counterpart: a
+rank of the port keeps contiguous chunks of flat buckets instead
+(`core/flat.py ShardedFlatSpace`).  A
 `torch.Generator` and `jax.random` give different numbers from one seed:
 tests that need both packages on the same weights carry them across with
 `from_numpy_tree`.
@@ -105,3 +109,38 @@ def from_numpy_tree(tree: Tree, device) -> Tree:
     tensors on `device`, at the same key paths, values copied exactly."""
     return T.map(lambda a: torch.from_numpy(np.array(a, copy=True)).to(device),
                  tree)
+
+
+# --------------------------------------------------------------------------
+# Sharding policies: which mesh axes carry the workers
+# --------------------------------------------------------------------------
+
+# the "worker" entries of the reference's _POLICY_RULES: dp has one model
+# replica per data rank (and pod), fsdp one per pod
+_POLICY_RULES: dict[str, list[tuple[str, tuple[str, ...]]]] = {
+    "dp": [("worker", ("pod", "data"))],
+    "fsdp": [("worker", ("pod",))],
+}
+
+
+def _worker_rule(policy: str) -> tuple[str, ...]:
+    if policy not in _POLICY_RULES:
+        raise ShapeError(f"unknown sharding policy {policy!r}; pick from "
+                         f"{sorted(_POLICY_RULES)}")
+    return dict(_POLICY_RULES[policy])["worker"]
+
+
+def mesh_axis_sizes(mesh) -> dict[str, int]:
+    return dict(zip(mesh.axis_names, mesh.dims))
+
+
+def worker_count(policy: str, mesh) -> int:
+    """Number of local-gradient workers (divergent replicas) for a
+    policy on a mesh."""
+    sizes = mesh_axis_sizes(mesh)
+    return math.prod(sizes.get(a, 1) for a in _worker_rule(policy))
+
+
+def worker_mesh_axes(policy: str, mesh) -> tuple[str, ...]:
+    sizes = mesh_axis_sizes(mesh)
+    return tuple(a for a in _worker_rule(policy) if a in sizes)

@@ -46,7 +46,8 @@ def sgd(momentum: float = 0.9, weight_decay: float = 0.0,
         return {"mu": T.map(_zeros_f32, params),
                 "step": torch.zeros((), dtype=torch.int32)}
 
-    def update(params, state, grads, lr):
+    def update(params, state, grads, lr, grad_norm=None):
+        del grad_norm                   # sgd has no clip
         def one(p, m, g):
             gf = g.float() + weight_decay * p.float()
             m1 = momentum * m + gf
@@ -65,9 +66,11 @@ def adamw(beta1: float = 0.9, beta2: float = 0.999, eps: float = 1e-8,
         return {"m": T.map(_zeros_f32, params), "v": T.map(_zeros_f32, params),
                 "step": torch.zeros((), dtype=torch.int32)}
 
-    def update(params, state, grads, lr):
+    def update(params, state, grads, lr, grad_norm=None):
+        """`grad_norm`, when given, is the whole gradient's norm for the
+        clip (a mesh rank's `grads` are its chunk of it)."""
         if clip_norm > 0:
-            gn = global_norm(grads)
+            gn = global_norm(grads) if grad_norm is None else grad_norm
             scale = torch.clamp(clip_norm / (gn + 1e-9), max=1.0)
             grads = T.map(lambda g: g * scale.to(g.dtype), grads)
         step = state["step"] + 1

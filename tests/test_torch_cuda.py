@@ -1558,3 +1558,89 @@ def test_moe_loss_aux_and_grads_on_card_match_cpu(dev, arch):
     for g, w in zip(grads, wgrads):
         assert float((g.cpu() - w).abs().max()) <= GRAD_TOL * max(
             float(w.abs().max()), 1.0)
+
+
+# ---------------------------------------------- bf16 buckets, the mesh --
+
+@pytest.mark.parametrize("w,n", [(2, 120), (4, 100_003), (3, 7)])
+@pytest.mark.parametrize("quantize,momentum", [(False, 0.0), (True, 0.0),
+                                               (False, 0.9), (True, 0.9)])
+def test_sync_flat_update_bf16_matches_plain_bitwise(dev, w, n, quantize,
+                                                     momentum):
+    """The bf16 instance: bf16 params and anchor, fp32 math, stores rounded
+    to nearest even; quantized bitwise the plain version, unquantized
+    bitwise its ops in lane order."""
+    g = torch.Generator(device=dev).manual_seed(w * 100 + n)
+    anchor = (torch.randn(n, generator=g, device=dev) * 0.02).bfloat16()
+    p0 = (anchor.float() + torch.randn(w, n, generator=g, device=dev)
+          * 1e-3).bfloat16()
+    scale = ((torch.randn(n, generator=g, device=dev).abs() + 0.1) * 3e-3
+             if quantize else None)
+    mu = torch.randn(n, generator=g, device=dev) * 1e-4 if momentum else None
+    kw = dict(scale=scale, mu=mu, momentum=momentum)
+    plain = tref.sync_flat_update if quantize else \
+        tref.sync_flat_update_lane_order
+    want = plain(p0, anchor, **kw)
+    ops.reset_launch_counts()
+    t_su.reset_bf16_launches()
+    got = t_su.sync_flat_update(p0.clone(), anchor.clone(), scale=scale,
+                                mu=None if mu is None else mu.clone(),
+                                momentum=momentum)
+    assert t_su.sync_flat_update.bf16_launches == 1
+    for x, y in zip(got, want):
+        assert (x is None and y is None) or (x.dtype == y.dtype
+                                             and torch.equal(x, y))
+    assert got[0].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("n", [120, 100_003])
+@pytest.mark.parametrize("quantize,momentum", [(False, 0.0), (True, 0.0),
+                                               (False, 0.9), (True, 0.9)])
+def test_sync_apply_update_bf16_matches_plain_bitwise(dev, n, quantize,
+                                                      momentum):
+    step = _t(80, n)
+    if quantize:
+        step = torch.round(step * 100) / 4
+    anchor = _t(81, n).bfloat16()
+    scale = (_t(82, n).abs() + 0.1) * 1e-2 if quantize else None
+    mu = _t(83, n, scale=1e-3) if momentum else None
+    kw = dict(scale=scale, mu=mu, momentum=momentum)
+    keep = anchor.clone()
+    want = tref.sync_apply_update(step, anchor, **kw)
+    got = t_su.sync_apply_update(step, anchor, **kw)
+    for x, y in zip(got, want):
+        assert (x is None and y is None) or (x.dtype == y.dtype
+                                             and torch.equal(x, y))
+    assert got[0].dtype == torch.bfloat16 and torch.equal(anchor, keep)
+
+
+def test_two_gloo_ranks_on_the_card(dev, tmp_path):
+    """Two ranks over gloo on the one card (payloads staged through host
+    memory): every verb of the probe, then the quantized sync harness on a
+    2x1 mesh, each rank's chunks bitwise its host path's, both buckets
+    through the sync kernels."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    suite = '[{"mode": "probe"}, {"mode": "sync", "mesh": "2x1", ' \
+        '"quantize": true}]'
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.multihost", "--spawn", "2",
+         "--mode", "suite", "--device", "cuda", "--backend", "gloo",
+         "--suite", suite, "--store-dir", str(tmp_path), "--timeout", "200"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    import json
+    recs = [json.loads(ln) for ln in out.stdout.splitlines()
+            if ln.startswith("{")]
+    assert len(recs) == 2 and all(r["ok"] for r in recs)
+    for r in recs:
+        probe, sync = r["results"]
+        assert probe["device"].startswith("cuda") and all(
+            probe["checks"].values())
+        assert sync["max_abs_diff"] == 0.0
+        assert sync["launches"]["sync_flat_update"] > 0
+        assert sync["bf16_launches"]["sync_apply_update"] > 0
+    assert len({r["results"][1]["digest"] for r in recs}) == 1

@@ -68,3 +68,41 @@ def test_chip_smoke_alone_fails_without_a_result(tmp_path):
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def _code_strings(path):
+    """The string constants of a file that are not docstrings."""
+    tree = ast.parse(path.read_text(), str(path))
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(
+                    first.value, ast.Constant):
+                docs.add(id(first.value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_command_the_port_builds_names_the_jax_package(path):
+    """No string the port's code holds (a subprocess command, a module
+    name) names a module of the JAX package: `repro.` followed by a name,
+    as `python -m repro.launch.multihost` would."""
+    import re
+    bad = [s for s in _code_strings(path)
+           if re.search(r"(?<![\w/])repro\.[a-z_]", s)
+           or re.search(r"\bjax\b", s) and "import" in s]
+    assert not bad, f"{path.relative_to(ROOT)}: {bad}"
+
+
+def test_spawned_ranks_run_the_port():
+    """`multihost.spawn_workers` starts the port's module, never the JAX
+    package's."""
+    from repro_torch.launch import multihost
+    argv = multihost.worker_argv(["--mode", "sync"])
+    assert argv[1:3] == ["-m", "repro_torch.launch.multihost"]
+    assert multihost.WORKER_MODULE.startswith("repro_torch.")

@@ -557,9 +557,14 @@ def test_train_cli_equals_train(capsys, arch):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "4x2"], ["--param-layout", "flat_sharded"]])
+    ["--mesh", "4x2"], ["--param-layout", "flat_sharded", "--mesh", "4x2"]])
 def test_train_cli_unported_flags_raise(flags):
-    with pytest.raises(ConfigError, match="not ported yet"):
+    """`--mesh` in one process: a mesh needs the flat_sharded layout, as the
+    reference's does, and one process a rank (`multihost --spawn`), where
+    the reference runs simulated devices in one process."""
+    match = ("--spawn 8" if "flat_sharded" in flags
+             else "needs --param-layout flat_sharded")
+    with pytest.raises(ConfigError, match=match):
         ttrain.main(["--arch", "starcoder2-3b"] + CLI + flags)
 
 

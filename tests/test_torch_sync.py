@@ -517,8 +517,13 @@ def test_guards_raise_as_in_jax():
     assert tsync.SYNC_PROGRAMS == jsync.SYNC_PROGRAMS
     with pytest.raises(ConfigError, match="unknown sync program"):
         tsync.sync_program(TRun(), program="gather")
-    with pytest.raises(ConfigError, match="not ported yet"):
-        tsync.make_sync_begin(TRun(), types.SimpleNamespace(mesh=object()))
+    # the collective halves are ported (tests/test_torch_mesh*.py): on a
+    # mesh-carrying spec the ring refuses a mask as the reference's does
+    with pytest.raises(ValueError, match="does not compose with partial"):
+        tsync.make_sync_begin(
+            TRun(**RING), types.SimpleNamespace(mesh=object(),
+                                                worker_axes=("data",)),
+            partial=True)
 
     _, tcfg = _cfgs()
     fn = vision_batch_fn(TVision(n_classes=N_CLASSES), 2, 2)

@@ -330,10 +330,12 @@ def test_unported_training_options_raise():
     fn = vision_batch_fn(TVision(n_classes=N_CLASSES), 2, 2)
     base = dict(workers=2, b_loc=2, seq=1, data="host", batch_fn=fn,
                 device="cpu")
-    for kw, what in ((dict(layout="flat_sharded"), "flat_sharded'"),
-                     (dict(mesh=object()), "a mesh")):
-        with pytest.raises(ConfigError, match=f"{what}: not ported yet"):
-            teng.RoundEngine(tcfg, run, **{**base, **kw})
+    # flat_sharded is ported (tests/test_torch_sharded.py); a mesh drives
+    # the collective sync of that layout alone, as the reference's does
+    assert teng.RoundEngine(tcfg, run, **base,
+                            layout="flat_sharded").layout == "flat_sharded"
+    with pytest.raises(ConfigError, match="layout=flat_sharded"):
+        teng.RoundEngine(tcfg, run, **base, mesh=object())
     # the adaptive batch knob is ported; like the reference's, it rides
     # the bucketed engine only
     assert teng.RoundEngine(tcfg, run, **base, adaptive_batch=True)\
@@ -348,9 +350,12 @@ def test_unported_training_options_raise():
     assert lm.data == "device" and lm._batch(0)["tokens"].shape == (2, 2, 8)
     with pytest.raises(ConfigError, match="need data='host'"):
         teng.RoundEngine(tcfg, run, workers=2, b_loc=2, seq=1, device="cpu")
-    with pytest.raises(ConfigError, match="not ported yet"):
-        tsync.make_sync(TRun(sync_quantize=True),
-                        spec=types.SimpleNamespace(mesh=object()))
+    # the collective sync is ported (tests/test_torch_mesh*.py); on a mesh
+    # the ring still refuses a membership mask, as the reference's does
+    with pytest.raises(ValueError, match="does not compose with partial"):
+        tsync.make_sync_partial(
+            TRun(sync_quantize=True, sync_wire="ring-int8"),
+            spec=types.SimpleNamespace(mesh=object(), worker_axes=("data",)))
 
 
 def test_engine_refuses_to_run_on_cpu_unasked(monkeypatch):
