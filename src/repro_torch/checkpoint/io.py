@@ -27,6 +27,9 @@ for the distributed slice.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
+import mmap
 import os
 from typing import Any
 
@@ -168,15 +171,21 @@ def restore(path: str, like: Any) -> tuple[Any, int | None]:
     return tree, step
 
 
-def _read_payload(path: str, name: str) -> dict:
+def _read_payload(path: str, name: str, *, mapped: bool = False) -> dict:
     """Unpack one checkpoint file; a torn, truncated or corrupt payload
     raises CheckpointError (a missing file FileNotFoundError).  Bin values
-    come back as memoryviews into the file's bytes: array data is copied
-    once, by `_decode`, and `_bytes` makes the rest bytes."""
+    come back as memoryviews into the file's bytes (`mapped`: into a
+    read-only map of the file): array data is copied once, by `_decode`,
+    and `_bytes` makes the rest bytes."""
     fname = os.path.join(path, name)
     with open(fname, "rb") as f:
-        data = bytearray(os.fstat(f.fileno()).st_size)
-        n = f.readinto(data)
+        size = os.fstat(f.fileno()).st_size
+        if mapped and size:
+            # the pages a caller copies out are the only ones read
+            data, n = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ), size
+        else:
+            data = bytearray(size)
+            n = f.readinto(data)
     try:
         payload = wire.unpackb(memoryview(data)[:n], bin_views=True)
     except wire.WireError as e:
@@ -211,10 +220,18 @@ def restore_with_meta(path: str, like: Any) -> tuple[Any, int | None, dict]:
                 raise CheckpointError(
                     f"checkpoint leaf {have} does not match the target "
                     f"shape {shape}")
-            got = got.to(device=want.device, dtype=want.dtype)
+            got = _place(got, want)
         out.append(got)
     return (T.unflatten(treedef, out), _bytes(payload.get("step")),
             _bytes(payload.get("extra") or {}))
+
+
+def _place(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """A restored leaf at `want`'s dtype, on its device; a `meta` target
+    (a shape template) leaves it on the CPU."""
+    if want.device.type == "meta":
+        return got.to(dtype=want.dtype)
+    return got.to(device=want.device, dtype=want.dtype)
 
 
 def _bytes(obj):
@@ -250,3 +267,232 @@ def try_read_meta(path: str) -> tuple[int | None, dict] | None:
 
 def exists(path: str) -> bool:
     return os.path.exists(os.path.join(path, "state.msgpack"))
+
+
+# --------------------------------------------------------------------------
+# Sharded manifest checkpoints (module docstring)
+# --------------------------------------------------------------------------
+
+Block = tuple[tuple[int, int], ...]     # (start, stop) per dimension
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where the ranks hold one leaf of a sharded state: the leaf's global
+    shape and, rank by rank, the global block that rank's tensor is (one
+    (start, stop) pair a dimension; a 0-d leaf's block is `()`)."""
+    shape: tuple[int, ...]
+    blocks: tuple[Block, ...]
+
+    def owners(self) -> dict[Block, int]:
+        """block -> the lowest rank holding it."""
+        out: dict[Block, int] = {}
+        for rank, blk in enumerate(self.blocks):
+            out.setdefault(blk, rank)
+        return out
+
+
+def _shard_fname(step, pid: int) -> str:
+    # step-stamped so a writer killed mid-save never clobbers the shard
+    # files the previous manifest still names
+    return f"shards-{int(step or 0):08d}-{pid:05d}.msgpack"
+
+
+def _tag(x: torch.Tensor) -> str:
+    if x.dtype not in _TAG_OF:
+        raise CheckpointError(f"cannot checkpoint dtype {x.dtype}: the "
+                              f"format's tags here are {sorted(_TAGS)}")
+    return _TAG_OF[x.dtype]
+
+
+def _raw(x: torch.Tensor) -> memoryview:
+    """A tensor's bytes (little-endian, C order) as a view of its host
+    copy."""
+    a = x.detach().cpu().contiguous().numpy()
+    return memoryview(a.reshape(-1).view(np.uint8))
+
+
+def save_sharded(path: str, tree: Any, *, step: int | None = None,
+                 extra: dict | None = None, barrier=None,
+                 placement: Any = None, rank: int = 0) -> None:
+    """Write this rank's shard file: the blocks it owns of every tensor leaf
+    of `tree`.  `placement` is a tree beside `tree` with a `Placement` for
+    every tensor leaf (each leaf of `tree` then is block `rank` of it), or
+    None for one process's state (whole leaves, written by rank 0).  Rank 0
+    then writes the manifest and meta file and deletes the shard files the
+    manifest does not name; `barrier` (a zero-argument callable, e.g. the
+    mesh's `barrier`) runs between the two, so the manifest never names a
+    file that is not yet durable.  Every file lands via `_write_atomic`."""
+    os.makedirs(path, exist_ok=True)
+    leaves, treedef = T.flatten(tree)
+    places = (T.flatten(placement)[0] if placement is not None
+              else [None] * len(leaves))
+    if len(places) != len(leaves):
+        raise CheckpointError(f"{len(places)} placements for {len(leaves)} "
+                              "leaves")
+    nproc = next((len(p.blocks) for p in places if p is not None), 1)
+    man_leaves: list = []           # per-leaf shape/dtype (or inline value)
+    fmap: dict = {}                 # fname -> [[leaf, block], ...]
+    mine: list = []                 # this rank's entries
+    for li, (x, pl) in enumerate(zip(leaves, places)):
+        if not isinstance(x, torch.Tensor):
+            man_leaves.append({"kind": "value", "value": x})
+            continue
+        if pl is None:
+            pl = Placement(tuple(x.shape), (tuple((0, n) for n in x.shape),))
+        man_leaves.append({"kind": "array", "shape": list(pl.shape),
+                           "dtype": _tag(x)})
+        for blk, owner in sorted(pl.owners().items()):
+            ser = [list(se) for se in blk]
+            fmap.setdefault(_shard_fname(step, owner), []).append([li, ser])
+            if owner == rank:
+                if tuple(x.shape) != tuple(e - s for s, e in blk):
+                    raise CheckpointError(
+                        f"leaf {li}: rank {rank}'s tensor {tuple(x.shape)} "
+                        f"is not its block {blk}")
+                mine.append([li, ser, _raw(x)])
+    _write_atomic(path, _shard_fname(step, rank), {"entries": mine})
+    if barrier is not None:
+        barrier()
+    if rank == 0:
+        _write_atomic(path, "manifest.msgpack", {
+            "treedef": _treedef_str(treedef), "step": step,
+            "extra": extra or {}, "leaves": man_leaves, "files": fmap,
+            "process_count": nproc})
+        _write_atomic(path, "meta.msgpack",
+                      {"step": step, "extra": extra or {}})
+        # retire shard files no manifest names anymore (older steps)
+        for f in os.listdir(path):
+            if (f.startswith("shards-") and f.endswith(".msgpack")
+                    and f not in fmap):
+                os.unlink(os.path.join(path, f))
+
+
+def restore_sharded(path: str, like: Any, *,
+                    blocks: Any = None) -> tuple[Any, int | None, dict]:
+    """Re-stitch a `save_sharded` checkpoint written under any process count
+    into the structure of `like` -> (tree, step, extra).  Without `blocks`
+    every tensor leaf is the whole leaf, assembled from every file; with
+    `blocks` (a tree beside `like`: each tensor leaf's global block) it is
+    that block alone, and only the files holding an entry that overlaps a
+    wanted block are opened.  Tensor leaves of `like` give the dtype and
+    device (`meta`: the CPU).  Raises CheckpointError on a torn manifest or
+    shard file, a missing shard file, incomplete coverage, or a leaf count
+    or shape that does not match the target."""
+    man = _read_payload(path, "manifest.msgpack")
+    leaves_like, treedef = T.flatten(like)
+    wanted = (T.flatten(blocks)[0] if blocks is not None
+              else [None] * len(leaves_like))
+    man_leaves = man.get("leaves") or []
+    if not isinstance(man_leaves, list) or \
+            len(man_leaves) != len(leaves_like):
+        n = (len(man_leaves) if isinstance(man_leaves, list)
+             else type(man_leaves).__name__)
+        raise CheckpointError(
+            f"manifest at {path} holds {n} leaves, the target structure "
+            f"expects {len(leaves_like)}")
+    bufs: list = []                 # numpy buffer, or an inline value
+    origin: list = []               # the buffer's global block
+    for li, (ml, want, blk) in enumerate(zip(man_leaves, leaves_like,
+                                             wanted)):
+        if ml.get("kind") == "value":
+            bufs.append(_bytes(ml.get("value")))
+            origin.append(None)
+            continue
+        shape = tuple(ml.get("shape") or ())
+        tag = ml.get("dtype")
+        if tag not in _TAGS:
+            raise CheckpointError(f"manifest leaf {li} has dtype tag "
+                                  f"{tag!r}, not one of {sorted(_TAGS)}")
+        if blk is None:
+            blk = tuple((0, n) for n in shape)
+        elif len(blk) != len(shape) or any(
+                not 0 <= s <= e <= n for (s, e), n in zip(blk, shape)):
+            raise CheckpointError(f"leaf {li}: block {blk} is not inside "
+                                  f"the manifest's shape {shape}")
+        ext = tuple(e - s for s, e in blk)
+        if isinstance(want, torch.Tensor) and tuple(want.shape) != ext:
+            what = "block" if blocks is not None else "leaf shape"
+            raise CheckpointError(
+                f"manifest {what} {ext} does not match the target shape "
+                f"{tuple(want.shape)}")
+        bufs.append(np.empty(ext, np.dtype(tag)))
+        origin.append(blk)
+    files = man.get("files") or {}
+    filled = [0] * len(bufs)
+    for fname in sorted(files):
+        if not any(_overlap(origin[li], ser) is not None
+                   for li, ser in files[fname]
+                   if 0 <= li < len(bufs) and origin[li] is not None):
+            continue
+        try:
+            shard = _read_payload(path, fname, mapped=True)
+        except FileNotFoundError as e:
+            raise CheckpointError(f"manifest at {path} names a missing "
+                                  f"shard file {fname}") from e
+        for li, ser, data in shard.get("entries") or []:
+            if not 0 <= li < len(bufs) or origin[li] is None:
+                raise CheckpointError(f"shard file {fname} has an entry for "
+                                      f"leaf {li}, which holds no array")
+            filled[li] += _paste(bufs[li], origin[li], ser, data, fname)
+    out = []
+    for li, (buf, want) in enumerate(zip(bufs, leaves_like)):
+        if origin[li] is None:
+            out.append(buf)
+            continue
+        if filled[li] != buf.size:
+            raise CheckpointError(
+                f"leaf {li}: shard files cover {filled[li]} of {buf.size} "
+                f"elements — missing or torn shard file")
+        got = torch.from_numpy(buf)
+        out.append(_place(got, want) if isinstance(want, torch.Tensor)
+                   else got)
+    return (T.unflatten(treedef, out), _bytes(man.get("step")),
+            _bytes(man.get("extra") or {}))
+
+
+def _overlap(blk, ser):
+    """The intersection of two global blocks ((start, stop) per dimension)
+    as (lo, hi) lists, or None when it is empty (0-d blocks always meet)."""
+    if len(blk) != len(ser):
+        return None
+    lo = [max(a, s) for (a, _), (s, _) in zip(blk, ser)]
+    hi = [min(b, e) for (_, b), (_, e) in zip(blk, ser)]
+    if any(x >= y for x, y in zip(lo, hi)):
+        return None
+    return lo, hi
+
+
+def _paste(buf: np.ndarray, blk, ser, data, fname: str) -> int:
+    """Copy the part of entry `ser` (its bytes `data`) that falls in `buf`
+    (global block `blk`); returns the elements copied."""
+    try:
+        ser = [(int(s), int(e)) for s, e in ser]
+        if len(ser) != len(blk):
+            raise ValueError(f"a {len(ser)}-d entry for a {len(blk)}-d leaf")
+        piece = np.frombuffer(data, dtype=buf.dtype).reshape(
+            [e - s for s, e in ser])
+    except (TypeError, ValueError) as e:
+        raise CheckpointError(f"torn or corrupt entry in shard file "
+                              f"{fname}: {e}") from e
+    hit = _overlap(blk, ser)
+    if hit is None:
+        return 0
+    lo, hi = hit
+    dst = tuple(slice(a - b0, b - b0) for a, b, (b0, _) in zip(lo, hi, blk))
+    src = tuple(slice(a - s0, b - s0) for a, b, (s0, _) in zip(lo, hi, ser))
+    buf[dst] = piece[src]
+    return math.prod(b - a for a, b in zip(lo, hi))
+
+
+def is_manifest(path: str) -> bool:
+    return os.path.exists(os.path.join(path, "manifest.msgpack"))
+
+
+def read_manifest_meta(path: str) -> tuple[int | None, dict]:
+    """(step, extra) of a manifest checkpoint: from the meta side file
+    (rank 0 writes it with the manifest), else the manifest itself."""
+    if os.path.exists(os.path.join(path, "meta.msgpack")):
+        return read_meta(path)
+    man = _read_payload(path, "manifest.msgpack")
+    return _bytes(man.get("step")), _bytes(man.get("extra") or {})

@@ -29,8 +29,10 @@ i of the batch and updates the rank's chunk (`make_mesh_local_step`); the
 sync runs its collective halves (`core/sync.py`).  Lane i of a batch is
 the single-process batch's lane, bit for bit: the built-in host stream
 draws that lane alone, device data draws all W lanes and keeps lane i (W
-times the draw), and a `batch_fn` returns the rank's lane `[1, B_loc,
-...]` itself (`vision_batch_fn(..., lanes=[i])`).  The round's loss, grad
+times the draw), and a `batch_fn` returns either the reference's W lanes
+`[W, B_loc, ...]` (lane i is kept) or the rank's lane `[1, B_loc, ...]`
+itself (`vision_batch_fn(..., lanes=[i])`, taken as it is); any other lane
+count raises ConfigError.  The round's loss, grad
 norm and divergence are all-reduced over the worker group (the divergence
 with one all-reduce of the params chunk).  `params_single` gathers worker
 0 over the shard group.  Every rank computes its worker's whole step: the
@@ -64,7 +66,18 @@ Checkpoints (`save` / `restore`) are the reference's files
 (`checkpoint/io.py`): the state, its step and `checkpoint_extra()` (the
 H-trace, W and the layout record), so a resumed run lands on the next round
 boundary, and `restore` converts a checkpoint written under the other
-layout through the tree layout.
+layout through the tree layout.  `save_sharded` writes the manifest form
+(one shard file a rank; a mesh-less engine writes one), and
+`restore_elastic` reads a manifest or a monolithic checkpoint written under
+any W, layout, shard count or process count: lanes beyond this engine's W
+are dropped, missing lanes clone lane 0 (params and moments), the rest stay
+bitwise.  A mesh rank checkpoints only through these two (it holds one
+chunk), and a worker set that grows or shrinks under a mesh is a new
+generation of processes that restores the last manifest
+(`launch/multihost.py --mode elastic`).  A mesh rank whose checkpoint has
+its own layout, shard count and W reads only the entries that overlap its
+blocks; any other goes the reference's way (the whole state assembled and
+converted through the tree layout), then the rank keeps its slices.
 
 The adaptive controller's two knobs (`core/controller.py`) move here at
 round boundaries: `set_overlap_depth` (read for a pending apply when the
@@ -75,9 +88,9 @@ effective_batch_view`), viewed after the draw, on host and device data
 alike.  The host still draws all b_loc samples and the step computes all
 of them, as the reference's fixed-shape program does.
 
-Not ported yet: checkpoints of a mesh engine (`save` / `restore` raise;
-`save_sharded` / `restore_elastic` come with the sharded checkpoints) and
-a lane resize on a mesh (it raises, as the reference's does).
+A lane resize on a live mesh raises (as the reference's does): the
+ranks checkpoint with `save_sharded` and respawn, and the new generation
+restores through `restore_elastic`.
 """
 from __future__ import annotations
 
@@ -169,6 +182,15 @@ def _remap_worker_lanes(tree_state: Tree, lanes: list[int]) -> Tree:
     out["opt"] = {k: (T.map(take, v) if k in flat._STACKED else v)
                   for k, v in tree_state["opt"].items()}
     return out
+
+
+def _checkpoint_meta(path: str) -> tuple[bool, dict]:
+    """(is it a manifest, its extra) of a manifest or monolithic
+    checkpoint."""
+    manifest = ckpt_io.is_manifest(path)
+    _, extra = (ckpt_io.read_manifest_meta(path) if manifest
+                else ckpt_io.read_meta(path))
+    return manifest, extra
 
 
 def _metrics(params, losses, gns, denom):
@@ -269,9 +291,8 @@ class RoundEngine:
         t0 = time.perf_counter()
         draw = self._synth if self._synth is not None else self._host_batch
         batch = draw(step)
-        if self._synth is not None and self.mesh is not None:
-            i = self._groups.worker_index      # all W drawn, lane i kept
-            batch = T.map(lambda x: x[i:i + 1], batch)
+        if self.mesh is not None:
+            batch = self._rank_lane(batch)
         self.data_seconds += time.perf_counter() - t0
         batch = T.map(lambda x: x.to(self.device), batch)
         if self.adaptive_batch:
@@ -280,6 +301,20 @@ class RoundEngine:
             # the worker loop and before a microbatch splits it
             batch = effective_batch_view(batch, self.batch_lanes, axis=1)
         return batch
+
+    def _rank_lane(self, batch: Tree) -> Tree:
+        """A mesh rank's lane of a batch: lane `worker_index` of a W-lane
+        batch (device data, or a reference-style `batch_fn`), a one-lane
+        batch as it is (the rank's own, e.g. `lanes=[i]`)."""
+        lanes = T.leaves(batch)[0].shape[0]
+        if lanes == 1:
+            return batch
+        if lanes != self.workers:
+            raise ConfigError(
+                f"a mesh rank takes a batch of {self.workers} lanes (it keeps "
+                f"its worker's) or of 1 (its own), got {lanes} lanes")
+        i = self._groups.worker_index
+        return T.map(lambda x: x[i:i + 1], batch)
 
     def _host_batch(self, step: int) -> Tree:
         """The batch of local step `step`: `batch_fn`'s, or the built-in
@@ -521,9 +556,9 @@ class RoundEngine:
         if resize and self.mesh is not None:
             raise MembershipError(
                 "a lane resize under a live mesh: torch.distributed process "
-                "groups cannot shrink in place (mesh engines resize via "
-                "checkpoint and respawn, which needs the sharded "
-                "checkpoints)")
+                "groups cannot shrink in place; checkpoint with save_sharded "
+                "and respawn the ranks, which restore through "
+                "restore_elastic (launch/multihost.py --mode elastic)")
         if resize:
             if state is None:
                 raise MembershipError("a resize needs the run state")
@@ -655,8 +690,8 @@ class RoundEngine:
     def _no_mesh_checkpoint(self) -> None:
         if self.mesh is not None:
             raise ConfigError(
-                "checkpoints of a mesh engine: not ported yet (slice 19: "
-                "save_sharded / restore_sharded)")
+                "a mesh rank holds one chunk of the state: checkpoint it with "
+                "save_sharded and restore it with restore_elastic")
 
     def _adopt_trace(self, extra: dict, step) -> int:
         trace = [(int(t), int(h)) for t, h in extra.get("h_trace", [])]
@@ -669,3 +704,170 @@ class RoundEngine:
                     f"implied by its H-trace (ends at {done})")
         self.h_trace = trace
         return step
+
+    # -- sharded checkpoints and elastic restore ------------------------------
+
+    def save_sharded(self, path: str, state: Tree, *, step: int,
+                     flush_pending: bool = False) -> None:
+        """The manifest checkpoint (`checkpoint/io.py save_sharded`): a mesh
+        rank writes the blocks of the global state it owns (every rank's
+        blocks are derived from the mesh coordinates; a replica, such as the
+        anchor across the workers or the step, is the lowest rank's), and
+        rank 0 the manifest, after the mesh's barrier; the barrier runs
+        again after the manifest, so when this returns on any rank the
+        checkpoint is whole.  A mesh-less engine is one process and writes
+        one file.  Same PendingSyncError contract as `save`."""
+        if self._pending is not None:
+            if not flush_pending:
+                raise PendingSyncError(
+                    "overlap sync in flight: save_sharded(flush_pending="
+                    "True) writes the synced consensus without disturbing "
+                    "the pipeline, or flush() first")
+            state = self.synced_view(state)
+        if self.mesh is None:
+            ckpt_io.save_sharded(path, state, step=step,
+                                 extra=self.checkpoint_extra())
+            return
+        ckpt_io.save_sharded(path, state, step=step,
+                             extra=self.checkpoint_extra(),
+                             barrier=self.mesh.barrier,
+                             placement=self._placement(state),
+                             rank=self.mesh.rank)
+        self.mesh.barrier()
+
+    def _rank_slices(self, worker: int, shard: int) -> Tree:
+        g = self._groups
+        return flat.flat_state_slices(self.run_cfg, self._ensure_spec(),
+                                      worker, shard, g.n_shards)
+
+    def _placement(self, state: Tree) -> Tree:
+        """A mesh rank's state as `checkpoint/io.py` Placements: every
+        leaf's global shape and each rank's block of it, from each rank's
+        (worker, shard) position and `flat_state_slices`."""
+        per_rank = [self._rank_slices(w, s)
+                    for w, s in self.mesh.positions(self._groups.worker_axes)]
+
+        def place(x, *slices):
+            if not isinstance(x, torch.Tensor):
+                return None
+            blocks = tuple(tuple((sl.start, sl.stop) for sl in sls)
+                           for sls in slices)
+            shape = tuple(max(b[d][1] for b in blocks)
+                          for d in range(x.ndim))
+            return ckpt_io.Placement(shape, blocks)
+
+        return T.map(place, state, *per_rank)
+
+    def restore_elastic(self, path: str, like_state: Tree) -> tuple[Tree, int]:
+        """Restore a checkpoint written under any worker count, layout,
+        shard count or process count, manifest or monolithic, into this
+        engine -> (state, step), the H-trace adopted.  Lanes beyond this
+        engine's W are dropped (highest first); missing lanes clone the
+        checkpoint's lane 0, params and moments both: at a round boundary
+        every participating lane holds the consensus, so the clone is the
+        re-anchoring a rejoining worker needs (zero moments would de-bias
+        Adam against the shared step counter).  The kept lanes stay
+        bitwise.  `like_state` (this engine's state, or its shapes) gives
+        each leaf its device.
+
+        A mesh rank reading a manifest of its own layout, shard count and W
+        reads only its blocks (module docstring); any other checkpoint is
+        assembled whole on the host, converted on the rank's device, and
+        sliced to the rank's chunks.  The participation mask resets to every lane."""
+        if self._pending is not None:
+            raise PendingSyncError(
+                "restore_elastic() with an overlap sync in flight would "
+                "orphan the pending reduce: flush() first")
+        manifest, extra = _checkpoint_meta(path)
+        ck_w = int(extra.get("workers") or self.workers)
+        if (self.mesh is not None and manifest
+                and extra.get("layout") == "flat_sharded"
+                and extra.get("shards") == self._ensure_spec().shards
+                and ck_w == self.workers):
+            g = self._groups
+            slices = self._rank_slices(g.worker_index, g.shard_index)
+            blocks = T.map(lambda sl: tuple((s.start, s.stop) for s in sl),
+                           slices)
+            state, step, extra = ckpt_io.restore_sharded(path, like_state,
+                                                         blocks=blocks)
+        else:
+            state, step, extra = self._restore_whole(path, like_state,
+                                                     manifest, extra)
+        self.membership = np.ones(self.workers, np.float32)
+        return state, self._adopt_trace(extra, step)
+
+    def _restore_whole(self, path: str, like_state: Tree, manifest: bool,
+                       extra: dict):
+        """The reference's route: the checkpoint's whole state read on the
+        host into a template of the writer's geometry (lanes, layout,
+        shards), then on the engine's device converted to the tree layout,
+        its lanes remapped to this engine's W, and laid out in this engine's
+        layout (on a mesh rank, then sliced to the rank's chunks); each leaf
+        then moved to its `like_state` leaf's device.  `manifest`, `extra`:
+        the checkpoint's `_checkpoint_meta`.  -> (state, step, extra)."""
+        ck_layout = extra.get("layout", "tree")
+        if ck_layout not in ("tree", "flat", "flat_sharded"):
+            raise ConfigError(f"restoring a {ck_layout!r} checkpoint: not "
+                              "ported yet")
+        ck_shards = extra.get("shards")
+        ck_w = int(extra.get("workers") or self.workers)
+        spec = self._ensure_spec() if self.layout != "tree" else None
+        # shapes only: templates on the meta device, restored to the CPU
+        meta = T.map(lambda x: (torch.empty(x.shape, dtype=x.dtype,
+                                            device="meta")
+                                if isinstance(x, torch.Tensor) else x),
+                     like_state)
+        if self.mesh is not None:
+            meta = self._whole_template(meta)
+        my_tree = meta if spec is None else flat.to_tree_state(spec, meta)
+        to_ck = (list(range(ck_w)) if ck_w <= self.workers
+                 else list(range(self.workers)) + [0] * (ck_w - self.workers))
+        ck_tree = _remap_worker_lanes(my_tree, to_ck)
+        ck_spec = None
+        if ck_layout != "tree":
+            single = T.map(lambda x: x[0], ck_tree["params"])
+            ck_spec = (flat.ShardedFlatSpace(single, ck_shards or 1)
+                       if ck_layout == "flat_sharded"
+                       else flat.FlatParamSpace(single))
+        like = (ck_tree if ck_spec is None
+                else flat.to_flat_state(ck_spec, ck_tree))
+        read = (ckpt_io.restore_sharded if manifest
+                else ckpt_io.restore_with_meta)
+        state, step, extra = read(path, like)
+        # the conversions below copy the state twice: on the engine's
+        # device, not in host memory (copies: the same bits anywhere)
+        state = T.map(lambda x: (x.to(self.device)
+                                 if isinstance(x, torch.Tensor) else x),
+                      state)
+        if ck_spec is not None:
+            state = flat.to_tree_state(ck_spec, state)
+        back = (list(range(self.workers)) if ck_w >= self.workers
+                else list(range(ck_w)) + [0] * (self.workers - ck_w))
+        state = _remap_worker_lanes(state, back)
+        if spec is not None:
+            state = flat.to_flat_state(spec, state)
+        if self.mesh is not None:
+            g = self._groups
+            state = flat.take_slices(state, self._rank_slices(
+                g.worker_index, g.shard_index))
+        state = T.map(lambda got, want: (got.to(want.device)
+                                         if isinstance(want, torch.Tensor)
+                                         else got), state, like_state)
+        return state, step, extra
+
+    def _whole_template(self, rank_meta: Tree) -> Tree:
+        """The whole flat state's shapes (W lanes, every chunk) from a mesh
+        rank's state template."""
+        spec = self._ensure_spec()
+
+        def whole(bufs, lead):
+            return {b: torch.empty(lead + (spec.buffer_size(b),),
+                                   dtype=x.dtype, device="meta")
+                    for b, x in bufs.items()}
+
+        out = {k: whole(v, ()) for k, v in rank_meta.items()
+               if k in ("anchor", "outer_mu")}
+        out["params"] = whole(rank_meta["params"], (self.workers,))
+        out["opt"] = {k: (whole(v, (self.workers,)) if k in flat._STACKED
+                          else v) for k, v in rank_meta["opt"].items()}
+        return out

@@ -257,8 +257,12 @@ def flat_state_slices(run_cfg, spec: ShardedFlatSpace, worker: int,
 
 
 def take_slices(state: Tree, slices: Tree) -> Tree:
-    """A rank's state from the whole one: each leaf's slice, contiguous."""
-    return T.map(lambda sl, x: x[sl].contiguous() if sl else x, slices, state)
+    """A rank's state from the whole one: each leaf's slice, copied into
+    storage of its own (contiguous and at the allocator's alignment, which
+    the kernels' vector loads need; a view would sit at the slice's offset
+    and keep the whole state alive)."""
+    own = lambda x: x.clone(memory_format=torch.contiguous_format)  # noqa: E731
+    return T.map(lambda sl, x: own(x[sl]) if sl else x, slices, state)
 
 
 # --------------------------------------------------------------------------

@@ -14,7 +14,8 @@ The collective verbs the sync and the mesh engine need, and nothing else:
 `reduce_scatter_sum`, `all_gather`, `all_reduce` (MAX and SUM) and
 `ring_shift` (one hop to the next rank of a group's ring, by
 `batch_isend_irecv`).  Each takes and returns 1-D tensors on the mesh's
-device.
+device.  `barrier` waits for every rank of the world (a sharded
+checkpoint's shard files are durable before rank 0 names them).
 
 Staging is fixed by the backend: gloo takes CPU tensors, so a device
 payload is copied to a pinned host buffer, sent, and copied back (the time
@@ -175,6 +176,21 @@ class Mesh:
         self._groups[waxes] = out
         return out
 
+    def positions(self, worker_axes) -> list[tuple[int, int]]:
+        """(worker index, shard index) of every rank, by rank: the indices
+        `groups(worker_axes)` gives that rank, computed from the mesh
+        coordinates alone (no communication)."""
+        waxes = [i for i, a in enumerate(self.axis_names)
+                 if a in tuple(worker_axes)]
+        saxes = [i for i in range(len(self.dims)) if i not in waxes]
+        out = []
+        for r in range(self.size):
+            c = _coords(r, self.dims)
+            out.append(tuple(_linear([c[i] for i in ax],
+                                     [self.dims[i] for i in ax])
+                             for ax in (waxes, saxes)))
+        return out
+
     def _split(self, axes) -> Group:
         """New groups of the ranks that differ only on `axes` (one per fixed
         value of the other axes, all made on every rank); returns this
@@ -299,6 +315,18 @@ class Mesh:
             buf = x.clone()
         dist.all_reduce(buf, op=_OPS[op], group=group.handle)
         return self._from_wire(buf)
+
+    def barrier(self) -> None:
+        """Return once every rank of the mesh has called this (the world
+        group, the reference's `sync_global_devices`).  Counted in
+        `stats.calls`; it sends no payload."""
+        self.stats.add("barrier", 0)
+        if self.size == 1:
+            return
+        if dist.get_backend() == "nccl":
+            dist.barrier(device_ids=[self.device.index])
+        else:
+            dist.barrier()
 
     def ring_shift(self, x: torch.Tensor, group: Group) -> torch.Tensor:
         """Send x [n] to the next rank of the group's ring and return the

@@ -33,8 +33,29 @@ output sharding after a sync holds every worker's lane of a shard chunk
 on each device (all lanes hold the consensus), so a params key names a
 [W, n] block: a rank gathers its worker group's rows for it.
 
-Not ported yet: `--mode elastic` and `--chaos`, which need the sharded
-checkpoints (`save_sharded`).
+Elastic rounds (`--mode elastic`) and fault injection (`--chaos`): a gloo
+group cannot resize in place (a dead member stalls every collective), so
+each worker set is one generation of processes, and the manifest
+checkpoint (`checkpoint/io.py save_sharded`) is what crosses between
+generations.  Within a generation of L lanes, L ranks of an L x 1 dp mesh
+run `--sync partial` engine rounds in lockstep, write a manifest at every
+round boundary and exchange heartbeat files before each round's
+collectives; a rank that died cannot announce, so the survivors detect the
+loss within a bounded timeout, exit 3 with a membership verdict, and the
+controller (`--spawn N --chaos ...`) respawns the surviving lanes from the
+last manifest, each generation held against one process running the same
+lanes on the mesh-less engine:
+
+    PYTHONPATH=src python -m repro_torch.launch.multihost --spawn 4 \\
+        --chaos preempt-restore --quantize --device cpu \\
+        --heartbeat-timeout 10
+
+  --chaos kill:worker=2,round=1   rank 2 dies at round 1; 3 ranks finish
+                                  the run, the consensus bitwise a 3-lane
+                                  one-process run
+  --chaos preempt-restore         ...then 4 ranks rejoin the lost lane
+                                  from the manifest, within 1e-5 / 1e-4 of
+                                  a 4-lane one-process run
 """
 from __future__ import annotations
 
@@ -46,6 +67,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -525,6 +547,409 @@ def probe(*, backend: str | None = None, device=None) -> dict:
 
 
 # --------------------------------------------------------------------------
+# Elastic rounds and fault injection (module docstring)
+# --------------------------------------------------------------------------
+
+class Heartbeat:
+    """File-based liveness detector for lockstep round workers.
+
+    Entering round r, every worker `announce(r)`s a heartbeat file, then
+    `await_peers(r)` polls for all peers' files under a bounded timeout.
+    A dead worker cannot announce, so the survivors learn of the loss
+    before entering the round's collectives — the only safe moment: one
+    dead gloo member stalls every collective until the group's timeout.
+    Workers are in lockstep (the previous round ended in a barrier), so a
+    missing heartbeat after `timeout` means dead or hopelessly straggling;
+    the verdict is the same either way: leave the generation and let the
+    controller respawn the survivors."""
+
+    def __init__(self, path: str, pid: int, nprocs: int, *,
+                 timeout: float = 30.0, poll: float = 0.05):
+        self.path, self.pid, self.n = path, pid, nprocs
+        self.timeout, self.poll = timeout, poll
+        os.makedirs(path, exist_ok=True)
+
+    def _f(self, rnd: int, pid: int) -> str:
+        return os.path.join(self.path, f"hb-{rnd:06d}-{pid:05d}")
+
+    def announce(self, rnd: int) -> None:
+        with open(self._f(rnd, self.pid), "w") as f:
+            f.write(f"{time.time()}")
+
+    def await_peers(self, rnd: int) -> list[int]:
+        """Block until every peer announced round `rnd` or the timeout
+        lapses; returns the pids still missing (empty: proceed)."""
+        deadline = time.monotonic() + self.timeout
+        missing = [p for p in range(self.n) if p != self.pid]
+        while missing and time.monotonic() < deadline:
+            missing = [p for p in missing
+                       if not os.path.exists(self._f(rnd, p))]
+            if missing:
+                time.sleep(self.poll)
+        return [p for p in missing if not os.path.exists(self._f(rnd, p))]
+
+
+def _parse_chaos(spec: str):
+    """'kill:worker=2,round=1' -> ('kill', {'worker': 2, 'round': 1})."""
+    if not spec:
+        return None, {}
+    kind, _, rest = spec.partition(":")
+    kv = {}
+    for part in rest.split(","):
+        if part:
+            a, _, b = part.partition("=")
+            kv[a.strip()] = int(b)
+    return kind, kv
+
+
+def _elastic_state_arrays(state):
+    """(tag, buffer) over the whole flat state: params, anchor, outer
+    momentum, then the optimizer's per-lane moments."""
+    for k in ("params", "anchor", "outer_mu"):
+        if k in state:
+            for b, arr in state[k].items():
+                yield f"{k}/{b}", arr
+    for k in ("m", "v", "mu"):
+        for b, arr in (state.get("opt") or {}).get(k, {}).items():
+            yield f"opt.{k}/{b}", arr
+
+
+def _elastic_pieces(eng, state):
+    """(key, tensor) of every shard unit the reference's generation holds,
+    keyed as the reference keys a device's shard: a mesh rank's own chunks;
+    a mesh-less engine's W lanes as the ranks of a W x 1 mesh hold them (a
+    [W, N] buffer's lane rows, an [N] buffer whole).  A dimension split in
+    one part is (None, None), as JAX indexes it."""
+    from repro_torch.core import flat as F
+    if eng.mesh is not None:
+        g = eng._groups
+        units = [(g.worker_index, g.shard_index, g.n_workers, g.n_shards,
+                  state)]
+    else:
+        units = [(w, 0, eng.workers, 1, F.take_slices(
+            state, F.flat_state_slices(eng.run_cfg, eng.spec, w, 0, 1)))
+            for w in range(eng.workers)]
+    out = []
+    for w, s, n_w, n_s, st in units:
+        for tag, arr in _elastic_state_arrays(st):
+            c = arr.shape[-1]
+            chunk = slice(s * c, (s + 1) * c) if n_s > 1 else slice(None)
+            index = ((slice(w, w + 1) if n_w > 1 else slice(None), chunk)
+                     if arr.ndim == 2 else (chunk,))
+            out.append((_key(tag, index), arr))
+    return out
+
+
+def _elastic_hashes(eng, state) -> dict:
+    """Shard hashes over the whole flat state — params, anchor, and the
+    per-lane Adam moments / outer momentum: a restore or trajectory fault
+    hiding in the moments would otherwise show only as a slow drift."""
+    return {k: hashlib.sha1(_bytes(x)).hexdigest()
+            for k, x in _elastic_pieces(eng, state)}
+
+
+def _elastic_norms(eng, state) -> dict:
+    """{shard key: [l2, absmax]} in float64 over the same units as
+    `_elastic_hashes`: the tolerance comparison where bitwise is not the
+    contract."""
+    out = {}
+    for k, x in _elastic_pieces(eng, state):
+        a = x.detach().double()
+        out[k] = [float(torch.sqrt(torch.sum(a * a))),
+                  float(a.abs().max()) if a.numel() else 0.0]
+    return out
+
+
+def norms_close(a: dict, b: dict, *, rtol: float = 1e-5) -> bool:
+    """Same shard keys, every [l2, absmax] pair within rtol (relative to
+    the larger magnitude, floored at 1.0 so zero buckets compare sanely)."""
+    if a is None or b is None or not a or set(a) != set(b):
+        return False
+    for k in a:
+        for x, y in zip(a[k], b[k]):
+            if abs(x - y) > rtol * max(abs(x), abs(y), 1.0):
+                return False
+    return True
+
+
+def run_elastic_worker(*, rounds: int, start_round: int = 0, workdir: str,
+                       chaos: str = "", quantize: bool = True,
+                       momentum: float = 0.0, seed: int = 0,
+                       arch: str = "starcoder2-3b",
+                       heartbeat_timeout: float = 30.0, lanes: int = 1,
+                       backend: str | None = None, device=None) -> dict:
+    """One worker of one elastic generation.  On an initialized process
+    group of L ranks: one rank of an L x 1 dp mesh (W = L lanes, one a
+    process); without one: the whole generation in this process, the
+    mesh-less engine at W = `lanes`, which holds every rank's chunks (the
+    reference's one-process run over L devices).  The reference's recipe:
+    the smoke config, AdamW, layout flat_sharded, sync "partial", device
+    data, 2 steps a round, a manifest checkpoint at every round boundary
+    (and, in one process, the monolithic twin in `ckpt-mono`).
+
+    start_round > 0 resumes from the workdir's manifest through
+    `restore_elastic`, written under any earlier worker count: a shrunk
+    generation drops the dead lane, a regrown one clones the consensus into
+    the rejoined lane.  start_round == rounds runs no round: the restore
+    and hash probe.
+
+    chaos="kill:worker=k,round=r": rank k leaves with `os._exit(7)` at the
+    start of round r, before announcing its heartbeat; the survivors'
+    `await_peers` times out and each returns the membership verdict
+    (status "membership-change": the missing ranks and the resume point),
+    on which the CLI exits 3."""
+    from repro_torch.configs import registry as R
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.engine import RoundEngine
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.optim.lr import make_lr_fn
+
+    mesh = None
+    if dist.is_initialized():
+        workers = dist.get_world_size()
+        mesh = Mesh((workers, 1), ("data", "model"), backend=backend,
+                    device=device)
+    else:
+        workers = int(lanes)
+    cfg = R.get_smoke_config(arch)
+    run_cfg = RunConfig(schedule="constant", optimizer="adamw",
+                        total_steps=2 * max(rounds, 1), peak_lr=3e-3,
+                        warmup_steps=1, h_base=2, remat=False,
+                        weight_decay=0.01, sync_quantize=quantize,
+                        outer_momentum=momentum, sharding="dp")
+    eng = RoundEngine(cfg, run_cfg, workers=workers, b_loc=2, seq=16,
+                      seed=seed, data="device", layout="flat_sharded",
+                      sync="partial", mesh=mesh, policy="dp",
+                      device=None if mesh is not None else device)
+    lr_fn = make_lr_fn(run_cfg)
+    state = eng.init_state()
+    ckpt = os.path.join(workdir, "ckpt")
+    if start_round > 0:
+        state, step = eng.restore_elastic(ckpt, state)
+        if step != 2 * start_round:
+            raise RuntimeError(
+                f"manifest at {ckpt} resumes at step {step}, this "
+                f"generation starts at round {start_round} (step "
+                f"{2 * start_round})")
+    pid = mesh.rank if mesh is not None else 0
+    nproc = mesh.size if mesh is not None else 1
+    kind, kv = _parse_chaos(chaos)
+    kill = ((kv.get("worker", -1), kv.get("round", -1))
+            if kind == "kill" else None)
+    # a heartbeat directory a generation: a stale announcement from an
+    # earlier one must not vouch for a rank that died in this one
+    hb = Heartbeat(os.path.join(workdir, f"hb-e{start_round}x{nproc}"),
+                   pid, nproc, timeout=heartbeat_timeout)
+    losses = []
+    for r in range(start_round, rounds):
+        if kill == (pid, r):
+            sys.stdout.flush()
+            os._exit(7)       # the chaos monkey: no goodbye, no heartbeat
+        hb.announce(r)
+        missing = hb.await_peers(r)
+        if missing:
+            return {"mode": "elastic", "status": "membership-change",
+                    "ok": True, "missing": missing, "resume_round": r,
+                    "resume_step": 2 * r, "checkpoint": ckpt,
+                    "rounds_done": r - start_round, **_launches(),
+                    **runtime_info()}
+        state, m = eng.run_round(state, 2 * r, 2, lr_fn)
+        losses.append(float(m["loss"]))
+        eng.save_sharded(ckpt, state, step=2 * (r + 1))
+        if mesh is None:
+            eng.save(os.path.join(workdir, "ckpt-mono"), state,
+                     step=2 * (r + 1))
+    return {"mode": "elastic", "status": "complete",
+            "ok": bool(np.all(np.isfinite(losses))) if losses else True,
+            "losses": losses, "shard_hashes": _elastic_hashes(eng, state),
+            "shard_norms": _elastic_norms(eng, state),
+            "workers": workers, "rounds": rounds,
+            "start_round": start_round, "checkpoint": ckpt,
+            "device": str(eng.device), **_launches(), **runtime_info()}
+
+
+def _sum_launches(records) -> dict:
+    """The kernels' launches summed over a generation's records."""
+    out: dict = {}
+    for rec in records:
+        for k, v in ((rec or {}).get("launches") or {}).items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _epoch_results(results):
+    """One generation's per-process (rc, stdout, stderr): the last JSON
+    line of each stdout, their merged shard hashes and norms, the rcs."""
+    parsed, hashes, norms = [], {}, {}
+    for _, so, _ in results:
+        rec = last_json(so)
+        parsed.append(rec)
+        if rec:
+            hashes.update(rec.get("shard_hashes") or {})
+            norms.update(rec.get("shard_norms") or {})
+    return parsed, hashes, norms, [rc for rc, _, _ in results]
+
+
+def run_elastic(num_workers: int, *, rounds: int = 3, chaos: str,
+                seed: int = 0, arch: str = "starcoder2-3b",
+                quantize: bool = True, momentum: float = 0.0,
+                workdir: str | None = None,
+                heartbeat_timeout: float = 30.0, timeout: float = 900,
+                extra_rounds: int = 2, device: str = "cuda",
+                backend: str = "gloo") -> dict:
+    """The fault-injection controller: drives worker generations (a gloo
+    group cannot resize in place, so each worker set is one generation of
+    processes) through a kill-and-recover story, holding each generation of
+    ranks against one process running the same lanes.
+
+    --chaos kill:worker=k,round=r
+      gen 0 (W ranks):   rounds 0..r-1 complete; rank k dies at the start
+                         of round r; the survivors' heartbeat timeout
+                         fires and they exit 3 with the verdict
+      gen 1 (W-1 ranks): resumes round r from the last round-boundary
+                         manifest and completes the run; its consensus
+                         (params + anchor) bitwise a one-process (W-1)-lane
+                         run resuming the same manifest (the quantized
+                         partial mean is exact in integer codes), the Adam
+                         moments within the norms tolerance
+    --chaos preempt-restore[:worker=k,round=r]
+      ...then gen 2 (W ranks again) rejoins the lost lane from gen 1's
+      final manifest (a W-lane restore of a (W-1)-lane checkpoint under
+      another process count; the rejoined lane clones the consensus) and
+      runs `extra_rounds` more, held within the norms (1e-5) and losses
+      (1e-4) tolerance of a one-process W-lane run; bitwise is reported.
+
+    Each reference generation runs in a copy of the workdir (the live one
+    advances the rolling checkpoint), beside its live generation.  The
+    ranks and the one-process runs are on `device` ("cuda": every rank on
+    the one card over `backend`).  Returns the recovery telemetry (the
+    reference's keys)."""
+    import concurrent.futures
+    import shutil
+
+    kind, kv = _parse_chaos(chaos)
+    if kind not in ("kill", "preempt-restore"):
+        raise ValueError(f"unknown chaos spec {chaos!r}")
+    k = kv.get("worker", num_workers // 2)
+    r = kv.get("round", 1)
+    if not (0 <= k < num_workers and 0 < r < rounds):
+        raise ValueError(f"chaos worker={k}, round={r} out of range for "
+                         f"{num_workers} workers x {rounds} rounds")
+    workdir = workdir or tempfile.mkdtemp(prefix="repro-torch-elastic-")
+    os.makedirs(workdir, exist_ok=True)
+
+    def fork(name: str) -> str:
+        dst = os.path.join(workdir, name)
+        os.makedirs(dst, exist_ok=True)
+        if os.path.isdir(os.path.join(workdir, "ckpt")):
+            shutil.copytree(os.path.join(workdir, "ckpt"),
+                            os.path.join(dst, "ckpt"), dirs_exist_ok=True)
+        return dst
+
+    def gen(lanes: int, total_rounds: int, start: int, *, one: bool = False,
+            chaos_arg: str = "", wd: str | None = None):
+        ex = ["--mode", "elastic", "--rounds", str(total_rounds),
+              "--start-round", str(start), "--workdir", wd or workdir,
+              "--momentum", str(momentum), "--seed", str(seed),
+              "--arch", arch, "--heartbeat-timeout", str(heartbeat_timeout),
+              "--device", device, "--backend", backend]
+        if quantize:
+            ex.append("--quantize")
+        if chaos_arg:
+            ex += ["--chaos", chaos_arg]
+        if one:
+            ex += ["--total-devices", str(lanes)]
+        return _epoch_results(spawn_workers(
+            1 if one else lanes, extra=tuple(ex), timeout=timeout,
+            distributed=not one))
+
+    def pair(lanes: int, total_rounds: int, start: int, ref_wd: str):
+        """The live generation and its one-process reference, together."""
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            ref = pool.submit(gen, lanes, total_rounds, start, one=True,
+                              wd=ref_wd)
+            live = gen(lanes, total_rounds, start)
+            return live, ref.result()
+
+    out = {"mode": "elastic-controller", "chaos": chaos, "workers":
+           num_workers, "rounds": rounds, "kill": {"worker": k, "round": r},
+           "workdir": workdir, "device": device, "generations": []}
+
+    # generation 0: the full worker set, one rank killed mid-run
+    t0 = time.perf_counter()
+    p0, _, _, rc0 = gen(num_workers, rounds, 0,
+                        chaos_arg=f"kill:worker={k},round={r}")
+    verdicts = [x for x in p0 if x and x.get("status") == "membership-change"]
+    detect_ok = (
+        rc0[k] == 7
+        and all(rc == 3 for i, rc in enumerate(rc0) if i != k)
+        and len(verdicts) == num_workers - 1
+        and all(v["missing"] == [k] and v["resume_round"] == r
+                for v in verdicts))
+    out["generations"].append({"lanes": num_workers, "rcs": rc0,
+                               "verdicts": verdicts, "detect_ok": detect_ok,
+                               "launches": _sum_launches(p0),
+                               "seconds": time.perf_counter() - t0})
+    if not detect_ok:
+        out["ok"] = False
+        return out
+
+    # generation 1: the survivors complete the run on the reduced mesh,
+    # bitwise a one-process run resuming the same manifest
+    lanes1 = num_workers - 1
+    t0 = time.perf_counter()
+    (p1, h1, n1, rc1), (pr, hr, nr, rcr) = pair(lanes1, rounds, r,
+                                                fork("ref1"))
+    # the bitwise claim is the partial-mean consensus (params + anchor:
+    # integer codes); the lane-local Adam moments are held within the norms
+    # tolerance, as the reference holds them
+    cons = lambda h: {key: v for key, v in h.items()  # noqa: E731
+                      if not key.startswith("opt.")}
+    recover_ok = (all(rc == 0 for rc in rc1 + rcr) and bool(h1)
+                  and cons(h1) == cons(hr) and norms_close(n1, nr))
+    out["generations"].append({
+        "lanes": lanes1, "rcs": rc1, "reference_rcs": rcr,
+        "rounds_redone": rounds - r,
+        "losses": next((x.get("losses") for x in p1 if x), None),
+        "reference_losses": next((x.get("losses") for x in pr if x), None),
+        "bitwise_vs_single_process": cons(h1) == cons(hr),
+        "moments_tolerance_ok": norms_close(n1, nr),
+        "shards_compared": len(h1), "launches": _sum_launches(p1),
+        "reference_launches": _sum_launches(pr),
+        "seconds": time.perf_counter() - t0})
+    ok = detect_ok and recover_ok
+
+    if kind == "preempt-restore" and ok:
+        # generation 2: the lost lane rejoins from gen 1's final manifest,
+        # held within the tolerance bound (the restore itself is bitwise:
+        # the manifest tests); bitwise is reported beside it
+        total2 = rounds + extra_rounds
+        t0 = time.perf_counter()
+        (p2, h2, n2, rc2), (pr2, hr2, nr2, rcr2) = pair(
+            num_workers, total2, rounds, fork("ref2"))
+        l2 = next((x.get("losses") for x in p2 if x), None)
+        lr2 = next((x.get("losses") for x in pr2 if x), None)
+        losses_ok = (l2 is not None and lr2 is not None and len(l2) == len(lr2)
+                     and all(abs(a - b) <= 1e-4 * max(abs(a), abs(b), 1.0)
+                             for a, b in zip(l2, lr2)))
+        rejoin_ok = (all(rc == 0 for rc in rc2 + rcr2)
+                     and norms_close(n2, nr2) and losses_ok)
+        out["generations"].append({
+            "lanes": num_workers, "rcs": rc2, "reference_rcs": rcr2,
+            "rejoined_from": "manifest", "extra_rounds": extra_rounds,
+            "losses": l2, "reference_losses": lr2,
+            "tolerance_vs_single_process": rejoin_ok,
+            "bitwise_vs_single_process": h2 == hr2,
+            "shards_compared": len(n2), "launches": _sum_launches(p2),
+            "reference_launches": _sum_launches(pr2),
+            "seconds": time.perf_counter() - t0})
+        ok = ok and rejoin_ok
+
+    out["ok"] = ok
+    return out
+
+
+# --------------------------------------------------------------------------
 # Spawning
 # --------------------------------------------------------------------------
 
@@ -536,26 +961,35 @@ def worker_argv(extra) -> list[str]:
 
 def spawn_workers(num_processes: int, *, extra=(), timeout: float = 900,
                   store_dir: str | None = None, env: dict | None = None,
-                  argv=None):
+                  argv=None, distributed: bool = True):
     """Launch `num_processes` ranks of this module (or of the command
     `argv`) on this machine and wait for them; returns [(returncode,
     stdout, stderr)] per rank.  They meet at a file store in `store_dir` (a
     fresh temporary directory by default): no port to race for.  A rank
     still running after `timeout` seconds is killed, and so are the
-    others: a spawn fails, it never hangs."""
+    others: a spawn fails, it never hangs.  `distributed=False` starts one
+    plain process, with no REPRO_* environment (a one-process run)."""
+    if not distributed and num_processes != 1:
+        raise ConfigError("a spawn without a process group is one process")
     tmp = None
     if store_dir is None:
         tmp = tempfile.TemporaryDirectory(prefix="repro-torch-mh-")
         store_dir = tmp.name
+    os.makedirs(store_dir, exist_ok=True)    # a store in a missing one hangs
     store = os.path.join(store_dir, "store")
     if os.path.exists(store):
         os.remove(store)
     procs = []
     for pid in range(num_processes):
         e = dict(os.environ if env is None else env)
-        e["REPRO_COORDINATOR"] = f"file://{store}"
-        e["REPRO_NUM_PROCESSES"] = str(num_processes)
-        e["REPRO_PROCESS_ID"] = str(pid)
+        if distributed:
+            e["REPRO_COORDINATOR"] = f"file://{store}"
+            e["REPRO_NUM_PROCESSES"] = str(num_processes)
+            e["REPRO_PROCESS_ID"] = str(pid)
+        else:
+            for var in ("REPRO_COORDINATOR", "REPRO_NUM_PROCESSES",
+                        "REPRO_PROCESS_ID"):
+                e.pop(var, None)
         e["PYTHONPATH"] = _SRC + os.pathsep + e.get("PYTHONPATH", "")
         procs.append(subprocess.Popen(argv or worker_argv(extra), env=e,
                                       stdout=subprocess.PIPE,
@@ -614,7 +1048,26 @@ def main(argv=None) -> None:
     ap.add_argument("--mode", default="sync",
                     choices=["sync", "engine", "probe", "elastic", "suite",
                              "train"])
-    ap.add_argument("--chaos", default="")
+    ap.add_argument("--chaos", default="",
+                    help="fault injection: 'kill:worker=K,round=R' or "
+                         "'preempt-restore[:worker=K,round=R]'.  With "
+                         "--spawn this runs the elastic controller across "
+                         "worker generations; for a rank it names its own "
+                         "death sentence")
+    ap.add_argument("--workdir", default="",
+                    help="elastic mode: the checkpoint and heartbeat "
+                         "directory the generations share (default: a new "
+                         "temporary directory)")
+    ap.add_argument("--start-round", type=int, default=0,
+                    help="elastic mode: the generation's first round (it "
+                         "resumes the workdir's manifest when > 0)")
+    ap.add_argument("--heartbeat-timeout", type=float, default=30.0,
+                    help="elastic mode: seconds before a silent peer is "
+                         "declared dead at a round boundary")
+    ap.add_argument("--total-devices", type=int, default=8,
+                    help="elastic mode in one process: its lane count")
+    ap.add_argument("--out", default="",
+                    help="also write the result JSON here")
     ap.add_argument("--membership", default="",
                     help="sync mode: comma mask ('1,1,0,1') switching both "
                          "paths to the partial sync")
@@ -649,14 +1102,33 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.wire == "ring-int8":
         args.quantize = True
-    if args.mode == "elastic" or args.chaos:
-        raise ConfigError("--mode elastic and --chaos: not ported yet (they "
-                          "need the sharded checkpoints, save_sharded)")
+
+    def emit(out: dict) -> None:
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(out, f, indent=2)
+        print(json.dumps(out), flush=True)
+
+    if args.spawn and args.chaos:
+        # the elastic controller: it only spawns generations and judges
+        # their verdicts and hashes
+        out = run_elastic(args.spawn, rounds=args.rounds, chaos=args.chaos,
+                          seed=args.seed, arch=args.arch,
+                          quantize=args.quantize, momentum=args.momentum,
+                          workdir=args.workdir or None,
+                          heartbeat_timeout=args.heartbeat_timeout,
+                          timeout=args.timeout, device=args.device,
+                          backend=args.backend)
+        emit(out)
+        sys.exit(0 if out["ok"] else 1)
 
     if args.spawn:
         extra = [a for a in (argv if argv is not None else sys.argv[1:])]
         i = extra.index("--spawn")
         del extra[i:i + 2]
+        if args.mode == "elastic" and not args.workdir:
+            # the ranks share one checkpoint and heartbeat directory
+            extra += ["--workdir", tempfile.mkdtemp(prefix="repro-el-")]
         results = spawn_workers(args.spawn, extra=tuple(extra),
                                 timeout=args.timeout,
                                 store_dir=args.store_dir)
@@ -669,6 +1141,24 @@ def main(argv=None) -> None:
         sys.exit(0 if ok else 1)
 
     initialize(backend=args.backend)
+    if args.mode == "elastic":
+        device = (rank_device(args.device, args.backend)
+                  if dist.is_initialized() else args.device)
+        out = run_elastic_worker(
+            rounds=args.rounds, start_round=args.start_round,
+            workdir=args.workdir or tempfile.mkdtemp(prefix="repro-el-"),
+            chaos=args.chaos, quantize=args.quantize,
+            momentum=args.momentum, seed=args.seed, arch=args.arch,
+            heartbeat_timeout=args.heartbeat_timeout,
+            lanes=args.total_devices, backend=args.backend, device=device)
+        emit(out)
+        if out.get("status") == "membership-change":
+            # exit 3 is the membership verdict; os._exit skips the process
+            # group's teardown, which would wait on the dead peer
+            os._exit(3)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        sys.exit(0 if out["ok"] else 1)
     if args.mode == "train":
         from repro_torch.launch import train
         try:
@@ -699,7 +1189,7 @@ def main(argv=None) -> None:
                            seed=args.seed, wire=args.wire,
                            membership=args.membership, backend=args.backend,
                            device=device)
-        print(json.dumps(out), flush=True)
+        emit(out)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

@@ -76,6 +76,13 @@ class ServingWeights:
         bufs = spec.empty(dev)
         gen = torch.Generator(device=dev).manual_seed(seed)
         pm.init_params(defs, gen, out=spec.unflatten(bufs))
+        return cls.from_buckets(cfg, spec, bufs, step=step, source=source)
+
+    @classmethod
+    def from_buckets(cls, cfg, spec, bufs: dict, *, step: int = 0,
+                     source: str = "init") -> "ServingWeights":
+        """Serving weights over `spec`'s dtype buckets `bufs` as they are:
+        no copy (the device is the buckets')."""
         self = cls.__new__(cls)
         self._setup(cfg, spec, bufs, step, source)
         return self

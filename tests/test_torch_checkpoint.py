@@ -495,6 +495,22 @@ def test_weight_subscriber_polls_a_watch_dir(starcoder2, tmp_path):
     assert sub.take() is None
 
 
+def test_serving_weights_from_buckets_takes_them_as_they_are():
+    """`ServingWeights.from_buckets` serves the given dtype buckets with no
+    copy: the model's tree views them, and a swap writes into them."""
+    cfg = TR.get_smoke_config(ARCH)
+    w0 = W.ServingWeights.from_seed(cfg, 0, device="cpu")
+    bufs = {b: v.clone() for b, v in w0.bufs.items()}
+    w = W.ServingWeights.from_buckets(cfg, w0.spec, bufs, step=3)
+    assert all(w.bufs[b] is bufs[b] for b in bufs)
+    assert w.step == 3 and w.epoch == 0 and w.device == torch.device("cpu")
+    assert all(torch.equal(a, b) for a, b in
+               zip(T.leaves(w.as_tree()), T.leaves(w0.as_tree())))
+    fresh = W.ServingWeights.from_seed(cfg, 9, device="cpu")
+    w.swap(fresh.as_tree(), step=4)
+    assert all(torch.equal(bufs[b], fresh.bufs[b]) for b in bufs)
+
+
 def test_watched_swap_mid_sequence_equals_a_restart_from_load_weights(
         tmp_path):
     """A training run's publish lands in the watch dir mid-decode: the

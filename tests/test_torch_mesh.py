@@ -12,8 +12,14 @@ spawn with a timeout.
   losses every rank reports equal; overlap at depth 0 bitwise blocking;
   depth 1 within 1e-6 of the mesh-less correction form.
 * The train CLI `--mesh 2x1 --param-layout flat_sharded` spawned on 2 ranks
-  completes its 4 steps; a mesh engine refuses checkpoints (they wait for
-  the sharded checkpoints) and a lane resize.
+  completes its 4 steps; a mesh engine refuses `save` / `restore` (naming
+  `save_sharded` / `restore_elastic`) and a lane resize (naming the
+  checkpoint-and-respawn route).
+* A mesh engine takes the reference's `batch_fn(step) -> [W, B_loc, ...]`:
+  on a 2-rank mesh at the starcoder2 smoke config, rounds on a W-lane
+  `make_train_batch` are bitwise the rounds on the rank's own lane
+  (`lanes=[i]`), a one-lane batch is taken as it is, and a 3-lane batch at
+  W = 2 raises ConfigError.
 """
 import json
 import os
@@ -178,6 +184,76 @@ print(json.dumps(out))
 
 def test_mesh_engine_refuses_checkpoints_and_resizes(tmp_path):
     for o in _spawn_code(2, REFUSE_CODE, tmp_path):
-        assert "slice 19" in o["save"] and "slice 19" in o["restore"]
-        assert "mesh" in o["resize"]
+        for name in ("save", "restore"):
+            assert "save_sharded" in o[name], o
+            assert "restore_elastic" in o[name], o
+        assert "mesh" in o["resize"] and "restore_elastic" in o["resize"]
         assert o["params"]
+
+
+BATCH_CODE = r'''
+import json, torch, torch.distributed as dist
+from repro_torch import tree as T
+from repro_torch.configs import registry as R
+from repro_torch.configs.base import RunConfig
+from repro_torch.core.engine import RoundEngine
+from repro_torch.data.synthetic import TokenStream, make_train_batch
+from repro_torch.errors import ConfigError
+from repro_torch.launch import multihost
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models import param as pm
+from repro_torch.optim.lr import make_lr_fn
+multihost.initialize(backend="gloo")
+m = Mesh((2, 1), ("data", "model"), backend="gloo", device="cpu")
+i = m.groups(pm.worker_mesh_axes("dp", m)).worker_index
+cfg = R.get_smoke_config("starcoder2-3b")
+run = RunConfig(schedule="constant", optimizer="adamw", total_steps=4,
+                peak_lr=3e-3, warmup_steps=1, h_base=2, remat=False,
+                weight_decay=0.01, sync_quantize=True)
+lr_fn = make_lr_fn(run)
+stream = TokenStream(vocab=max(cfg.vocab, 2), seed=0)
+
+def batches(w, lanes=None):
+    return lambda step: make_train_batch(cfg, stream, step, w, 2, 16,
+                                         lanes=lanes)
+
+def rounds(batch_fn, n=2):
+    eng = RoundEngine(cfg, run, workers=2, b_loc=2, seq=16, data="host",
+                      batch_fn=batch_fn, layout="flat_sharded", mesh=m)
+    st = eng.init_state()
+    losses = []
+    for r in range(n):
+        st, met = eng.run_round(st, 2 * r, 2, lr_fn)
+        losses.append(float(met["loss"]))
+    return st, losses
+
+st_w, l_w = rounds(batches(2))
+st_1, l_1 = rounds(batches(2, lanes=[i]))
+out = {"losses": l_w, "lanes_losses": l_1,
+       "bitwise": all(torch.equal(a, b) for a, b in
+                      zip(T.leaves(st_w), T.leaves(st_1)))}
+# a one-lane batch is the rank's own: worker 0's lane on both ranks
+st_0, _ = rounds(batches(2, lanes=[0]), n=1)
+st_0w, _ = rounds(lambda step: {k: v[:1] for k, v in
+                                batches(2)(step).items()}, n=1)
+out["one_lane_as_is"] = all(torch.equal(a, b) for a, b in
+                            zip(T.leaves(st_0), T.leaves(st_0w)))
+try:
+    rounds(batches(3), n=1)
+    out["three_lanes"] = "no error"
+except ConfigError as e:
+    out["three_lanes"] = str(e)
+dist.destroy_process_group()
+print(json.dumps(out))
+'''
+
+
+def test_mesh_engine_takes_a_w_lane_batch_fn(tmp_path):
+    outs = _spawn_code(2, BATCH_CODE, tmp_path)
+    for o in outs:
+        assert o["bitwise"], o
+        assert o["losses"] == o["lanes_losses"]
+        assert o["one_lane_as_is"], o
+        assert "2 lanes" in o["three_lanes"] and "3 lanes" in \
+            o["three_lanes"], o
+    assert outs[0]["losses"] == outs[1]["losses"]

@@ -117,6 +117,30 @@ def test_flat_state_slices_follow_the_chunk_rule():
     assert set(sgd["opt"]) == {"mu", "step"} and "anchor" not in sgd
 
 
+def test_take_slices_copies_each_slice_into_its_own_storage():
+    """A rank's state owns its storage: no slice is a view at an offset
+    into the whole state (the card's vector loads need the allocator's
+    alignment, and a view would keep the whole state alive)."""
+    ts = tflat.ShardedFlatSpace(tmh._demo_params(0), 3)
+    gen = torch.Generator().manual_seed(0)
+    rows = lambda: {b: torch.randn(3, ts.buffer_size(b), generator=gen)  # noqa: E731
+                    for b in ts.buckets if ts.buffer_size(b)}
+    whole = {"params": rows(), "opt": {"m": rows(), "v": rows(),
+                                       "step": torch.tensor(5)},
+             "anchor": {b: x[0] for b, x in rows().items()}}
+    run = RunConfig(sync_quantize=True)
+    for worker, shard, n_shards in ((1, 0, 1), (2, 1, 3)):
+        sl = tflat.flat_state_slices(run, ts, worker, shard, n_shards)
+        got = tflat.take_slices(whole, sl)
+        assert got["opt"]["step"] is whole["opt"]["step"]
+        for x, want, s in zip(T.leaves(got), T.leaves(whole), T.leaves(sl)):
+            if not s:
+                continue
+            assert torch.equal(x, want[s]) and x.is_contiguous()
+            assert x.storage_offset() == 0
+            assert x.untyped_storage().nbytes() == x.numel() * x.element_size()
+
+
 # -------------------------------------------- the mesh-less flat_sharded --
 
 SC2 = "starcoder2-3b"
